@@ -1,4 +1,4 @@
-"""DINO deformable-DETR detector, eval forward (counterpart of ``richsem_tpu/models/dino.py``).
+"""DINO deformable-DETR detector (counterpart of ``richsem_tpu/models/dino.py``).
 
 R50 backbone -> 4-level input projections -> deformable encoder (K1 sampler,
 K2 tail) -> two-stage top-``num_queries`` selection -> decoder with iterative
@@ -14,8 +14,13 @@ sites where flax has ``dtype=compute_dtype``; norms, attention-weight
 softmaxes, sampling locations, box arithmetic and the class-logit
 accumulation stay float32.
 
-This slice serves only: contrastive-denoising queries and CLIP query features
-raise ``NotImplementedError`` (ROADMAP.md queue 1, items 5 and 10).
+Training (``train=True``) takes the contrastive-denoising queries of
+:mod:`richsem_tpu_torch.models.dn` and puts ``.detach()`` at exactly the JAX
+package's ``stop_gradient`` sites: the two-stage selection scores, the
+reference points handed to the decoder, the content queries when
+``embed_init_tgt`` is off, the reference between decoder layers (the list of
+references keeps the undetached boxes) and the offset-saturation monitor. CLIP
+query features raise ``NotImplementedError`` (ROADMAP.md queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -210,9 +215,10 @@ class DeformableEncoderLayer(nn.Module):
         self.ffn = FFN(c.hidden_dim, c.dim_feedforward, c.activation, c.compute_dtype,
                        device=device)
 
-    def forward(self, src, pos, reference_points, spatial_shapes, pad_mask):
+    def forward(self, src, pos, reference_points, spatial_shapes, pad_mask,
+                monitor=None):
         attn_out = self.self_attn(src + pos, reference_points, src, spatial_shapes,
-                                  pad_mask)
+                                  pad_mask, monitor=monitor)
         b, s, d = src.shape
         ffn = self.ffn
         y = encoder_tail(
@@ -335,8 +341,14 @@ class DINO(nn.Module):
     """The detector. Build with ``DINO(cfg, device)``, then ``init_weights(generator)``
     or load a converted state dict (:func:`richsem_tpu_torch.utils.convert.params_from_jax`)."""
 
-    def __init__(self, cfg: DINOConfig, device=None):
+    def __init__(self, cfg: DINOConfig, device="cuda"):
         super().__init__()
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "DINO builds on 'cuda' unless asked otherwise, and no CUDA device "
+                "is available; pass device='cpu' to build on the CPU"
+            )
         c = self.cfg = cfg
         if c.backbone not in ("resnet50", "resnet101"):
             raise _not_ported(f"backbone {c.backbone!r}", "item 10")
@@ -443,6 +455,21 @@ class DINO(nn.Module):
         bias = self.enc_cls_bias if enc else self.cls_bias
         return h.float() @ k + bias
 
+    def encode_dn_labels(self, labels: torch.Tensor,
+                         text_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """DN label -> content embedding (``dino.py:643-664``): a label table, the
+        closed-vocabulary classifier's rows, or ``label_proj(text_embed)``; -1
+        slots get zero content."""
+        c = self.cfg
+        safe = labels.clamp(min=0)
+        if not c.dn_labelbook_reuse_cls:
+            emb = self.label_enc[safe.clamp(max=c.dn_labelbook_size)]
+        elif c.use_language:
+            emb = self.label_proj(text_embed)[safe.clamp(max=c.num_classes - 1)]
+        else:
+            emb = self.cls_kernel.t()[safe.clamp(max=c.num_classes - 1)]
+        return torch.where((labels < 0)[..., None], emb.new_zeros(()), emb)
+
     def forward(
         self,
         images: torch.Tensor,  # [B, H, W, 3] normalized
@@ -452,11 +479,13 @@ class DINO(nn.Module):
         dn_attn_mask: Optional[torch.Tensor] = None,
         text_embed: Optional[torch.Tensor] = None,  # [C, clip_embed_dim]
         clip_features: Optional[torch.Tensor] = None,
+        train: bool = False,
     ) -> Dict[str, Any]:
         feats = self.backbone(images.to(self.cfg.compute_dtype))
         return self.detect(feats, pad_mask, dn_labels=dn_labels,
                            dn_boxes_unsig=dn_boxes_unsig, dn_attn_mask=dn_attn_mask,
-                           text_embed=text_embed, clip_features=clip_features)
+                           text_embed=text_embed, clip_features=clip_features,
+                           train=train)
 
     def detect(
         self,
@@ -467,13 +496,20 @@ class DINO(nn.Module):
         dn_attn_mask: Optional[torch.Tensor] = None,
         text_embed: Optional[torch.Tensor] = None,
         clip_features: Optional[torch.Tensor] = None,
+        train: bool = False,
     ) -> Dict[str, Any]:
-        """Input projections -> transformer -> heads, from backbone features."""
+        """Input projections -> transformer -> heads, from backbone features.
+
+        With ``train`` the output also holds ``offset_beyond_margin`` (where the
+        encoder's windowed-kernel rule applies), and with DN inputs the DN
+        queries' outputs under ``dn_outputs``."""
         c = self.cfg
-        if dn_labels is not None or dn_boxes_unsig is not None or dn_attn_mask is not None:
-            raise _not_ported("contrastive denoising (DN queries)", "item 5")
         if clip_features is not None:
-            raise _not_ported("CLIP query features", "items 4 and 10")
+            raise _not_ported("CLIP query features", "item 11")
+        if (dn_labels is None) != (dn_boxes_unsig is None):
+            raise ValueError("dn_labels and dn_boxes_unsig come together")
+        if train and c.dropout > 0.0:
+            raise _not_ported("dropout in training", "item 11")
         b = pad_mask.shape[0]
 
         # ---- projections (the extra level comes from feats[-1]) --------
@@ -495,14 +531,18 @@ class DINO(nn.Module):
         # ---- encoder ---------------------------------------------------
         enc_ref = encoder_reference_points(spatial_shapes, vr)
         memory = src_flat
+        monitor = [] if train else None
         for layer in self.layers("encoder"):
-            memory = layer(memory, pos_flat, enc_ref, spatial_shapes, mask_flat)
+            memory = layer(memory, pos_flat, enc_ref, spatial_shapes, mask_flat,
+                           monitor=monitor)
 
         # ---- two-stage query selection ----------------------------------
         out_memory, out_props_unsig, prop_valid = gen_encoder_output_proposals(
             memory, mask_flat, spatial_shapes)
         out_memory = self.enc_output_norm(self.enc_output(out_memory))
-        scores = self._class_logits(out_memory, text_embed, enc=True).amax(-1)
+        # selection only: the [B, S, C] logits are not differentiated
+        with torch.no_grad():
+            scores = self._class_logits(out_memory, text_embed, enc=True).amax(-1)
         scores = scores.masked_fill(~prop_valid, float("-inf"))
         topk_idx = torch.topk(scores, c.num_queries, dim=1).indices  # [B, nq]
 
@@ -512,14 +552,24 @@ class DINO(nn.Module):
         tgt_undetach = gather(out_memory)
         ref_undetach = (self.enc_out_bbox_embed(tgt_undetach).float()
                         + gather(out_props_unsig))
+        refpoints_unsig = ref_undetach.detach()
         init_box_proposal = torch.sigmoid(gather(out_props_unsig))
         if c.embed_init_tgt:
             tgt = self.tgt_embed[None].expand(b, -1, -1)
         else:
-            tgt = tgt_undetach
+            tgt = tgt_undetach.detach()
+
+        # ---- prepend DN queries -----------------------------------------
+        num_dn = 0
+        if dn_labels is not None:
+            num_dn = dn_labels.shape[1]
+            tgt = torch.cat([self.encode_dn_labels(dn_labels, text_embed).to(tgt.dtype),
+                             tgt], dim=1)
+            refpoints_unsig = torch.cat([dn_boxes_unsig.float(), refpoints_unsig], dim=1)
+        self_attn_mask = None if dn_attn_mask is None else dn_attn_mask[:, None]
 
         # ---- decoder with iterative box refinement ----------------------
-        ref = torch.sigmoid(ref_undetach)  # [B, nq, 4]
+        ref = torch.sigmoid(refpoints_unsig)  # [B, QT, 4]
         references = [ref]
         hs_layers = []
         vr4 = torch.cat([vr, vr], -1)[:, None]  # [B, 1, L, 4]
@@ -528,11 +578,13 @@ class DINO(nn.Module):
             query_sine = gen_sineembed_for_position(ref_input[:, :, 0, :],
                                                     c.hidden_dim // 2)
             query_pos = self.ref_point_head(query_sine)
-            tgt = layer(tgt, query_pos, ref_input, memory, spatial_shapes, mask_flat)
+            tgt = layer(tgt, query_pos, ref_input, memory, spatial_shapes, mask_flat,
+                        self_attn_mask)
             # refinement uses the un-normed layer output; the heads the normed one
             delta = self.bbox_embed(tgt).float()
-            ref = torch.sigmoid(delta + inverse_sigmoid(ref))
-            references.append(ref)
+            new_ref = torch.sigmoid(delta + inverse_sigmoid(ref))
+            references.append(new_ref)
+            ref = new_ref.detach()
             hs_layers.append(tgt)
 
         # ---- stacked shared heads ----------------------------------------
@@ -543,18 +595,31 @@ class DINO(nn.Module):
         logit_stack = self._class_logits(hs_stack, text_embed)
 
         out: Dict[str, Any] = {}
+        clip_logits = None
         if c.use_visual_distill:
             clip_hs = l2_normalize(self.clip_visual_proj(hs_stack[-1]).float())
-            out["pred_clip_embed"] = clip_hs
+            out["pred_clip_embed"] = clip_hs[:, num_dn:]
             if text_embed is not None:
                 t = l2_normalize(text_embed.float())
-                out["pred_clip_logits"] = torch.exp(self.logit_scale) * (clip_hs @ t.t())
-        out["pred_logits"] = logit_stack[-1]
-        out["pred_boxes"] = coord_stack[-1]
+                clip_logits = torch.exp(self.logit_scale) * (clip_hs @ t.t())
+                out["pred_clip_logits"] = clip_logits[:, num_dn:]
+        out["pred_logits"] = logit_stack[-1, :, num_dn:]
+        out["pred_boxes"] = coord_stack[-1, :, num_dn:]
         out["aux_outputs"] = [
-            {"pred_logits": lg, "pred_boxes": cd}
+            {"pred_logits": lg[:, num_dn:], "pred_boxes": cd[:, num_dn:]}
             for lg, cd in zip(logit_stack[:-1], coord_stack[:-1])
         ]
+        if num_dn:
+            out["dn_outputs"] = {
+                "pred_logits": logit_stack[-1, :, :num_dn],
+                "pred_boxes": coord_stack[-1, :, :num_dn],
+                "aux_outputs": [
+                    {"pred_logits": lg[:, :num_dn], "pred_boxes": cd[:, :num_dn]}
+                    for lg, cd in zip(logit_stack[:-1], coord_stack[:-1])
+                ],
+            }
+            if clip_logits is not None:
+                out["dn_outputs"]["pred_clip_logits"] = clip_logits[:, :num_dn]
         interm_class = self._class_logits(tgt_undetach, text_embed, enc=True)
         out["interm_outputs"] = {
             "pred_logits": interm_class,
@@ -565,5 +630,7 @@ class DINO(nn.Module):
             "pred_boxes": init_box_proposal,
         }
         out["topk_idx"] = topk_idx
-        out["hs"] = hs_stack[-1]
+        out["hs"] = hs_stack[-1, :, num_dn:]
+        if monitor:
+            out["offset_beyond_margin"] = torch.stack(monitor).mean()
         return out

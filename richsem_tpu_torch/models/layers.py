@@ -54,6 +54,12 @@ def xavier_uniform_(w: torch.Tensor, g: torch.Generator) -> None:
     w.copy_((2.0 * u - 1.0) * limit)
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: the same values as ``clamp``, and the same gradient, which
+    is 1/2 at a value equal to a bound (``clamp`` gives 1 there)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
 # ---------------------------------------------------------------------------
 # flax-semantics building blocks
 # ---------------------------------------------------------------------------
@@ -209,13 +215,13 @@ class MSDeformAttn(nn.Module):
         self.attention_weights = Dense(d_model, mlp, device=device)
         self.output_proj = Dense(d_model, d_model, dtype=compute_dtype, device=device)
 
+    def windowed(self, q: int, s: int, spatial_shapes) -> bool:
+        """Whether JAX would route this call to a windowed kernel (``use_tiled``)."""
+        return (self.impl in ("tiled", "pallas", "pallas2") and q == s
+                and tiled_supported(spatial_shapes, self.tiled_tile))
+
     def clamps(self, q: int, s: int, spatial_shapes) -> bool:
-        windowed = self.impl in ("tiled", "pallas", "pallas2") and q == s
-        return (
-            windowed
-            and tiled_supported(spatial_shapes, self.tiled_tile)
-            and self.clamp_offsets
-        )
+        return self.windowed(q, s, spatial_shapes) and self.clamp_offsets
 
     def forward(
         self,
@@ -224,7 +230,10 @@ class MSDeformAttn(nn.Module):
         value_src: torch.Tensor,  # [B, S, C]
         spatial_shapes: Sequence[Tuple[int, int]],
         key_padding_mask: Optional[torch.Tensor] = None,  # [B, S] True=pad
+        monitor: Optional[list] = None,
     ) -> torch.Tensor:
+        """With a ``monitor`` list, a windowed call appends the fraction of
+        offsets at or beyond ``margin - 0.5`` (``layers.py:157-169``)."""
         b, q, _ = query.shape
         s = value_src.shape[1]
         m, l, p = self.n_heads, self.n_levels, self.n_points
@@ -236,9 +245,12 @@ class MSDeformAttn(nn.Module):
         offsets = self.sampling_offsets(query).reshape(b, q, m, l, p, 2)
         attn = self.attention_weights(query).reshape(b, q, m, l * p)
         attn = torch.softmax(attn, dim=-1).reshape(b, q, m, l, p)
+        bound = float(self.tiled_margin) - 0.5
+        if monitor is not None and self.windowed(q, s, spatial_shapes):
+            beyond = offsets.detach().abs().amax(-1) >= bound
+            monitor.append(beyond.float().mean())
         if self.clamps(q, s, spatial_shapes):
-            bound = float(self.tiled_margin) - 0.5
-            offsets = offsets.clamp(-bound, bound)
+            offsets = clip(offsets, -bound, bound)
         loc = compute_sampling_locations(
             reference_points.float(), offsets, spatial_shapes, p
         )

@@ -16,7 +16,8 @@ import ctypes
 import hashlib
 import os
 import subprocess
-from typing import Dict
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Sequence
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -64,6 +65,12 @@ def build(name: str) -> str:
         )
     os.replace(tmp, so)  # atomic: concurrent builders never load a partial file
     return so
+
+
+def build_all(names: Sequence[str]) -> None:
+    """Compile several sources at once, one ``nvcc`` process each."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        list(pool.map(build, names))
 
 
 def build_log(name: str) -> str:

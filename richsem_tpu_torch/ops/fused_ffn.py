@@ -5,11 +5,21 @@
     h2 = h1 @ W2 + b2               cast; bias adds in ``cdt``
     y  = LN2(x + h2)
 
-* :func:`encoder_tail` -- the public op. On CUDA tensors it launches the
-  hand-written kernel K2 (``csrc/fused_encoder_tail_fwd.cu``), which keeps the
-  [N, F] hidden on chip; on CPU tensors it runs :func:`encoder_tail_plain`.
+* :func:`encoder_tail` -- the public op. On CUDA tensors it is a
+  ``torch.autograd.Function``: the forward launches the hand-written kernel K2
+  (``csrc/fused_encoder_tail_fwd.cu``), which keeps the [N, F] hidden on chip,
+  and saves only its inputs; the backward launches K2-bwd
+  (``csrc/fused_encoder_tail_bwd.cu``), which recomputes the hidden. On CPU
+  tensors it runs :func:`encoder_tail_plain`, whose gradient is autograd's.
 * :func:`encoder_tail_plain` -- the plain PyTorch version; it mirrors
   ``xla_encoder_tail`` (``fused_ffn.py:269-286``) cast for cast.
+
+K2-bwd's cast points are those of the TPU kernel's backward
+(``richsem_tpu/ops/fused_ffn.py:_bwd_kernel``): ``du2`` cast to bf16, the relu
+mask from the recomputed ``h1``, ``dh1 = bf16(du2c @ W2)`` masked, ``db1``
+from the bf16 ``dh1``, ``db2`` from the f32 ``du2``, ``dx_ffn = dh1 @ W1`` and
+the weight gradients accumulated in f32; it returns ``du1`` for both ``src``
+and ``attn_out`` and every parameter gradient in the parameter's dtype.
 
 Weights come in ``nn.Linear``'s (out, in) layout: ``w1 [F, d]``, ``w2 [d, F]``
 (the transposes of the flax kernels).
@@ -41,6 +51,7 @@ def encoder_tail_plain(src, attn_out, w1, b1, w2, b2, s1, sb1, s2, sb2,
 
 
 _K2 = "fused_encoder_tail_fwd"
+_K2_BWD = "fused_encoder_tail_bwd"
 
 
 def _k2_lib() -> ctypes.CDLL:
@@ -53,7 +64,18 @@ def _k2_lib() -> ctypes.CDLL:
     return lib
 
 
-def _encoder_tail_cuda(src, attn_out, w1, b1, w2, b2, s1, sb1, s2, sb2, eps, cdt):
+def _k2_bwd_lib() -> ctypes.CDLL:
+    lib = _build.load(_K2_BWD)
+    fn = lib.encoder_tail_bwd
+    if fn.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ptr] * 22 + [i32, i32, i32, ctypes.c_float, ptr]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _cuda_args(src, attn_out, w1, b1, w2, b2, s1, sb1, s2, sb2, cdt):
+    """Checks and casts for K2 and K2-bwd -> the ten contiguous kernel inputs."""
     if cdt != torch.bfloat16:
         raise NotImplementedError(
             f"K2 computes in bfloat16 only; got compute dtype {cdt}"
@@ -75,9 +97,16 @@ def _encoder_tail_cuda(src, attn_out, w1, b1, w2, b2, s1, sb1, s2, sb2, eps, cdt
     args = [src, attn_out]
     args += [t.to(device=dev, dtype=torch.bfloat16) for t in (w1, b1, w2, b2)]
     args += [t.to(device=dev, dtype=torch.float32) for t in (s1, sb1, s2, sb2)]
-    args = [t.contiguous() for t in args]
-    out = torch.empty(n, d, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    return [t.contiguous() for t in args]
+
+
+def _encoder_tail_cuda(args, eps):
+    """K2 on the checked inputs of :func:`_cuda_args`."""
+    src = args[0]
+    n, d = src.shape
+    f = args[2].shape[0]
+    out = torch.empty(n, d, dtype=torch.float32, device=src.device)
+    with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _k2_lib().encoder_tail_fwd(
             *[t.data_ptr() for t in args], out.data_ptr(), n, d, f, float(eps), stream
@@ -88,16 +117,81 @@ def _encoder_tail_cuda(src, attn_out, w1, b1, w2, b2, s1, sb1, s2, sb2, eps, cdt
     return out
 
 
+def _encoder_tail_bwd_cuda(args, eps, dy):
+    """K2-bwd on the checked inputs of :func:`_cuda_args` and the f32 upstream
+    gradient -> f32 (du1, dw1, db1, dw2, db2, ds1, dsb1, ds2, dsb2).
+
+    Transients: bf16 x, h1, dh1 and du2 (rows padded to the 64-row block) that
+    the row-block pass writes for the weight-gradient products, and per-block
+    partial sums; ~410 MB at N = 49,980, F = 2048."""
+    src = args[0]
+    n, d = src.shape
+    f = args[2].shape[0]
+    dev = src.device
+    n_blk = (n + 63) // 64
+    n_pad = n_blk * 64
+    dy = dy.to(torch.float32).contiguous()
+    bf16 = dict(dtype=torch.bfloat16, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    du1 = torch.empty(n, d, **f32)
+    xb, du2c = torch.empty(n_pad, d, **bf16), torch.empty(n_pad, d, **bf16)
+    h1, dh1 = torch.empty(n_pad, f, **bf16), torch.empty(n_pad, f, **bf16)
+    part_vec = torch.empty(n_blk, 5 * d, **f32)  # ds1, dsb1, ds2, dsb2, db2
+    part_db1 = torch.empty(n_blk, f, **f32)
+    dw1, dw2 = torch.zeros(f, d, **f32), torch.zeros(d, f, **f32)
+    vec, db1 = torch.empty(5 * d, **f32), torch.empty(f, **f32)
+    ptrs = [t.data_ptr() for t in (*args, dy, du1, xb, h1, dh1, du2c, part_vec,
+                                   part_db1, dw1, dw2, vec, db1)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _k2_bwd_lib().encoder_tail_bwd(*ptrs, n, d, f, float(eps), stream)
+    if err != 0:
+        raise RuntimeError(f"K2-bwd fused_encoder_tail_bwd launch failed: CUDA error {err}")
+    encoder_tail_backward.launches += 1
+    ds1, dsb1, ds2, dsb2, db2 = vec.view(5, d).unbind(0)
+    return du1, dw1, db1, dw2, db2, ds1, dsb1, ds2, dsb2
+
+
+class _EncoderTailFn(torch.autograd.Function):
+    """K2 forward, K2-bwd backward; saves only the inputs (no [N, F] hidden)."""
+
+    @staticmethod
+    def forward(ctx, src, attn_out, w1, b1, w2, b2, s1, sb1, s2, sb2, eps, cdt):
+        args = _cuda_args(src, attn_out, w1, b1, w2, b2, s1, sb1, s2, sb2, cdt)
+        ctx.eps = eps
+        ctx.dtypes = [t.dtype for t in (w1, b1, w2, b2, s1, sb1, s2, sb2)]
+        ctx.save_for_backward(*args)
+        return _encoder_tail_cuda(args, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        du1, *grads = _encoder_tail_bwd_cuda(list(ctx.saved_tensors), ctx.eps, dy)
+        grads = [g.to(dt) for g, dt in zip(grads, ctx.dtypes)]
+        return (du1, du1, *grads, None, None)
+
+
 def encoder_tail(src, attn_out, w1, b1, w2, b2, s1, sb1, s2, sb2,
                  eps: float, cdt: torch.dtype) -> torch.Tensor:
-    """y = LN2(x + FFN(x)), x = LN1(src + attn_out): K2 on CUDA, plain on CPU."""
+    """y = LN2(x + FFN(x)), x = LN1(src + attn_out): K2 (and K2-bwd) on CUDA,
+    plain on CPU."""
     if src.device.type == "cpu":
         return encoder_tail_plain(src, attn_out, w1, b1, w2, b2, s1, sb1, s2, sb2,
                                   eps, cdt)
     if src.device.type != "cuda":
         raise RuntimeError(f"encoder_tail: no kernel for device {src.device}")
-    return _encoder_tail_cuda(src, attn_out, w1, b1, w2, b2, s1, sb1, s2, sb2,
-                              eps, cdt)
+    return _EncoderTailFn.apply(src, attn_out, w1, b1, w2, b2, s1, sb1, s2, sb2,
+                                eps, cdt)
+
+
+def encoder_tail_backward(src, attn_out, w1, b1, w2, b2, s1, sb1, s2, sb2,
+                          eps: float, cdt: torch.dtype, dy: torch.Tensor):
+    """K2-bwd called directly -> (du1, dw1, db1, dw2, db2, ds1, dsb1, ds2, dsb2),
+    f32, weights in nn.Linear layout. CUDA tensors only."""
+    if src.device.type != "cuda":
+        raise RuntimeError(f"encoder_tail_backward: no kernel for device {src.device}")
+    args = _cuda_args(src, attn_out, w1, b1, w2, b2, s1, sb1, s2, sb2, cdt)
+    return _encoder_tail_bwd_cuda(args, eps, dy)
 
 
 encoder_tail.launches = 0  # K2 launches; chip_smoke.py reads and resets it
+encoder_tail_backward.launches = 0  # K2-bwd launches, whichever way it is reached

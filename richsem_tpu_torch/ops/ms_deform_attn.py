@@ -1,12 +1,16 @@
 """Multi-scale deformable attention (counterpart of ``richsem_tpu/ops/ms_deform_attn.py``).
 
-* :func:`ms_deform_attn` -- the public op. On a CUDA tensor it launches the
-  hand-written kernel K1 (``csrc/ms_deform_attn_fwd.cu``); on a CPU tensor it
-  runs :func:`ms_deform_attn_plain`. Nothing else: a CUDA call that cannot
-  launch raises.
+* :func:`ms_deform_attn` -- the public op. On a CUDA tensor it is a
+  ``torch.autograd.Function``: the forward launches the hand-written kernel K1
+  (``csrc/ms_deform_attn_fwd.cu``), saves only ``(value, loc, aw)``, and the
+  backward launches K1-bwd (``csrc/ms_deform_attn_bwd.cu``). On a CPU tensor it
+  runs :func:`ms_deform_attn_plain`, whose gradient is autograd's. Nothing
+  else: a CUDA call that cannot launch raises.
 * :func:`ms_deform_attn_plain` -- the plain PyTorch version, the exact gather
   of the JAX package (``_tap_geometry`` + flat take): pixel = ``loc*size - 0.5``
-  and zero-padded taps, accumulated in float32.
+  and zero-padded taps, accumulated in float32. The value is gathered in
+  float32 too, so autograd folds d_value in float32 and casts it once, as
+  K1-bwd does.
 * :func:`compute_sampling_locations` -- reference points + offsets -> locations.
 * :func:`tiled_supported` -- the windowing plan test of
   ``richsem_tpu/ops/ms_deform_attn_tiled.py``; the port only needs it for the
@@ -101,7 +105,7 @@ def ms_deform_attn_plain(
     q, p = sampling_locations.shape[1], sampling_locations.shape[4]
     cdt = torch.promote_types(value.dtype, torch.float32)
     dev = value.device
-    flat = value.permute(0, 2, 1, 3).reshape(b * m * s, d)  # row (b, m, token)
+    flat = value.to(cdt).permute(0, 2, 1, 3).reshape(b * m * s, d)  # row (b, m, token)
     row0 = (
         torch.arange(b, device=dev)[:, None] * m + torch.arange(m, device=dev)[None, :]
     ) * s  # [B, M]
@@ -129,50 +133,94 @@ def ms_deform_attn_plain(
         wts = torch.where(valid, bilin, bilin.new_zeros(()))
         wts = wts * attention_weights[:, :, :, lvl].to(cdt)[..., None]  # [B,Q,M,P,4]
         idx = ys.clamp(0, h - 1) * w + xs.clamp(0, w - 1) + start + row0
-        taps = flat[idx.reshape(-1)].reshape(b, q, m, p * 4, d).to(cdt)
+        taps = flat[idx.reshape(-1)].reshape(b, q, m, p * 4, d)
         out += (wts.reshape(b, q, m, p * 4, 1) * taps).sum(dim=3)
         start += h * w
     return out.reshape(b, q, m * d).to(value.dtype)
 
 
 _K1 = "ms_deform_attn_fwd"
+_K1_BWD = "ms_deform_attn_bwd"
 
 
-def _k1_lib() -> ctypes.CDLL:
-    lib = _build.load(_K1)
-    fn = lib.msda_fwd
+def _lib(name: str, fn_name: str, n_ptr: int) -> ctypes.CDLL:
+    lib = _build.load(name)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 7 + [
+        fn.argtypes = [ptr] * n_ptr + [i32] * 7 + [
             ctypes.POINTER(ctypes.c_int), i32, ptr,
         ]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _ms_deform_attn_cuda(value, spatial_shapes, loc, aw):
+def _check_cuda(value, loc, aw):
     if value.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"K1 takes a bf16 or f32 value, got {value.dtype}")
     if loc.dtype != torch.float32 or aw.dtype != torch.float32:
         raise TypeError("K1 takes float32 sampling locations and attention weights")
     if not (loc.device == aw.device == value.device):
         raise ValueError("value, locations and attention weights must share a device")
+
+
+def _shape_args(value, loc, spatial_shapes):
     b, s, m, d = value.shape
     _, q, _, n_lvl, p, _ = loc.shape
-    value, loc, aw = value.contiguous(), loc.contiguous(), aw.contiguous()
-    out = torch.empty(b, q, m * d, dtype=value.dtype, device=value.device)
     shapes = (ctypes.c_int * (2 * n_lvl))(*[v for hw in spatial_shapes for v in hw])
+    return (b, s, q, m, d, n_lvl, p, shapes, int(value.dtype == torch.bfloat16))
+
+
+def _ms_deform_attn_cuda(value, spatial_shapes, loc, aw):
+    """K1: the forward gather. value/loc/aw contiguous, checked."""
+    b, q, m, d = value.shape[0], loc.shape[1], value.shape[2], value.shape[3]
+    out = torch.empty(b, q, m * d, dtype=value.dtype, device=value.device)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _k1_lib().msda_fwd(
+        err = _lib(_K1, "msda_fwd", 4).msda_fwd(
             value.data_ptr(), loc.data_ptr(), aw.data_ptr(), out.data_ptr(),
-            b, s, q, m, d, n_lvl, p, shapes, int(value.dtype == torch.bfloat16),
-            stream,
+            *_shape_args(value, loc, spatial_shapes), stream,
         )
     if err != 0:
         raise RuntimeError(f"K1 ms_deform_attn_fwd launch failed: CUDA error {err}")
     ms_deform_attn.launches += 1
     return out
+
+
+def _ms_deform_attn_bwd_cuda(value, spatial_shapes, loc, aw, grad_out):
+    """K1-bwd: d_value (f32 scratch, cast to the value's dtype), d_loc, d_aw."""
+    grad_out = grad_out.to(value.dtype).contiguous()
+    d_value = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
+    d_loc = torch.empty_like(loc)
+    d_aw = torch.empty_like(aw)
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib(_K1_BWD, "msda_bwd", 7).msda_bwd(
+            value.data_ptr(), loc.data_ptr(), aw.data_ptr(), grad_out.data_ptr(),
+            d_value.data_ptr(), d_loc.data_ptr(), d_aw.data_ptr(),
+            *_shape_args(value, loc, spatial_shapes), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"K1-bwd ms_deform_attn_bwd launch failed: CUDA error {err}")
+    ms_deform_attn_backward.launches += 1
+    return d_value.to(value.dtype), d_loc, d_aw
+
+
+class _MSDeformAttnFn(torch.autograd.Function):
+    """K1 forward, K1-bwd backward; saves only (value, loc, aw)."""
+
+    @staticmethod
+    def forward(ctx, value, loc, aw, spatial_shapes):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, loc, aw)
+        return _ms_deform_attn_cuda(value, spatial_shapes, loc, aw)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, loc, aw = ctx.saved_tensors
+        d_value, d_loc, d_aw = _ms_deform_attn_bwd_cuda(
+            value, ctx.spatial_shapes, loc, aw, grad_out)
+        return d_value, d_loc, d_aw, None
 
 
 def ms_deform_attn(
@@ -181,7 +229,8 @@ def ms_deform_attn(
     sampling_locations: torch.Tensor,
     attention_weights: torch.Tensor,
 ) -> torch.Tensor:
-    """Deformable attention core: K1 on CUDA tensors, the plain version on CPU ones."""
+    """Deformable attention core: K1 (and K1-bwd) on CUDA tensors, the plain
+    version on CPU ones."""
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     if value.device.type == "cpu":
         return ms_deform_attn_plain(
@@ -190,9 +239,26 @@ def ms_deform_attn(
     if value.device.type != "cuda":
         raise RuntimeError(f"ms_deform_attn: no kernel for device {value.device}")
     _check(value, spatial_shapes, sampling_locations, attention_weights)
-    return _ms_deform_attn_cuda(
-        value, spatial_shapes, sampling_locations, attention_weights
+    _check_cuda(value, sampling_locations, attention_weights)
+    return _MSDeformAttnFn.apply(
+        value.contiguous(), sampling_locations.contiguous(),
+        attention_weights.contiguous(), spatial_shapes,
+    )
+
+
+def ms_deform_attn_backward(value, spatial_shapes, sampling_locations,
+                            attention_weights, grad_out):
+    """K1-bwd called directly: -> (d_value, d_loc, d_aw). CUDA tensors only."""
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    if value.device.type != "cuda":
+        raise RuntimeError(f"ms_deform_attn_backward: no kernel for device {value.device}")
+    _check(value, spatial_shapes, sampling_locations, attention_weights)
+    _check_cuda(value, sampling_locations, attention_weights)
+    return _ms_deform_attn_bwd_cuda(
+        value.contiguous(), spatial_shapes, sampling_locations.contiguous(),
+        attention_weights.contiguous(), grad_out,
     )
 
 
 ms_deform_attn.launches = 0  # K1 launches; chip_smoke.py reads and resets it
+ms_deform_attn_backward.launches = 0  # K1-bwd launches, whichever way it is reached

@@ -83,7 +83,7 @@ def models():
         jnp.zeros((1, 64, 64), bool), text_embed=jnp.asarray(text_embed),
     )
     params = _np_params(shapes, rng)
-    model = DINO(DINOConfig(**TINY)).eval()
+    model = DINO(DINOConfig(**TINY), device="cpu").eval()
     model.load_state_dict(params_from_jax(params, expected=model.state_dict()))
     return jax_model, jax.tree.map(jnp.asarray, params), model, text_embed
 
@@ -210,7 +210,8 @@ def test_no_dn_or_clip_features_in_the_eval_slice(models):
     _, _, model, text_embed = models
     x = torch.zeros(1, 64, 64, 3)
     m = torch.zeros(1, 64, 64, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # DN queries come with the training slice, labels and boxes together
+    with pytest.raises(ValueError, match="together"):
         model(x, m, dn_labels=torch.zeros(1, 4, dtype=torch.long),
               text_embed=torch.from_numpy(text_embed))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,14 +1,17 @@
 """The port imports neither JAX, flax nor the JAX package.
 
 In a fresh interpreter where ``import jax``, ``import flax`` and
-``import richsem_tpu`` all fail, every module of the port's eval slice
-imports, the tiny model builds and serves one batch on the CPU, and the
-kernels' launch counters stay at 0 (CPU tensors run the plain versions).
+``import richsem_tpu`` all fail, every module of the port imports, the tiny
+model builds on the CPU, serves one batch and takes one training step (CDN,
+matching, the federated loss, the clipped AdamW), and the kernels' launch
+counters stay at 0 (CPU tensors run the plain versions).
 """
 
 import os
 import subprocess
 import sys
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -29,6 +32,11 @@ MODULES = [
     "richsem_tpu_torch.models.postprocess",
     "richsem_tpu_torch.models.registry",
     "richsem_tpu_torch.models.build",
+    "richsem_tpu_torch.models.dn",
+    "richsem_tpu_torch.models.matcher",
+    "richsem_tpu_torch.models.criterion",
+    "richsem_tpu_torch.ops.lap",
+    "richsem_tpu_torch.train.optim",
     "richsem_tpu_torch.train.engine",
 ]
 
@@ -49,7 +57,7 @@ cfg = Config.fromfile("configs/richsem/richsem_4scale_lvis.py")
 cfg.update(hidden_dim=64, nheads=4, enc_layers=2, dec_layers=2, dim_feedforward=128,
            num_queries=20, num_classes=12, clip_embed_dim=64, num_select=50,
            compute_dtype="float32")
-model, _ = build_model("richsem", cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+model, _, _ = build_model("richsem", cfg, device="cpu", generator=torch.Generator().manual_seed(0))
 g = torch.Generator().manual_seed(1)
 batch = {"images": torch.rand((2, 128, 192, 3), generator=g) * 2 - 1,
          "pad_mask": torch.zeros(2, 128, 192, dtype=torch.bool),
@@ -57,8 +65,27 @@ batch = {"images": torch.rand((2, 128, 192, 3), generator=g) * 2 - 1,
 out = make_eval_step(model, cfg)(batch, torch.randn((12, 64), generator=g))
 assert out["scores"].shape == (2, 50) and out["boxes"].shape == (2, 50, 4)
 assert torch.isfinite(out["scores"]).all() and torch.isfinite(out["boxes"]).all()
-assert ms_deform_attn.ms_deform_attn.launches == 0
-assert fused_ffn.encoder_tail.launches == 0
+
+from richsem_tpu_torch.train.engine import create_train_state, make_train_step
+from richsem_tpu_torch.train.optim import build_optimizer
+
+tcfg = Config.fromfile("configs/richsem/dino_4scale_lvis.py")
+tcfg.update(hidden_dim=64, nheads=4, enc_layers=2, dec_layers=2, dim_feedforward=128,
+            num_queries=20, num_classes=12, dn_labelbook_size=12, fed_num_sample_cats=4,
+            compute_dtype="float32")
+model, weight_dict, _ = build_model("richsem", tcfg, device="cpu",
+                                    generator=torch.Generator().manual_seed(0))
+assert weight_dict["loss_ce_dn_0"] == 1.0 and weight_dict["loss_bbox_interm"] == 5.0
+state = create_train_state(model, build_optimizer(model, tcfg))
+step = make_train_step(model, tcfg, seed=0, device="cpu")
+tb = dict(batch, labels=torch.tensor([[1, 2, 3], [4, 5, 0]]),
+          boxes=torch.tensor([[[0.5, 0.5, 0.2, 0.3]] * 3] * 2),
+          valid=torch.tensor([[True, True, True], [True, True, False]]))
+m = step(state, tb)
+assert state.step == 1 and bool(m["finite"]) and float(m["grad_norm"]) > 0
+for name in (ms_deform_attn.ms_deform_attn, ms_deform_attn.ms_deform_attn_backward,
+             fused_ffn.encoder_tail, fused_ffn.encoder_tail_backward):
+    assert name.launches == 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "richsem_tpu")
              and sys.modules[m] is not None)
 assert not bad, bad
@@ -73,6 +100,26 @@ def test_port_runs_without_jax():
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip().endswith("OK")
+
+
+def test_entry_points_default_to_the_card():
+    """Built without a device, the model targets CUDA: where there is no card
+    it raises instead of building on the CPU."""
+    import torch
+
+    import richsem_tpu_torch.models.build  # noqa: F401
+    from richsem_tpu_torch.config import Config
+    from richsem_tpu_torch.models import build_model
+
+    cfg = Config.fromfile(os.path.join(ROOT, "configs/richsem/dino_4scale_lvis.py"))
+    cfg.update(hidden_dim=64, nheads=4, enc_layers=1, dec_layers=1, dim_feedforward=128,
+               num_queries=20, num_classes=12)
+    if torch.cuda.is_available():
+        model, _, _ = build_model("richsem", cfg)
+        assert next(model.parameters()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            build_model("richsem", cfg)
 
 
 def test_registry_names_the_richsem_builder():

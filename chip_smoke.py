@@ -6,8 +6,8 @@ Phases, each printed as it completes:
 
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the build of every hand-written kernel from
-   ``richsem_tpu_torch/csrc`` (one nvcc per source, all at once, sm_90a) with
-   its register report.
+   ``richsem_tpu_torch/csrc`` (six kernels, one nvcc per source, all at once,
+   sm_90a) with its register report.
 2. K1 (deformable attention) against its plain PyTorch version at the
    production encoder shapes (clamped offsets) and decoder shapes (1,100 box
    queries, unclamped), in bf16 and f32: max abs error and both times.
@@ -23,12 +23,26 @@ Phases, each printed as it completes:
 7. The training step of ``configs/richsem/dino_4scale_lvis.py`` (bf16, bs2
    at 896 x 1344, the synthetic batch of ``bench.py``: 300 GT slots, 16
    valid): one warm-up and 5 steps, loss and grad norm per step, launches per
-   step (K1 12, K1-bwd 12, K2 6, K2-bwd 6), auction rounds, ms/step, img/s and
-   peak memory; then the gradients of a few named leaves against those of the
-   same step with the plain versions in place of all four kernels, and one
-   profiled step.
+   step (K1 12, K1-bwd 12, K2 6, K2-bwd 6, K3 0, K3-bwd 0), auction rounds,
+   ms/step, img/s and peak memory; then the gradients of a few named leaves
+   against those of the same step with the plain versions in place of every
+   kernel, and one profiled step.
+8. K3 (the separable decoder sampler) against its plain dense version at the
+   decoder's shapes (1,100 queries), bf16 and f32; run right after phase 3,
+   on its inputs.
+9. K3-bwd against the plain version's explicit backward, same shapes.
+10. The flagship train step (``richsem_4scale_lvis.py``: the CLIP-text
+    classifier, a random-weight bf16 CLIP-RN50 teacher and a random
+    1204 x 1024 text bank as ``bench.py:114-126`` builds them, distillation
+    at the first 100 valid GT boxes): the teacher's targets timed alone, then
+    as phase 7 with ``loss_distill`` and ``loss_distill_dn`` per step, the
+    launches checked (K1 12, K1-bwd 12, K2 6, K2-bwd 6, K3 0, K3-bwd 0) and
+    the CLIP heads among the compared gradients.
+11. The same step with ``dec_msda_impl="sep_pallas"``: 2 steps, launches
+    checked (6 of each of the six kernels), the loss, the gradients against
+    the plain versions, and one profiled step.
 
-``python3 chip_smoke.py kernels`` stops after phase 5.
+``python3 chip_smoke.py kernels`` stops after the kernel phases (1-5, 8, 9).
 
 TF32 is off for every matmul and convolution here. The second-to-last line is
 the kernels' JSON record, the last ``{"ok": true, "device": {...}}``. Any
@@ -37,6 +51,7 @@ failed phase exits non-zero before those lines.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -48,15 +63,15 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "richsem", "richsem_4scale_lvis.py")
 TRAIN_CONFIG = os.path.join(ROOT, "configs", "richsem", "dino_4scale_lvis.py")
-BATCH, CANVAS, N_BATCHES, N_STEPS = 2, (896, 1344), 3, 5
+BATCH, CANVAS, N_BATCHES, N_STEPS, N_SEP_STEPS = 2, (896, 1344), 3, 5, 2
 MAX_GT, N_VALID = 300, 16  # bench.py's GT pad and valid count
 SHAPES = ((112, 168), (56, 84), (28, 42), (14, 21))  # the 896 x 1344 pyramid
 DEVICE = "cuda"
 KERNELS = ("ms_deform_attn_fwd", "ms_deform_attn_bwd", "fused_encoder_tail_fwd",
-           "fused_encoder_tail_bwd")
+           "fused_encoder_tail_bwd", "ms_deform_attn_sep_fwd", "ms_deform_attn_sep_bwd")
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and f32 FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
-COS_MIN = 0.9  # least gradient cosine, kernels vs plain versions (phase 7)
+COS_MIN = 0.9  # least gradient cosine, kernels vs plain versions (phases 7, 10, 11)
 
 
 def fail(msg: str) -> None:
@@ -277,6 +292,87 @@ def phase_k1_bwd(value, cases):
     return rec
 
 
+def phase_k3(value, loc, aw):
+    """K3 (the separable decoder sampler) against its plain dense version at
+    the decoder's shapes (1,100 box queries, unclamped, some taps out)."""
+    import torch
+
+    from richsem_tpu_torch.ops import ms_deform_attn_sep as k3
+
+    rec = {"name": "ms_deform_attn_sep_fwd", "route": "cuda",
+           "source": "richsem_tpu_torch/csrc/ms_deform_attn_sep_fwd.cu",
+           "replaces": "richsem_tpu/ops/ms_deform_attn_sep_pallas.py:77", "library_ms": None}
+    errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        v = value.to(dtype)
+        out = k3.ms_deform_attn_sep(v, SHAPES, loc, aw)
+        ref = k3.ms_deform_attn_sep_plain(v, SHAPES, loc, aw)
+        torch.cuda.synchronize()
+        tag = f"K3 decoder Q={loc.shape[1]} {str(dtype)[6:]}"
+        # Both round hxw and rh where the TPU kernel does and sum in f32 in
+        # another order: f32 within 5e-5 of the largest magnitude; bf16 may
+        # land one bf16 step apart, as K1 (1e-2 + 1e-2 * |plain|)
+        if dtype == torch.float32:
+            errs.append(compare_rel(tag, out, ref, 5e-5))
+        else:
+            errs.append(compare(tag, out, ref, 1e-2, 1e-2))
+            ms = cuda_ms(lambda: k3.ms_deform_attn_sep(v, SHAPES, loc, aw))
+            plain_ms = cuda_ms(lambda: k3.ms_deform_attn_sep_plain(v, SHAPES, loc, aw), iters=3,
+                               warmup=1)
+            # per sample and channel: two rows of (2 products + 1 add for r, the
+            # hat product, the add into the sum)
+            bms, by = bound(nbytes(v, loc, aw, out), 10 * k1_taps(loc) * v.shape[-1], F32_FLOPS)
+            print(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {bms:.4f} ms ({by})", flush=True)
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    rec["max_abs_err"] = max(errs)
+    print("phase 8: K3 matches its plain version", flush=True)
+    return rec
+
+
+def phase_k3_bwd(value, loc, aw):
+    """K3-bwd against the plain version's explicit backward, same inputs and g."""
+    import torch
+
+    from richsem_tpu_torch.ops import ms_deform_attn_sep as k3
+
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+    rec = {"name": "ms_deform_attn_sep_bwd", "route": "cuda",
+           "source": "richsem_tpu_torch/csrc/ms_deform_attn_sep_bwd.cu",
+           "replaces": "richsem_tpu/ops/ms_deform_attn_sep_pallas.py:109", "library_ms": None}
+    errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        v = value.to(dtype)
+        b, q, m = loc.shape[:3]
+        grad = torch.randn((b, q, m * v.shape[-1]), generator=g, device=DEVICE).to(dtype)
+        out = k3.ms_deform_attn_sep_backward(v, SHAPES, loc, aw, grad)
+        ref = k3.ms_deform_attn_sep_backward_plain(v, SHAPES, loc, aw, grad)
+        torch.cuda.synchronize()
+        tag = f"K3-bwd decoder Q={q} {str(dtype)[6:]}"
+        # as K1-bwd: the atomic adds into d_value and the warp sums run in
+        # another order than the dense products; bf16 rounds d_value once, and
+        # may land one step (2^-8 relative) apart
+        rel = 1e-4 if dtype == torch.float32 else 2e-2
+        for name, o, r in zip(("d_value", "d_loc", "d_aw"), out, ref):
+            errs.append(compare_rel(f"{tag} {name}", o, r, rel))
+        if dtype == torch.bfloat16:
+            ms = cuda_ms(lambda: k3.ms_deform_attn_sep_backward(v, SHAPES, loc, aw, grad))
+            plain_ms = cuda_ms(
+                lambda: k3.ms_deform_attn_sep_backward_plain(v, SHAPES, loc, aw, grad),
+                iters=3, warmup=1)
+            # per sample and channel, two rows of: r (3), g*r*dhat and its sum
+            # (3), d_r (1), the two d_hxw products and sums (4), the two
+            # scattered products and adds (4)
+            bms, by = bound(nbytes(v, loc, aw, grad, *out), 30 * k1_taps(loc) * v.shape[-1],
+                            F32_FLOPS)
+            print(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {bms:.4f} ms ({by})", flush=True)
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    rec["max_abs_err"] = max(errs)
+    print("phase 9: K3-bwd matches the plain version's explicit backward", flush=True)
+    return rec
+
+
 def k2_args():
     import torch
 
@@ -463,7 +559,8 @@ def phase_eval(k1_rec, k2_rec):
 
 
 def train_batch(g):
-    """bench.py's synthetic batch (bench.py:90-112), drawn on the card."""
+    """bench.py's synthetic batch (bench.py:90-112), drawn on the card; ``size``
+    is the valid (h, w) by which the teacher scales the GT boxes."""
     import torch
 
     h, w = CANVAS
@@ -477,57 +574,91 @@ def train_batch(g):
                   + 0.1).clamp(0.02, 0.9),
         "valid": (torch.arange(MAX_GT, device=DEVICE) < N_VALID)[None].expand(BATCH, -1),
         "orig_size": torch.tensor([[h - 96, w - 120]] * BATCH, device=DEVICE),
+        "size": torch.tensor([[h - 96, w - 120]] * BATCH, device=DEVICE),
         "is_extra": torch.zeros(BATCH, dtype=torch.bool, device=DEVICE),
     }
 
 
 # leaves whose gradients the kernel and plain runs compare: the encoder's
 # first FFN and sampling offsets (behind K2-bwd and K1-bwd), a decoder
-# cross-attention (K1-bwd at the decoder), the class head and a backbone conv
+# cross-attention (K1-bwd or K3-bwd at the decoder), the class head and a
+# backbone conv; the flagship's class head is the CLIP-text one, and its
+# distillation head (clip_visual_proj) is read too
 GRAD_LEAVES = ("encoder_layer0.ffn.linear1.weight", "encoder_layer5.ffn.linear2.weight",
                "encoder_layer0.self_attn.sampling_offsets.weight",
                "encoder_layer0.self_attn.value_proj.weight",
                "decoder_layer3.cross_attn.value_proj.weight", "cls_kernel",
                "backbone.layer4_block2.conv3.weight")
+FLAGSHIP_LEAVES = GRAD_LEAVES[:5] + ("class_embed.dino_visual_proj.weight",
+                                     "clip_visual_proj.weight", GRAD_LEAVES[6])
+# launches a train step of K1, K1-bwd, K2, K2-bwd, K3, K3-bwd
+COUNTED = ("K1", "K1-bwd", "K2", "K2-bwd", "K3", "K3-bwd")
 
 
-def phase_train(recs):
+def launch_counters():
+    """The six kernels' counters, in the order of COUNTED and of the records."""
+    from richsem_tpu_torch.ops import fused_ffn as k2
+    from richsem_tpu_torch.ops import ms_deform_attn as k1
+    from richsem_tpu_torch.ops import ms_deform_attn_sep as k3
+
+    return (k1.ms_deform_attn, k1.ms_deform_attn_backward, k2.encoder_tail,
+            k2.encoder_tail_backward, k3.ms_deform_attn_sep, k3.ms_deform_attn_sep_backward)
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The plain versions in place of every kernel, at the modules' call sites."""
+    from richsem_tpu_torch.models import dino, layers
+    from richsem_tpu_torch.ops import fused_ffn as k2
+    from richsem_tpu_torch.ops import ms_deform_attn as k1
+    from richsem_tpu_torch.ops import ms_deform_attn_sep as k3
+
+    layers.ms_deform_attn, layers.ms_deform_attn_sep = (k1.ms_deform_attn_plain,
+                                                        k3.ms_deform_attn_sep_plain)
+    dino.encoder_tail = k2.encoder_tail_plain
+    try:
+        yield
+    finally:
+        layers.ms_deform_attn, layers.ms_deform_attn_sep = (k1.ms_deform_attn,
+                                                            k3.ms_deform_attn_sep)
+        dino.encoder_tail = k2.encoder_tail
+
+
+def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None):
+    """Build the detector from seed 0, take one warm-up and ``n_steps`` train
+    steps (launches checked against ``want`` a step), compare the gradients of
+    ``leaves`` in one step against the same step with the plain versions, and
+    profile one step. -> the launches of the six kernels over the steps."""
     import torch
 
     import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
-    from richsem_tpu_torch.config import Config
-    from richsem_tpu_torch.models import build_model, dino, layers
-    from richsem_tpu_torch.ops import fused_ffn as k2
+    from richsem_tpu_torch.models import build_model
     from richsem_tpu_torch.ops import lap
-    from richsem_tpu_torch.ops import ms_deform_attn as k1
     from richsem_tpu_torch.train.engine import (create_train_state, make_loss_fn,
                                                 make_train_step, step_draws)
     from richsem_tpu_torch.train.optim import build_optimizer
 
-    cfg = Config.fromfile(TRAIN_CONFIG)
-    cfg.compute_dtype = "bfloat16"
     g = torch.Generator(device=DEVICE).manual_seed(0)
     t0 = time.perf_counter()
     model, _, _ = build_model("richsem", cfg, device=DEVICE, generator=g)
     state = create_train_state(model, build_optimizer(model, cfg, steps_per_epoch=1000),
                                use_ema=cfg.use_ema)
-    step = make_train_step(model, cfg, seed=0, device=DEVICE)
-    batches = [train_batch(g) for _ in range(N_STEPS + 1)]
-    m = step(state, batches[-1])  # warm-up (cuDNN autotuning, allocator)
+    step = make_train_step(model, cfg, seed=0, device=DEVICE, clip_model=clip_model)
+    batches = [train_batch(g) for _ in range(n_steps + 1)]
+    m = step(state, batches[-1], text_embed)  # warm-up (cuDNN autotuning, allocator)
     torch.cuda.synchronize()
     print(f"  setup + warm-up step {time.perf_counter() - t0:.1f} s, loss {float(m['loss']):.4f}",
           flush=True)
 
-    counters = (k1.ms_deform_attn, k1.ms_deform_attn_backward, k2.encoder_tail,
-                k2.encoder_tail_backward)
+    counters = launch_counters()
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
     lap.batched_min_cost_assignment.rounds = 0
     times, metrics = [], []
-    for batch in batches[:N_STEPS]:
+    for batch in batches[:n_steps]:
         t = time.perf_counter()
-        metrics.append(step(state, batch))
+        metrics.append(step(state, batch, text_embed))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
     launches = [c.launches for c in counters]
@@ -535,65 +666,183 @@ def phase_train(recs):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for i, m in enumerate(metrics):
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        distill = ""
+        if clip_model is not None:
+            distill = (f", loss_distill {float(m['loss_distill']):.4f}, "
+                       f"loss_distill_dn {float(m['loss_distill_dn']):.4f}")
         print(f"  step {i}: loss {loss:.4f}, grad_norm {gnorm:.4f}, loss_ce {float(m['loss_ce']):.4f}, "
               f"loss_bbox {float(m['loss_bbox']):.4f}, loss_giou {float(m['loss_giou']):.4f}, "
-              f"loss_ce_dn {float(m['loss_ce_dn']):.4f}, class_error {float(m['class_error']):.2f}, "
+              f"loss_ce_dn {float(m['loss_ce_dn']):.4f}{distill}, "
+              f"class_error {float(m['class_error']):.2f}, "
               f"offset_beyond_margin {float(m['offset_beyond_margin']):.5f}")
         if not (bool(m["finite"]) and math.isfinite(loss) and math.isfinite(gnorm)):
             fail(f"train step {i}: loss or grad_norm is not finite")
-    want = [n * N_STEPS for n in (12, 12, 6, 6)]
-    print(f"  launches over {N_STEPS} steps: K1 {launches[0]}, K1-bwd {launches[1]}, "
-          f"K2 {launches[2]}, K2-bwd {launches[3]} (expect {want}); "
-          f"auction rounds {rounds} ({rounds / N_STEPS:.1f} a step, 7 matchings)")
+        if clip_model is not None and not (float(m["loss_distill"]) > 0
+                                           and math.isfinite(float(m["loss_distill_dn"]))):
+            fail(f"train step {i}: loss_distill is not positive or loss_distill_dn not finite")
+    want = [n * n_steps for n in want]
+    print(f"  launches over {n_steps} steps: "
+          + ", ".join(f"{k} {n}" for k, n in zip(COUNTED, launches))
+          + f" (expect {want}); auction rounds {rounds} ({rounds / n_steps:.1f} a step, "
+          "7 matchings)")
     if launches != want:
-        fail("the train step did not launch K1 12, K1-bwd 12, K2 6 and K2-bwd 6 times")
-    for rec, n in zip(recs, launches):
-        rec["launches"] = n
+        fail("the train step did not launch the kernels as expected: "
+             + ", ".join(f"{k} {n} of {w}" for k, n, w in zip(COUNTED, launches, want)))
     ms_step = statistics.median(times)
     print(f"  train step: {', '.join(f'{t:.2f}' for t in times)} ms/step; median "
           f"{ms_step:.2f} ms/step = {BATCH * 1e3 / ms_step:.3f} img/s; "
           f"peak memory {peak_gb:.2f} GB", flush=True)
 
     # The gradient of one step with the kernels against the same step with the
-    # plain versions in place of all four, same weights, batch and draws.
-    loss_fn = make_loss_fn(model, cfg)
+    # plain versions in place of all of them, same weights, batch and draws.
+    loss_fn = make_loss_fn(model, cfg, clip_model)
     draws = step_draws(cfg, BATCH, torch.Generator(device=DEVICE).manual_seed(7), device=DEVICE)
     params = dict(model.named_parameters())
 
     def grads():
         model.zero_grad(set_to_none=True)
-        total, _ = loss_fn(batches[0], draws)
+        total, _ = loss_fn(batches[0], draws, text_embed)
         total.backward()
-        out = {n: params[n].grad.float().clone() for n in GRAD_LEAVES}
+        out = {n: params[n].grad.float().clone() for n in leaves}
         model.zero_grad(set_to_none=True)
         return float(total.detach()), out
 
     loss_k, g_k = grads()
-    layers.ms_deform_attn, dino.encoder_tail = k1.ms_deform_attn_plain, k2.encoder_tail_plain
-    try:
+    with plain_versions():
         loss_p, g_p = grads()
-    finally:
-        layers.ms_deform_attn, dino.encoder_tail = k1.ms_deform_attn, k2.encoder_tail
     torch.cuda.synchronize()
     print(f"  kernels vs plain versions, one step: loss {loss_k:.4f} vs {loss_p:.4f}")
     worst = 1.0
-    for n in GRAD_LEAVES:
+    for n in leaves:
         cos = float(torch.nn.functional.cosine_similarity(g_k[n].flatten(), g_p[n].flatten(), 0))
         worst = min(worst, cos)
         print(f"    grad cosine {cos:.5f}  {n}")
     # bf16 steps that round the other way in the kernels reorder some of the
     # 900 two-stage selections among near-tied random-weight scores (phase 6),
     # which moves the matching and the decoder's gradients; measured on an
-    # H100: cosines 0.9896-0.9967 at this seed
+    # H100: cosines 0.9896-0.9967 at this seed (phase 7)
     if worst < COS_MIN:
         fail(f"a gradient with the kernels departs from the plain one (cosine < {COS_MIN})")
     del g_k, g_p
-    profile_once(lambda: step(state, batches[1]))
+    profile_once(lambda: step(state, batches[1], text_embed))
+    return launches
+
+
+def phase_train(recs):
+    from richsem_tpu_torch.config import Config
+
+    cfg = Config.fromfile(TRAIN_CONFIG)
+    cfg.compute_dtype = "bfloat16"
+    launches = run_train(cfg, (12, 12, 6, 6, 0, 0), N_STEPS, GRAD_LEAVES)
+    for rec, n in zip(recs, launches):
+        rec["dino_train_launches"] = n
     print("phase 7: train step ok", flush=True)
 
 
-def profile_once(fn):
-    """Device time by kernel over one call of ``fn`` (torch.profiler / CUPTI)."""
+def phase_flagship(recs):
+    """The flagship train step (richsem_4scale_lvis.py) with a random-weight bf16
+    RN50 teacher and a random 1204 x 1024 text bank, as bench.py:114-126 builds
+    them; then the same step with the separable decoder sampler (K3)."""
+    import torch
+
+    from richsem_tpu_torch.config import Config
+    from richsem_tpu_torch.models.build import build_clip_teacher
+    from richsem_tpu_torch.models.clip_align import (clip_spatial_features,
+                                                     clip_teacher_box_targets)
+
+    cfg = Config.fromfile(CONFIG)
+    cfg.compute_dtype = "bfloat16"
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    teacher = build_clip_teacher(cfg, dtype=torch.bfloat16, device=DEVICE, generator=g)
+    text_embed = torch.randn((cfg.num_classes, 1024), generator=g, device=DEVICE)
+    batch = train_batch(g)
+
+    def targets():
+        spatial = clip_spatial_features(teacher, batch["images"])
+        return clip_teacher_box_targets(
+            teacher, batch["images"], batch["boxes"], batch["size"].float(), text_embed,
+            teacher.logit_scale, valid=batch["valid"], max_boxes=cfg.distill_max_boxes,
+            spatial=spatial)
+
+    emb, logits, cvalid = targets()
+    if not (torch.isfinite(emb).all() and torch.isfinite(logits).all()):
+        fail("the teacher's box targets are not finite")
+    teacher_ms = cuda_ms(targets, iters=5, warmup=1)
+    print(f"  teacher: spatial forward + RoIAlign + attention pool at {int(cvalid.sum())} "
+          f"boxes {teacher_ms:.3f} ms (CUDA events), embeddings {tuple(emb.shape)}, "
+          f"logits {tuple(logits.shape)}", flush=True)
+    del emb, logits, cvalid
+    profile_once(targets, top=6)
+
+    launches = run_train(cfg, (12, 12, 6, 6, 0, 0), N_STEPS, FLAGSHIP_LEAVES,
+                         clip_model=teacher, text_embed=text_embed)
+    for rec, n in zip(recs[:4], launches):
+        rec["launches"] = n
+    print("phase 10: flagship train step ok", flush=True)
+    torch.cuda.empty_cache()
+
+    cfg.dec_msda_impl = "sep_pallas"
+    launches = run_train(cfg, (6, 6, 6, 6, 6, 6), N_SEP_STEPS, FLAGSHIP_LEAVES,
+                         clip_model=teacher, text_embed=text_embed)
+    for rec, n in zip(recs[4:], launches[4:]):
+        rec["launches"] = n
+    for rec, n in zip(recs, launches):
+        rec["sep_pallas_launches"] = n
+    print('phase 11: flagship train step with dec_msda_impl="sep_pallas" ok', flush=True)
+
+
+def probe_bounds():
+    """The H100 bound of each TPU probe still to port (tools/, PERF.md kernel
+    table rows 7-9) at the arguments its main() passes: operations over the
+    f32 CUDA-core or the bf16 tensor-core peak, bytes (inputs read once, the
+    output written once) over the HBM rate. Elementwise bf16 is counted at the
+    f32 CUDA-core rate. Arithmetic only: -> [(row, call, bound_ms, by)]."""
+    out = []
+
+    def add(row, call, nbytes_, f32_ops=0.0, bf16_mma=0.0):
+        t_ops = max(f32_ops / F32_FLOPS, bf16_mma / BF16_FLOPS) * 1e3
+        t_bytes = nbytes_ / HBM_BPS * 1e3
+        out.append((row, call, *((t_bytes, "bytes") if t_bytes >= t_ops
+                                  else (t_ops, "operations"))))
+
+    rows, s = 768, 1664  # bench_pallas_cal.py:37
+    for name, size in (("float32", 4), ("bfloat16", 2)):  # 6 ops an element a rep
+        add(7, f"run_vpu({name}, reps=512)", 3 * rows * s * size, f32_ops=6 * rows * s * 512)
+    for k, d in ((768, 128), (768, 32), (96, 32), (96, 128)):
+        add(7, f"run_mxu({k}, {s}, {d}, bfloat16, reps=512)", 2 * (k * s + s * d) + 4 * k * d,
+            f32_ops=k * s * 512, bf16_mma=2 * k * s * d * 512)
+    for n in (4096, 16384):
+        add(7, f"run_grid_overhead({n})", 2 * n * 8 * 128 * 4, f32_ops=n * 8 * 128)
+    for name, size in (("float32", 4), ("bfloat16", 2)):  # [768, 32] -> [768, 32 * 52]
+        add(7, f"run_repeat({name})", (rows * 32 + rows * 32 * 52) * size,
+            f32_ops=256 * (rows * 32 + rows * 32 * 52))
+    mk, p, dd = 8 * 352, 4, 32  # bench_cell.py:31-34: windows sum wy*wx = 1636, wy = 78
+    win, side = 1636, 78
+    for mode in ("2d", "flat"):  # per rep: the hats (~9 ops a tap), outer product and P-sum
+        add(8, f"run_cell({mode!r}, reps=64)",
+            3 * mk * 4 * p * 4 + 2 * 8 * dd * win + 4 * 8 * 352 * dd,
+            f32_ops=64 * mk * (9 * p * side + (2 * p - 1) * win),
+            bf16_mma=64 * 2 * mk * dd * win)
+    add(8, "check_repeat_semantics()", 8 * 8 * 4 + 8 * 16 * 4)
+    elems = 154 * 8 * 28 * 32 * 384  # bench_vpu_model.py:30-31
+    for n in (1, 2, 4, 8):
+        add(9, f"chain-{n}", 2 * elems * 4, f32_ops=n * elems)
+    hyx = 154 * 8 * (28 + 32) * 4 * 384 * 4  # the two hat inputs, f32
+    for name, n_ops in (("fma-1", 1), ("fma-2", 3), ("fma-4", 7), ("fma-4-2acc", 7),
+                        ("fma-4-chunk", 7)):
+        add(9, name, hyx + elems * 4, f32_ops=n_ops * elems)
+    return out
+
+
+# the __global__ functions of richsem_tpu_torch/csrc (K2-bwd is three of them)
+HAND_WRITTEN = ("msda_fwd_kernel", "msda_bwd_kernel", "encoder_tail_fwd_kernel",
+                "row_block_kernel", "atb_kernel", "colsum_kernel", "msda_sep_fwd_kernel",
+                "msda_sep_bwd_kernel")
+
+
+def profile_once(fn, top: int = 12):
+    """Device time by kernel over one call of ``fn`` (torch.profiler / CUPTI):
+    the busiest ``top`` kernels, then every hand-written one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -608,11 +857,15 @@ def profile_once(fn):
     if not rows:
         print("  profile: no device time recorded (not measured)")
         return
-    print(f"  profile: device busy {total_us / 1e3:.2f} ms of a {wall_ms:.2f} ms step "
+    print(f"  profile: device busy {total_us / 1e3:.2f} ms of a {wall_ms:.2f} ms call "
           f"(idle share {max(0.0, 1 - total_us / 1e3 / wall_ms):.3f}), "
           f"{sum(e.count for e in rows)} device operations; top kernels:")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    mine = [(k, e) for e in rows for k in HAND_WRITTEN if f"::{k}" in e.key]
+    if mine:
+        print("    hand-written: " + "; ".join(
+            f"{k} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for k, e in mine))
 
 
 def main() -> None:
@@ -627,20 +880,28 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     t0 = time.perf_counter()
     smi = phase_build()
+    bounds = probe_bounds()
+    for r in sorted({b[0] for b in bounds}):
+        print(f"  bounds of the TPU probes still to port, row {r}: " + "; ".join(
+            f"{call} {bms:.4g} ms ({by})" for row, call, bms, by in bounds if row == r))
     value, cases = k1_cases()
     k1_rec = phase_k1(value, cases)
     k1b_rec = phase_k1_bwd(value, cases)
+    k3_rec = phase_k3(value, *cases["decoder"])
+    k3b_rec = phase_k3_bwd(value, *cases["decoder"])
     del value, cases
     args, dy = k2_args()
     k2_rec = phase_k2(args)
     k2b_rec = phase_k2_bwd(args, dy)
     del args, dy
     torch.cuda.empty_cache()
-    recs = [k1_rec, k1b_rec, k2_rec, k2b_rec]
+    recs = [k1_rec, k1b_rec, k2_rec, k2b_rec, k3_rec, k3b_rec]
     if sys.argv[1:] != ["kernels"]:
         phase_eval(k1_rec, k2_rec)
         torch.cuda.empty_cache()
         phase_train(recs)
+        torch.cuda.empty_cache()
+        phase_flagship(recs)
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": recs}))

@@ -14,18 +14,29 @@ here they are one ``[16, C]`` tensor, ``fed_uniforms``, row ``i`` for split
 ``i``: 0 the final layer, 1 the DN final layer, 2+i the DN aux layers, 8+i
 the aux layers, 14 the interm set.
 
-Distillation, the many-to-one OptMatcher layout and the mask losses raise
-``NotImplementedError`` naming the ROADMAP item.
+The distillation terms of the flagship (``criterion.py:281-340``):
+``loss_distill``, KL(teacher || student) of the CLIP logits on the matched
+queries of the final layer (objective ``gt``: the teacher at the GT boxes;
+``pred`` / ``pred_all``: the teacher at the predicted boxes), or the L1 of the
+normalized embeddings (``clip_l1``); ``loss_distill_dn`` on the positive DN
+queries; optionally restricted to the federated-loss classes of the same set
+(``use_fed_on_kd``) and weighted by the teacher's entropy
+(``use_dynamic_distill_weight``).
+
+The many-to-one OptMatcher layout, ``distill_aux_layers`` and the mask
+losses raise ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from richsem_tpu_torch.models.matcher import match
 from richsem_tpu_torch.utils import boxes as box_ops
+from richsem_tpu_torch.utils.misc import l2_normalize
 
 Tensor = torch.Tensor
 
@@ -133,6 +144,71 @@ def loss_cardinality(pred_logits: Tensor, gt_valid: Tensor) -> Tensor:
     return (card.float() - gt_valid.sum(1).float()).abs().mean()
 
 
+def _kl_terms(student_logits: Tensor, teacher_logits: Tensor, dynamic_weight: bool,
+              fed_ids: Optional[Tuple[Tensor, Tensor]] = None) -> Tensor:
+    """Per-row KL(teacher || student), optionally over the federated classes only
+    and weighted by the teacher's entropy over all classes (taken before the
+    restriction, as the reference does)."""
+    s = student_logits.float()
+    t_logits = teacher_logits.float()
+    weight = None
+    if dynamic_weight:
+        t_full = torch.softmax(t_logits, -1)
+        ent = -(t_full * torch.log(t_full.clamp(min=1e-20))).sum(-1, keepdim=True)
+        weight = ent / math.log(t_logits.shape[-1]) * 2.0
+    if fed_ids is not None:
+        ids, mask = fed_ids
+        # masked tail slots must not enter the class softmax
+        s = torch.where(mask, s[..., ids], -1e9)
+        t_logits = torch.where(mask, t_logits[..., ids], -1e9)
+    log_p = torch.log_softmax(s, -1)
+    t = torch.softmax(t_logits, -1)
+    kl = t * (torch.log(t.clamp(min=1e-20)) - log_p)
+    if weight is not None:
+        kl = kl * weight
+    return kl.sum(-1)
+
+
+def _at(x: Tensor, col: Tensor) -> Tensor:
+    """``x [B, Q, C]`` at the matched query of each GT slot -> ``[B, G, C]``."""
+    return torch.gather(x, 1, col.clamp(min=0)[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def distill_loss_kl(pred_clip_logits: Tensor, col: Tensor, gt_valid: Tensor,
+                    tgt_clip_logits: Tensor, num_boxes: Tensor, dynamic_weight: bool = False,
+                    fed_ids: Optional[Tuple[Tensor, Tensor]] = None) -> Tensor:
+    """KL on the matched queries against the teacher at the GT boxes
+    (``distill_type='clip_logits'``, objective ``gt``)."""
+    kl = _kl_terms(_at(pred_clip_logits.float(), col), tgt_clip_logits, dynamic_weight, fed_ids)
+    m = (gt_valid & (col >= 0)).float()
+    return (kl * m).sum() / num_boxes
+
+
+def distill_loss_kl_pred(pred_clip_logits: Tensor, teacher_clip_logits: Tensor, col: Tensor,
+                         gt_valid: Tensor, num_boxes: Tensor, objective: str,
+                         dynamic_weight: bool = False,
+                         fed_ids: Optional[Tuple[Tensor, Tensor]] = None) -> Tensor:
+    """KL against the teacher at the predicted boxes: ``pred`` on the matched
+    queries over ``num_boxes``, ``pred_all`` on every query over ``B * Q``."""
+    if objective == "pred":
+        kl = _kl_terms(_at(pred_clip_logits, col), _at(teacher_clip_logits, col),
+                       dynamic_weight, fed_ids)
+        m = (gt_valid & (col >= 0)).float()
+        return (kl * m).sum() / num_boxes
+    b, nq = pred_clip_logits.shape[:2]
+    kl = _kl_terms(pred_clip_logits, teacher_clip_logits, dynamic_weight, fed_ids)
+    return kl.sum() / (b * nq)
+
+
+def distill_loss_l1(pred_clip_embed: Tensor, col: Tensor, gt_valid: Tensor,
+                    tgt_clip_embed: Tensor, num_boxes: Tensor) -> Tensor:
+    """L1 between normalized embeddings (``distill_type='clip_l1'``)."""
+    sel = l2_normalize(_at(pred_clip_embed.float(), col))
+    m = (gt_valid & (col >= 0)).float()
+    l1 = (sel - tgt_clip_embed.float()).abs().sum(-1)
+    return (l1 * m).sum() / num_boxes
+
+
 def set_criterion(
     outputs: Dict[str, Any],
     targets: Dict[str, Tensor],
@@ -146,15 +222,24 @@ def set_criterion(
     use_fed_loss: bool = False,
     fed_num_sample_cats: int = 50,
     fed_weight: Optional[Tensor] = None,
+    use_fed_on_kd: bool = False,
     distill_type: str = "",
+    clip_distill_objective: str = "gt",
+    use_dynamic_distill_weight: bool = False,
     dn_meta: Optional[Dict[str, Tensor]] = None,
     enc_cls_agn: bool = False,
+    distill_aux_layers: bool = False,
 ) -> Dict[str, Tensor]:
     """-> unweighted loss dict with the reference's naming (``loss_ce``,
-    ``loss_bbox``, ``loss_giou``, ``*_dn``, ``*_0..k``, ``*_interm`` and the
-    diagnostics). Combine with :func:`weighted_loss`."""
-    if distill_type:
-        raise _not_ported(f"distillation ({distill_type!r})", "item 8")
+    ``loss_bbox``, ``loss_giou``, ``loss_distill``, ``*_dn``, ``*_0..k``,
+    ``*_interm`` and the diagnostics). Combine with :func:`weighted_loss`.
+
+    Distillation reads ``targets["clip_logits"]`` (``clip_embed`` for
+    ``clip_l1``) and ``clip_valid``, ``outputs["teacher_clip_logits"]`` for
+    the ``pred`` objectives, and ``pos_clip_logits`` / ``pos_clip_valid`` of
+    ``dn_meta`` (:func:`expand_dn_targets`)."""
+    if distill_aux_layers:
+        raise _not_ported("distill_aux_layers", "item 11")
     if matcher_type == "OptMatcher":
         raise _not_ported("the OptMatcher many-to-one layout", "item 11")
     if "masks" in targets or "pred_masks" in outputs or "mask_params" in outputs:
@@ -180,14 +265,33 @@ def set_criterion(
         return fed_loss_classes(fed_uniforms[i], matched, num_classes,
                                 fed_num_sample_cats, fed_weight)
 
-    def one_set(out_set, i, col):
+    has_distill = distill_type in ("clip_logits", "clip_l1") and (
+        "pred_clip_logits" in outputs or "pred_clip_embed" in outputs)
+    clip_valid = targets.get("clip_valid", gt_valid)
+
+    def one_set(out_set, i, col, include_distill=False):
+        fids = fed_ids_for(i, col)
         d = loss_labels(out_set["pred_logits"], col, gt_labels, gt_valid, num_boxes,
-                        focal_alpha, fed_ids_for(i, col))
+                        focal_alpha, fids)
         d.update(loss_boxes(out_set["pred_boxes"], col, gt_boxes, gt_valid, num_boxes))
         d["cardinality_error"] = loss_cardinality(out_set["pred_logits"], gt_valid)
+        kd_fids = fids if use_fed_on_kd else None
+        if include_distill and distill_type == "clip_logits":
+            if clip_distill_objective == "gt":
+                d["loss_distill"] = distill_loss_kl(
+                    out_set["pred_clip_logits"], col, clip_valid, targets["clip_logits"],
+                    num_boxes, use_dynamic_distill_weight, kd_fids)
+            else:
+                d["loss_distill"] = distill_loss_kl_pred(
+                    out_set["pred_clip_logits"], outputs["teacher_clip_logits"], col,
+                    gt_valid, num_boxes, clip_distill_objective,
+                    use_dynamic_distill_weight, kd_fids)
+        elif include_distill and distill_type == "clip_l1":
+            d["loss_distill"] = distill_loss_l1(out_set["pred_clip_embed"], col, clip_valid,
+                                                targets["clip_embed"], num_boxes)
         return d
 
-    losses: Dict[str, Tensor] = dict(one_set(outputs, 0, run_matcher(outputs)))
+    losses: Dict[str, Tensor] = dict(one_set(outputs, 0, run_matcher(outputs), has_distill))
 
     if dn_meta is not None and "dn_outputs" in outputs:
         dn_out = outputs["dn_outputs"]
@@ -197,12 +301,18 @@ def set_criterion(
         dn_sets = [(dn_out, "_dn", 1)] + [
             (aux, f"_dn_{i}", 2 + i) for i, aux in enumerate(dn_out.get("aux_outputs", []))]
         for out_set, suffix, i in dn_sets:
+            fids = fed_ids_for(i, dn_col, dn_meta["pos_labels"], pos_valid)
             d = loss_labels(out_set["pred_logits"], dn_col, dn_meta["pos_labels"],
-                            pos_valid, dn_nb, focal_alpha,
-                            fed_ids_for(i, dn_col, dn_meta["pos_labels"], pos_valid),
-                            query_mask=qmask)
+                            pos_valid, dn_nb, focal_alpha, fids, query_mask=qmask)
             d.update(loss_boxes(out_set["pred_boxes"], dn_col, dn_meta["pos_boxes"],
                                 pos_valid, dn_nb))
+            if (i == 1 and has_distill and distill_type == "clip_logits"
+                    and "pred_clip_logits" in out_set):
+                # the same federated classes as the DN focal loss (use_fed_on_kd)
+                d["loss_distill"] = distill_loss_kl(
+                    out_set["pred_clip_logits"], dn_col,
+                    dn_meta.get("pos_clip_valid", pos_valid), dn_meta["pos_clip_logits"],
+                    dn_nb, use_dynamic_distill_weight, fids if use_fed_on_kd else None)
             losses.update({f"{k}{suffix}": v for k, v in d.items()})
 
     for i, aux in enumerate(outputs.get("aux_outputs", [])):
@@ -222,9 +332,12 @@ def dn_slot_indices(dn_meta: Dict[str, Tensor]) -> Tensor:
 
 
 def expand_dn_targets(gt_labels: Tensor, gt_boxes: Tensor, gt_valid: Tensor,
-                      dn_meta: Dict[str, Tensor]) -> Dict[str, Tensor]:
+                      dn_meta: Dict[str, Tensor], gt_clip_logits: Optional[Tensor] = None,
+                      gt_clip_valid: Optional[Tensor] = None) -> Dict[str, Tensor]:
     """Each positive DN slot becomes its own supervised row: adds ``pos_slots``,
-    ``pos_labels``, ``pos_boxes`` and ``pos_valid`` ([B, P]) to ``dn_meta``."""
+    ``pos_labels``, ``pos_boxes`` and ``pos_valid`` ([B, P]) to ``dn_meta``, and
+    with the teacher's targets ``pos_clip_logits`` [B, P, C] and
+    ``pos_clip_valid`` (the slots whose GT got a target)."""
     match_gt = dn_meta["match_gt"]
     b, p = match_gt.shape
     valid = match_gt >= 0
@@ -235,6 +348,11 @@ def expand_dn_targets(gt_labels: Tensor, gt_boxes: Tensor, gt_valid: Tensor,
     out["pos_labels"] = torch.gather(gt_labels, 1, safe)
     out["pos_boxes"] = torch.gather(gt_boxes, 1, safe[..., None].expand(-1, -1, 4))
     out["pos_valid"] = valid & torch.gather(gt_valid, 1, safe)
+    if gt_clip_logits is not None:
+        out["pos_clip_logits"] = torch.gather(
+            gt_clip_logits, 1, safe[..., None].expand(-1, -1, gt_clip_logits.shape[-1]))
+        if gt_clip_valid is not None:
+            out["pos_clip_valid"] = out["pos_valid"] & torch.gather(gt_clip_valid, 1, safe)
     return out
 
 

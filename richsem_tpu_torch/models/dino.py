@@ -39,6 +39,7 @@ from richsem_tpu_torch.models.layers import (
     InputProj,
     LayerNorm,
     MSDeformAttn,
+    MultiHeadAttention,
     lecun_normal_,
     normal_,
 )
@@ -102,8 +103,9 @@ class DINOConfig:
     use_checkpoint: bool = False
     enc_selective_remat: bool = False
     backbone_remat: bool = False
-    # On CUDA the encoder tail is always K2 and every sampler K1: the JAX
-    # impl knobs below only decide the offset clamp (models/layers.py).
+    # On CUDA the encoder tail is always K2. The impl knobs below decide the
+    # offset clamp and the sampler, as in JAX (models/layers.py): "sep_pallas"
+    # runs the separable sampler K3, every other impl the exact gather K1.
     enc_fused_tail: bool = True
     msda_impl: str = "gather"
     dec_msda_impl: str = "sep"
@@ -233,36 +235,6 @@ class DeformableEncoderLayer(nn.Module):
         self.self_attn.init_weights(g)
         self.norm1.init_weights(g)
         self.ffn.init_weights(g)
-
-
-class MultiHeadAttention(nn.Module):
-    """``nn.MultiHeadDotProductAttention`` with ``dtype``: q/k/v/out projections and
-    the attention in ``dtype``, q scaled by 1/sqrt(head_dim) before the product;
-    ``mask`` True means attend."""
-
-    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, device=None):
-        super().__init__()
-        self.num_heads = num_heads
-        for name in ("query", "key", "value", "out"):
-            self.add_module(name, Dense(dim, dim, dtype=dtype, device=device))
-
-    def forward(self, inputs_q, inputs_k, inputs_v, mask=None):
-        b, lq, d = inputs_q.shape
-        h = self.num_heads
-        q = self.query(inputs_q).reshape(b, lq, h, d // h)
-        k = self.key(inputs_k).reshape(b, inputs_k.shape[1], h, d // h)
-        v = self.value(inputs_v).reshape(b, inputs_v.shape[1], h, d // h)
-        q = q / math.sqrt(d // h)
-        w = torch.einsum("bqhd,bkhd->bhqk", q, k)
-        if mask is not None:
-            w = w.masked_fill(~mask, torch.finfo(w.dtype).min)
-        w = torch.softmax(w, dim=-1)
-        out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, lq, d)
-        return self.out(out)
-
-    def init_weights(self, g: torch.Generator) -> None:
-        for name in ("query", "key", "value", "out"):
-            getattr(self, name).init_weights(g)
 
 
 class DeformableDecoderLayer(nn.Module):

@@ -26,6 +26,7 @@ from richsem_tpu_torch.ops.ms_deform_attn import (
     ms_deform_attn,
     tiled_supported,
 )
+from richsem_tpu_torch.ops.ms_deform_attn_sep import ms_deform_attn_sep
 
 
 # ---------------------------------------------------------------------------
@@ -191,8 +192,11 @@ class MSDeformAttn(nn.Module):
     ``+-(margin - 0.5)`` iff ``impl`` is a windowed one (tiled / pallas /
     pallas2), the queries are the value tokens (``q == s``), the pyramid
     admits the tile plan, and ``clamp_offsets`` is set. It never depends on
-    the device. The sampler itself is always the exact gather (K1), which
-    computes what every JAX ``impl`` computes once the clamp rule is applied.
+    the device. The sampler is routed as JAX routes it
+    (``layers.py:201-220``): ``impl="sep_pallas"`` goes to the separable
+    sampler (K3, with the TPU kernel's bf16 rounding), every other ``impl`` to
+    the exact gather (K1), which computes what the other JAX samplers compute
+    once the clamp rule is applied.
     """
 
     def __init__(self, d_model: int = 256, n_levels: int = 4, n_heads: int = 8,
@@ -254,7 +258,8 @@ class MSDeformAttn(nn.Module):
         loc = compute_sampling_locations(
             reference_points.float(), offsets, spatial_shapes, p
         )
-        out = ms_deform_attn(value, spatial_shapes, loc, attn)
+        sampler = ms_deform_attn_sep if self.impl == "sep_pallas" else ms_deform_attn
+        out = sampler(value, spatial_shapes, loc, attn)
         return self.output_proj(out)
 
     def init_weights(self, g: torch.Generator) -> None:
@@ -269,6 +274,36 @@ class MSDeformAttn(nn.Module):
         nn.init.zeros_(self.attention_weights.bias)
         xavier_uniform_(self.output_proj.weight, g)
         nn.init.zeros_(self.output_proj.bias)
+
+
+class MultiHeadAttention(nn.Module):
+    """``nn.MultiHeadDotProductAttention`` with ``dtype``: q/k/v/out projections and
+    the attention in ``dtype``, q scaled by 1/sqrt(head_dim) before the product;
+    ``mask`` True means attend."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        for name in ("query", "key", "value", "out"):
+            self.add_module(name, Dense(dim, dim, dtype=dtype, device=device))
+
+    def forward(self, inputs_q, inputs_k, inputs_v, mask=None):
+        b, lq, d = inputs_q.shape
+        h = self.num_heads
+        q = self.query(inputs_q).reshape(b, lq, h, d // h)
+        k = self.key(inputs_k).reshape(b, inputs_k.shape[1], h, d // h)
+        v = self.value(inputs_v).reshape(b, inputs_v.shape[1], h, d // h)
+        q = q / math.sqrt(d // h)
+        w = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        if mask is not None:
+            w = w.masked_fill(~mask, torch.finfo(w.dtype).min)
+        w = torch.softmax(w, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, lq, d)
+        return self.out(out)
+
+    def init_weights(self, g: torch.Generator) -> None:
+        for name in ("query", "key", "value", "out"):
+            getattr(self, name).init_weights(g)
 
 
 class InputProj(nn.Module):

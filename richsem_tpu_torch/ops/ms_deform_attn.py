@@ -155,11 +155,11 @@ def _lib(name: str, fn_name: str, n_ptr: int) -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda(value, loc, aw):
+def _check_cuda(value, loc, aw, kernel: str = "K1"):
     if value.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"K1 takes a bf16 or f32 value, got {value.dtype}")
+        raise TypeError(f"{kernel} takes a bf16 or f32 value, got {value.dtype}")
     if loc.dtype != torch.float32 or aw.dtype != torch.float32:
-        raise TypeError("K1 takes float32 sampling locations and attention weights")
+        raise TypeError(f"{kernel} takes float32 sampling locations and attention weights")
     if not (loc.device == aw.device == value.device):
         raise ValueError("value, locations and attention weights must share a device")
 

@@ -17,6 +17,7 @@ MHA ``out`` ``kernel``     ``weight`` [out,h*hd]   ``[h,hd,out]`` -> ``[h*hd,out
 ``mean`` / ``var`` (BN)    ``running_mean|var``    as is
 top-level arrays           the same name           as is (``level_embed``, ``tgt_embed``,
                                                    ``logit_scale``, ``cls_kernel`` ...)
+``positional_embedding``   the same name           as is (the CLIP attention pool's)
 =========================  ======================  =================================
 
 Flax's attention divides the query by sqrt(head_dim) at run time; the port does
@@ -50,8 +51,8 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
 
 
 def _convert_leaf(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
-    if len(path) == 1:
-        return path[0], arr
+    if len(path) == 1 or path[-1] == "positional_embedding":
+        return ".".join(path), arr
     *parents, leaf = path
     module = ".".join(parents)
     mha = parents[-1] in ("query", "key", "value", "out")
@@ -80,7 +81,9 @@ def params_from_jax(
 
     Every flax leaf maps to exactly one key, or this raises. With ``expected``
     (a state dict, or any mapping of names to tensors or shapes), every key on
-    either side must be matched, with equal shapes, or this raises.
+    either side must be matched, with equal shapes, or this raises. A
+    ``positional_embedding`` array below the top level (the CLIP attention
+    pool's) keeps its name, as the top-level arrays do.
     """
     if set(flax_params) == {"params"}:
         flax_params = flax_params["params"]
@@ -104,3 +107,18 @@ def params_from_jax(
                 f"unexpected {unexpected}, wrong shapes {wrong}"
             )
     return out
+
+
+def clip_params_from_jax(
+    flax_params: Mapping[str, Any],
+    expected: Optional[Mapping[str, Any]] = None,
+) -> Dict[str, torch.Tensor]:
+    """The flax tree of ``richsem_tpu.models.clip.CLIP`` (``tools/convert_clip.py``
+    makes one from an OpenAI checkpoint) -> state dict of
+    :class:`richsem_tpu_torch.models.clip.CLIP`: the convolutions, frozen batch
+    norms, attention-pool projections and ``positional_embedding`` of the vision
+    tower, the text blocks' ``MultiHeadDotProductAttention`` (``query|key|value``
+    kernels ``[width, heads, head_dim]``, ``out`` ``[heads, head_dim, width]``)
+    and the top-level embeddings, projection and ``logit_scale``, every leaf
+    exactly once, as :func:`params_from_jax`."""
+    return params_from_jax(flax_params, expected)

@@ -193,7 +193,7 @@ def test_losses_and_grads_match_jax(case):
         assert not losses[k].requires_grad
 
 
-@pytest.mark.parametrize("kw", [{"distill_type": "clip_logits"},
+@pytest.mark.parametrize("kw", [{"distill_type": "clip_logits", "distill_aux_layers": True},
                                 {"matcher_type": "OptMatcher"}])
 def test_unported_branches_raise(case, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

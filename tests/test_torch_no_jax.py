@@ -3,8 +3,10 @@
 In a fresh interpreter where ``import jax``, ``import flax`` and
 ``import richsem_tpu`` all fail, every module of the port imports, the tiny
 model builds on the CPU, serves one batch and takes one training step (CDN,
-matching, the federated loss, the clipped AdamW), and the kernels' launch
-counters stay at 0 (CPU tensors run the plain versions).
+matching, the federated loss, the clipped AdamW), then one flagship step with
+a tiny CLIP teacher (RoIAlign, the distillation losses) and the separable
+decoder sampler, and the six kernels' launch counters stay at 0 (CPU tensors
+run the plain versions).
 """
 
 import os
@@ -25,6 +27,8 @@ MODULES = [
     "richsem_tpu_torch.ops.position_encoding",
     "richsem_tpu_torch.ops.ms_deform_attn",
     "richsem_tpu_torch.ops.fused_ffn",
+    "richsem_tpu_torch.ops.ms_deform_attn_sep",
+    "richsem_tpu_torch.ops.roi_align",
     "richsem_tpu_torch.models.transformer_utils",
     "richsem_tpu_torch.models.layers",
     "richsem_tpu_torch.models.resnet",
@@ -35,6 +39,10 @@ MODULES = [
     "richsem_tpu_torch.models.dn",
     "richsem_tpu_torch.models.matcher",
     "richsem_tpu_torch.models.criterion",
+    "richsem_tpu_torch.models.clip",
+    "richsem_tpu_torch.models.clip.model",
+    "richsem_tpu_torch.models.clip.tokenizer",
+    "richsem_tpu_torch.models.clip_align",
     "richsem_tpu_torch.ops.lap",
     "richsem_tpu_torch.train.optim",
     "richsem_tpu_torch.train.engine",
@@ -83,8 +91,31 @@ tb = dict(batch, labels=torch.tensor([[1, 2, 3], [4, 5, 0]]),
           valid=torch.tensor([[True, True, True], [True, True, False]]))
 m = step(state, tb)
 assert state.step == 1 and bool(m["finite"]) and float(m["grad_norm"]) > 0
+
+import dataclasses
+from richsem_tpu_torch.models.clip.model import CLIP, CLIPConfig
+from richsem_tpu_torch.ops import ms_deform_attn_sep
+
+fcfg = Config.fromfile("configs/richsem/richsem_4scale_lvis.py")
+fcfg.update(hidden_dim=64, nheads=4, enc_layers=2, dec_layers=2, dim_feedforward=128,
+            num_queries=20, num_classes=12, dn_labelbook_size=12, fed_num_sample_cats=4,
+            clip_embed_dim=16, distill_max_boxes=2, dec_msda_impl="sep_pallas",
+            compute_dtype="float32")
+teacher = CLIP(dataclasses.replace(CLIPConfig.rn50(), embed_dim=16, vision_layers=(1, 1, 1, 1),
+                                   vision_width=8, vision_heads=4, image_resolution=64,
+                                   vocab_size=64, transformer_width=16, transformer_heads=2,
+                                   transformer_layers=1, context_length=8), device="cpu")
+teacher.init_weights(torch.Generator().manual_seed(3))
+teacher.eval().requires_grad_(False)
+model, _, _ = build_model("richsem", fcfg, device="cpu", generator=torch.Generator().manual_seed(0))
+state = create_train_state(model, build_optimizer(model, fcfg))
+step = make_train_step(model, fcfg, seed=0, device="cpu", clip_model=teacher)
+m = step(state, dict(tb, size=torch.tensor([[128, 192], [100, 150]])),
+         torch.randn((12, 16), generator=g))
+assert bool(m["finite"]) and float(m["loss_distill"]) > 0 and float(m["loss_distill_dn"]) > 0
 for name in (ms_deform_attn.ms_deform_attn, ms_deform_attn.ms_deform_attn_backward,
-             fused_ffn.encoder_tail, fused_ffn.encoder_tail_backward):
+             fused_ffn.encoder_tail, fused_ffn.encoder_tail_backward,
+             ms_deform_attn_sep.ms_deform_attn_sep, ms_deform_attn_sep.ms_deform_attn_sep_backward):
     assert name.launches == 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "richsem_tpu")
              and sys.modules[m] is not None)
@@ -103,23 +134,40 @@ def test_port_runs_without_jax():
 
 
 def test_entry_points_default_to_the_card():
-    """Built without a device, the model targets CUDA: where there is no card
-    it raises instead of building on the CPU."""
+    """Built without a device, the model and the CLIP teacher target CUDA:
+    where there is no card they raise instead of building on the CPU. The K3
+    wrapper runs its plain version only for CPU tensors: its backward entry,
+    which has no plain path, refuses them."""
     import torch
 
     import richsem_tpu_torch.models.build  # noqa: F401
     from richsem_tpu_torch.config import Config
     from richsem_tpu_torch.models import build_model
+    from richsem_tpu_torch.models.build import build_clip_teacher
+    from richsem_tpu_torch.ops import ms_deform_attn_sep as k3
 
     cfg = Config.fromfile(os.path.join(ROOT, "configs/richsem/dino_4scale_lvis.py"))
     cfg.update(hidden_dim=64, nheads=4, enc_layers=1, dec_layers=1, dim_feedforward=128,
                num_queries=20, num_classes=12)
+    fcfg = Config.fromfile(os.path.join(ROOT, "configs/richsem/richsem_4scale_lvis.py"))
+    shapes = ((4, 6),)
+    args = (torch.zeros(1, 24, 2, 4), shapes, torch.full((1, 3, 2, 1, 2, 2), 0.5),
+            torch.full((1, 3, 2, 1, 2), 0.5))
     if torch.cuda.is_available():
         model, _, _ = build_model("richsem", cfg)
         assert next(model.parameters()).device.type == "cuda"
+        teacher = build_clip_teacher(fcfg, "bfloat16")
+        assert next(teacher.parameters()).device.type == "cuda"
+        before = k3.ms_deform_attn_sep.launches
+        k3.ms_deform_attn_sep(*(a.cuda() if torch.is_tensor(a) else a for a in args))
+        assert k3.ms_deform_attn_sep.launches == before + 1
     else:
         with pytest.raises(RuntimeError, match="cuda"):
             build_model("richsem", cfg)
+        with pytest.raises(RuntimeError, match="cuda"):
+            build_clip_teacher(fcfg, "bfloat16")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        k3.ms_deform_attn_sep_backward(*args, torch.zeros(1, 3, 8))
 
 
 def test_registry_names_the_richsem_builder():

@@ -6,7 +6,7 @@ Phases, each printed as it completes:
 
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the build of every hand-written kernel from
-   ``richsem_tpu_torch/csrc`` (six kernels, one nvcc per source, all at once,
+   ``richsem_tpu_torch/csrc`` (nine sources, one nvcc per source, all at once,
    sm_90a) with its register report.
 2. K1 (deformable attention) against its plain PyTorch version at the
    production encoder shapes (clamped offsets) and decoder shapes (1,100 box
@@ -41,8 +41,33 @@ Phases, each printed as it completes:
 11. The same step with ``dec_msda_impl="sep_pallas"``: 2 steps, launches
     checked (6 of each of the six kernels), the loss, the gradients against
     the plain versions, and one profiled step.
+12. The calibration probes (``richsem_tpu_torch/tools``, the ports of the
+    Pallas probes in ``tools/``): each module's ``main()`` at the JAX defaults
+    with every probe kernel's launches counted and checked, then each probe
+    kernel against its plain version (exact, or the stated tolerance) with
+    its CUDA-event time, the plain version's, the one PyTorch call that
+    computes the same function where there is one (``x * 2``, ``x.repeat``,
+    ``x + x`` and ``x * 3`` for chain-1 and chain-2, a broadcast product for
+    fma-1, ``torch.einsum`` for fma-P), the bound and the share.
+13. The trainer through its entry point (``richsem_tpu_torch/train/main.py``):
+    a synthetic LVIS-v1 directory (1203 categories, 16 train and 4 val PNGs of
+    480-640 x 640-960 px, written with zlib), ``train_loop`` on
+    ``dino_4scale_lvis.py`` at full width, bf16, bs2 for one epoch (its steps,
+    one eval, a checkpoint; launches checked: 12/12/6/6 a step, K1 12 and K2 6
+    an eval forward), again with ``epochs=2`` (auto-resume, one more epoch),
+    the checkpoint restored into a fresh state and compared bit for bit, and
+    ``python -m richsem_tpu_torch.train.main --eval`` in a subprocess; finite
+    loss and AP in [0, 1] checked; ms/step, the loader's wait, eval ms/batch,
+    checkpoint save and restore s and peak memory printed.
 
-``python3 chip_smoke.py kernels`` stops after the kernel phases (1-5, 8, 9).
+``python3 chip_smoke.py kernels`` stops after the kernel phases (1-5, 8, 9, 12).
+
+The kernels' JSON record lists nine sources: the six kernels of the model,
+each with ``launches`` from the flagship train step (phase 10, K3 and K3-bwd
+from phase 11) and ``trainer_launches`` from phase 13, and the three probe
+sources, each with the numbers of one headline call at the top, every call
+under ``calls``, and ``launches`` summed over its kernels in the probes'
+``main()`` runs.
 
 TF32 is off for every matmul and convolution here. The second-to-last line is
 the kernels' JSON record, the last ``{"ok": true, "device": {...}}``. Any
@@ -68,9 +93,11 @@ MAX_GT, N_VALID = 300, 16  # bench.py's GT pad and valid count
 SHAPES = ((112, 168), (56, 84), (28, 42), (14, 21))  # the 896 x 1344 pyramid
 DEVICE = "cuda"
 KERNELS = ("ms_deform_attn_fwd", "ms_deform_attn_bwd", "fused_encoder_tail_fwd",
-           "fused_encoder_tail_bwd", "ms_deform_attn_sep_fwd", "ms_deform_attn_sep_bwd")
+           "fused_encoder_tail_bwd", "ms_deform_attn_sep_fwd", "ms_deform_attn_sep_bwd",
+           "probe_cal", "probe_cell", "probe_vpu_model")
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and f32 FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+BF16_VEC_FLOPS = 133.8e12  # bf16 outside the tensor cores (NVIDIA's H100 white paper, SXM5)
 COS_MIN = 0.9  # least gradient cosine, kernels vs plain versions (phases 7, 10, 11)
 
 
@@ -791,47 +818,339 @@ def phase_flagship(recs):
     print('phase 11: flagship train step with dec_msda_impl="sep_pallas" ok', flush=True)
 
 
-def probe_bounds():
-    """The H100 bound of each TPU probe still to port (tools/, PERF.md kernel
-    table rows 7-9) at the arguments its main() passes: operations over the
-    f32 CUDA-core or the bf16 tensor-core peak, bytes (inputs read once, the
-    output written once) over the HBM rate. Elementwise bf16 is counted at the
-    f32 CUDA-core rate. Arithmetic only: -> [(row, call, bound_ms, by)]."""
-    out = []
+def compare_exact(name, kernel_out, plain_out):
+    """The kernel and the plain version agree bit for bit; -> 0.0."""
+    import torch
 
-    def add(row, call, nbytes_, f32_ops=0.0, bf16_mma=0.0):
-        t_ops = max(f32_ops / F32_FLOPS, bf16_mma / BF16_FLOPS) * 1e3
-        t_bytes = nbytes_ / HBM_BPS * 1e3
-        out.append((row, call, *((t_bytes, "bytes") if t_bytes >= t_ops
-                                  else (t_ops, "operations"))))
+    a, b = kernel_out.float(), plain_out.float()
+    if not torch.isfinite(a).all():
+        fail(f"{name}: kernel output is not finite")
+    err = float((a - b).abs().max())
+    ok = bool(torch.equal(kernel_out, plain_out))
+    print(f"  {name}: max_abs_err {err:.3e} (tolerance: exact) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+    return err
 
-    rows, s = 768, 1664  # bench_pallas_cal.py:37
-    for name, size in (("float32", 4), ("bfloat16", 2)):  # 6 ops an element a rep
-        add(7, f"run_vpu({name}, reps=512)", 3 * rows * s * size, f32_ops=6 * rows * s * 512)
+
+def bound3(nbytes_: float, f32_ops: float = 0.0, bf16_ops: float = 0.0, bf16_mma: float = 0.0):
+    """(bound_ms, bound_by) for work on the CUDA cores (f32 and bf16 elementwise
+    operations, each at its own peak) and on the tensor cores (bf16 products)."""
+    t_ops = max(f32_ops / F32_FLOPS + bf16_ops / BF16_VEC_FLOPS, bf16_mma / BF16_FLOPS) * 1e3
+    t_bytes = nbytes_ / HBM_BPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def probe_case(call, replaces, launches, kern, plain, check, cost, library=None,
+               iters=20, plain_iters=3):
+    """One probe call: the kernel against its plain version (``check`` is
+    ``"exact"`` or a relative tolerance of the largest |plain|), CUDA-event times
+    of both and of ``library`` (one PyTorch call computing the same function),
+    and the bound from ``cost``, :func:`bound3`'s arguments for these inputs
+    (bytes, f32 and bf16 elementwise operations, bf16 tensor-core
+    operations). -> the call's record."""
+    import torch
+
+    out, ref = kern(), plain()
+    torch.cuda.synchronize()
+    err = (compare_exact(call, out, ref) if check == "exact"
+           else compare_rel(call, out, ref, check))
+    del out, ref
+    ms = cuda_ms(kern, iters=iters)
+    plain_ms = cuda_ms(plain, iters=plain_iters, warmup=1)
+    library_ms = cuda_ms(library, iters=iters) if library is not None else None
+    bms, by = bound3(**cost)
+    lib = f", library {library_ms:.4f} ms" if library_ms is not None else ""
+    print(f"  {call}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound {bms:.4f} ms "
+          f"({by}), share {bms / ms:.3f}; launches on the main path {launches}", flush=True)
+    return {"call": call, "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms}
+
+
+def probe_record(name, calls, headline):
+    """A source's record: the ``headline`` call's numbers at the top, every
+    call under ``calls``, launches summed over the source's kernels."""
+    top = next(c for c in calls if c["call"] == headline)
+    return {"name": name, "route": "cuda", "source": f"richsem_tpu_torch/csrc/{name}.cu",
+            "replaces": top["replaces"], "launches": sum(c["launches"] for c in calls),
+            "max_abs_err": max(c["max_abs_err"] for c in calls),
+            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "headline": headline, "calls": calls}
+
+
+def phase_probes():
+    """The calibration probes (richsem_tpu_torch/tools, the TPU's tools/ probes):
+    each module's main() at the JAX defaults, launches counted; then every
+    kernel against its plain version, timed beside its bound. -> 3 records."""
+    import torch
+
+    from richsem_tpu_torch.tools import bench_cal, bench_cell, bench_vpu_model
+
+    wrappers = {"vpu": bench_cal.vpu, "mxu": bench_cal.mxu,
+                "grid_overhead": bench_cal.grid_overhead, "repeat": bench_cal.repeat,
+                "cell": bench_cell.cell, "tile": bench_cell.tile,
+                "chain": bench_vpu_model.chain, "fma": bench_vpu_model.fma,
+                "fma_chunk": bench_vpu_model.fma_chunk}
+    # each run_* is a warm-up and then the timed calls: 2 + 20 (cal), 2 + 10
+    # (cell), 1 + 30 (vpu_model); tile once
+    want = {"vpu": 2 * 22, "mxu": 4 * 22, "grid_overhead": 2 * 22, "repeat": 2 * 22,
+            "cell": 2 * 12, "tile": 1, "chain": 4 * 31, "fma": 4 * 31, "fma_chunk": 31}
+    t0 = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+    bench_cal.main(DEVICE)
+    bench_cell.main(DEVICE)
+    bench_vpu_model.main(DEVICE)
+    torch.cuda.synchronize()
+    n = {k: w.launches for k, w in wrappers.items()}
+    print(f"  the probes' main() at the JAX defaults: {time.perf_counter() - t0:.1f} s; launches "
+          + ", ".join(f"{k} {v}" for k, v in n.items()) + f" (expect {want})", flush=True)
+    if n != want:
+        fail("the probes' entry points did not launch their kernels as expected")
+
+    g = torch.Generator(device=DEVICE).manual_seed(12)
+
+    def rand(*shape, lo=0.0, hi=1.0, dtype=torch.float32):
+        return (torch.rand(shape, generator=g, device=DEVICE) * (hi - lo) + lo).to(dtype)
+
+    rows, s = bench_cal.ROWS, bench_cal.S
+    cal = []
+    for dt in (torch.float32, torch.bfloat16):  # x around the pass index: the hat fires
+        x, y = rand(rows, s, lo=0, hi=8, dtype=dt), rand(rows, s, lo=-0.5, hi=1.5, dtype=dt)
+        cal.append(probe_case(
+            f"run_vpu({str(dt)[6:]}, reps=512)", "tools/bench_pallas_cal.py:55",
+            n["vpu"] // 2, lambda: bench_cal.vpu(x, y, 512), lambda: bench_cal.vpu_plain(x, y, 512),
+            "exact", {"nbytes_": 3 * nbytes(x),
+                      ("f32_ops" if dt == torch.float32 else "bf16_ops"): 6 * x.numel() * 512}))
     for k, d in ((768, 128), (768, 32), (96, 32), (96, 128)):
-        add(7, f"run_mxu({k}, {s}, {d}, bfloat16, reps=512)", 2 * (k * s + s * d) + 4 * k * d,
-            f32_ops=k * s * 512, bf16_mma=2 * k * s * d * 512)
-    for n in (4096, 16384):
-        add(7, f"run_grid_overhead({n})", 2 * n * 8 * 128 * 4, f32_ops=n * 8 * 128)
-    for name, size in (("float32", 4), ("bfloat16", 2)):  # [768, 32] -> [768, 32 * 52]
-        add(7, f"run_repeat({name})", (rows * 32 + rows * 32 * 52) * size,
-            f32_ops=256 * (rows * 32 + rows * 32 * 52))
-    mk, p, dd = 8 * 352, 4, 32  # bench_cell.py:31-34: windows sum wy*wx = 1636, wy = 78
-    win, side = 1636, 78
-    for mode in ("2d", "flat"):  # per rep: the hats (~9 ops a tap), outer product and P-sum
-        add(8, f"run_cell({mode!r}, reps=64)",
-            3 * mk * 4 * p * 4 + 2 * 8 * dd * win + 4 * 8 * 352 * dd,
-            f32_ops=64 * mk * (9 * p * side + (2 * p - 1) * win),
-            bf16_mma=64 * 2 * mk * dd * win)
-    add(8, "check_repeat_semantics()", 8 * 8 * 4 + 8 * 16 * 4)
-    elems = 154 * 8 * 28 * 32 * 384  # bench_vpu_model.py:30-31
-    for n in (1, 2, 4, 8):
-        add(9, f"chain-{n}", 2 * elems * 4, f32_ops=n * elems)
-    hyx = 154 * 8 * (28 + 32) * 4 * 384 * 4  # the two hat inputs, f32
-    for name, n_ops in (("fma-1", 1), ("fma-2", 3), ("fma-4", 7), ("fma-4-2acc", 7),
-                        ("fma-4-chunk", 7)):
-        add(9, name, hyx + elems * 4, f32_ops=n_ops * elems)
-    return out
+        a = torch.randn((k, s), generator=g, device=DEVICE).to(torch.bfloat16)
+        b = torch.randn((s, d), generator=g, device=DEVICE).to(torch.bfloat16)
+        # f32 sums of exact bf16 products, in another order
+        cal.append(probe_case(
+            f"run_mxu({k}, {s}, {d}, bfloat16, reps=512)", "tools/bench_pallas_cal.py:80",
+            n["mxu"] // 4, lambda: bench_cal.mxu(a, b, 512), lambda: bench_cal.mxu_plain(a, b, 512),
+            1e-5, {"nbytes_": nbytes(a, b) + 4 * k * d, "bf16_ops": k * s * 512,
+                   "bf16_mma": 2 * k * s * d * 512}))
+    for cells in (4096, 16384):
+        x = rand(cells, 8, 128, lo=-1, hi=1)
+        cal.append(probe_case(
+            f"run_grid_overhead({cells})", "tools/bench_pallas_cal.py:96", n["grid_overhead"] // 2,
+            lambda: bench_cal.grid_overhead(x), lambda: bench_cal.grid_overhead_plain(x), "exact",
+            {"nbytes_": 2 * nbytes(x), "f32_ops": x.numel()}, library=lambda: x * 2, iters=50,
+            plain_iters=20))
+        print(f"  kernel time a block at {cells} blocks: {cal[-1]['ms'] / cells * 1e6:.2f} ns "
+              f"(kernel ms / blocks; the kernel streams 8 KB a block, so this is memory "
+              f"time, not the cost of scheduling a block)")
+    for dt in (torch.float32, torch.bfloat16):
+        x = rand(rows, 32, lo=-2, hi=2, dtype=dt)
+        cal.append(probe_case(
+            f"run_repeat({str(dt)[6:]})", "tools/bench_pallas_cal.py:117", n["repeat"] // 2,
+            lambda: bench_cal.repeat(x, 52, 256), lambda: bench_cal.repeat_plain(x, 52, 256),
+            "exact", {"nbytes_": nbytes(x) * 53,
+                      ("f32_ops" if dt == torch.float32 else "bf16_ops"): 256 * x.numel() * 53}))
+
+    (yr, xr, aw), wins = bench_cell.cell_inputs(DEVICE)
+    mk, win, p = yr.shape[0], sum(w.shape[2] * w.shape[3] for w in wins), bench_cell.P
+    d = wins[0].shape[1]
+    # a pass, a row and a level: y + it per point, 5 operations a point and y
+    # tap (sub, abs, mul, sub, max) and 4 a point and x tap, then the products
+    # and their sum over the points; the contraction on the tensor cores
+    hat_ops = sum(p * (1 + 5 * w.shape[2] + 4 * w.shape[3]) for w in wins)
+    cell_cost = {"nbytes_": nbytes(yr, xr, aw, *wins) + 4 * mk * d,
+                 "f32_ops": 64 * mk * (hat_ops + (2 * p - 1) * win),
+                 "bf16_mma": 64 * 2 * mk * d * win}
+    cells = []
+    for mode in ("2d", "flat"):  # one function, one kernel: both lines time it
+        # one bf16 rounding step (2^-8) of a basis entry whose f32 sums differ
+        cells.append(probe_case(
+            f"run_cell({mode!r}, reps=64)", "tools/bench_cell.py:102", n["cell"] // 2,
+            lambda: bench_cell.cell(yr, xr, aw, wins, 64),
+            lambda: bench_cell.cell_plain(yr, xr, aw, wins, 64), 4e-3, cell_cost, iters=10,
+            plain_iters=1))
+    x = torch.arange(8, dtype=torch.float32, device=DEVICE)[None].repeat(8, 1)
+    cells.append(probe_case(
+        "check_repeat_semantics()", "tools/bench_cell.py:121", n["tile"],
+        lambda: bench_cell.tile(x, 2), lambda: bench_cell.tile_plain(x, 2), "exact",
+        {"nbytes_": nbytes(x) * 3}, library=lambda: x.repeat(1, 2)))
+    del yr, xr, aw, wins
+
+    vm = []
+    big = (bench_vpu_model.T, bench_vpu_model.M, bench_vpu_model.WY, bench_vpu_model.WXP,
+           bench_vpu_model.K)
+    kk = bench_vpu_model.K
+    x = torch.randn(big, generator=g, device=DEVICE)
+    # chain-1 and chain-2 are one rounding each, as x + x and x * 3 (2x is exact)
+    libs = {1: lambda: x + x, 2: lambda: x * 3}
+    for n_ops in (1, 2, 4, 8):
+        vm.append(probe_case(
+            f"chain-{n_ops}", "tools/bench_vpu_model.py:53", n["chain"] // 4,
+            lambda: bench_vpu_model.chain(x, n_ops), lambda: bench_vpu_model.chain_plain(x, n_ops),
+            "exact", {"nbytes_": 2 * nbytes(x), "f32_ops": n_ops * x.numel()},
+            library=libs.get(n_ops), iters=10, plain_iters=3))
+    elems = x.numel()
+    del x, libs
+    hy = torch.randn(big[:3] + (4 * kk,), generator=g, device=DEVICE)
+    hx = torch.randn(big[:2] + (big[3], 4 * kk), generator=g, device=DEVICE)
+    hy_p, hx_p = hy.view(*big[:3], 4, kk), hx.view(*big[:2], big[3], 4, kk)
+
+    def library_fma(p):
+        """One PyTorch call: fma-1 is a broadcast product (bit for bit), fma-P a
+        sum over the points by einsum (in another order)."""
+        if p == 1:
+            return lambda: hy[:, :, :, None, :kk] * hx[:, :, None, :, :kk]
+        return lambda: torch.einsum("tmypk,tmxpk->tmyxk", hy_p[:, :, :, :p], hx_p[:, :, :, :p])
+
+    for label, p, two in (("fma-1", 1, False), ("fma-2", 2, False), ("fma-4", 4, False),
+                          ("fma-4-2acc", 4, True)):
+        vm.append(probe_case(
+            label, "tools/bench_vpu_model.py:61", n["fma"] // 4,
+            lambda: bench_vpu_model.fma(hy, hx, p, two),
+            lambda: bench_vpu_model.fma_plain(hy, hx, p, two), "exact",
+            {"nbytes_": nbytes(hy, hx) * p // 4 + 4 * elems, "f32_ops": (2 * p - 1) * elems},
+            library=library_fma(p), iters=10, plain_iters=3))
+    vm.append(probe_case(
+        "fma-4-chunk", "tools/bench_vpu_model.py:75", n["fma_chunk"],
+        lambda: bench_vpu_model.fma_chunk(hy, hx, 4),
+        lambda: bench_vpu_model.fma_chunk_plain(hy, hx, 4), "exact",
+        {"nbytes_": nbytes(hy, hx) + 4 * elems, "f32_ops": 7 * elems}, library=library_fma(4),
+        iters=10, plain_iters=3))
+    del hy, hx, hy_p, hx_p
+    torch.cuda.empty_cache()
+    print(f"phase 12: the probes match their plain versions ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return [probe_record("probe_cal", cal, "run_grid_overhead(16384)"),
+            probe_record("probe_cell", cells, "run_cell('2d', reps=64)"),
+            probe_record("probe_vpu_model", vm, "chain-1")]
+
+
+def phase_trainer(recs):
+    """Phase 13: ``dino_4scale_lvis.py`` trained through the port's entry point
+    (``richsem_tpu_torch/train/main.py``) on a synthetic LVIS directory at full
+    width, bf16, bs2: one epoch (steps, an eval, a checkpoint), then the same
+    command with ``epochs=2`` (auto-resume, one more epoch), then ``--eval``
+    through the CLI in a subprocess."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
+    from richsem_tpu_torch.data.synthetic import write_lvis
+    from richsem_tpu_torch.models import build_model
+    from richsem_tpu_torch.train import main as trainer
+    from richsem_tpu_torch.train.engine import create_train_state
+    from richsem_tpu_torch.train.optim import build_optimizer
+    from richsem_tpu_torch.utils.checkpoint import CheckpointManager, state_to_dict
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        t0 = time.perf_counter()
+        root = write_lvis(os.path.join(tmp, "lvis"))
+        print(f"  synthetic LVIS: 16 train and 4 val PNGs, 1203 categories, written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out = os.path.join(tmp, "out")
+        common = ["-c", TRAIN_CONFIG, "--output_dir", out, "--data_root", root]
+
+        def cfg_for(epochs):
+            args = common + ["--device", DEVICE, "--options", f"epochs={epochs}"]
+            return trainer.load_config(trainer.get_args_parser().parse_args(args))
+
+        cfg = cfg_for(1)
+        if (cfg.compute_dtype, cfg.batch_size) != ("bfloat16", 2):
+            fail(f"phase 13 expects bf16 and bs2, got {cfg.compute_dtype} and {cfg.batch_size}")
+        eval_batches = trainer.build_loaders(cfg)[1].num_batches_hint(0)
+        counters = launch_counters()
+        for c in counters:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for epochs in (1, 2):
+            t = time.perf_counter()
+            runs.append(trainer.train_loop(cfg_for(epochs)))
+            torch.cuda.synchronize()
+            print(f"  train_loop(epochs={epochs}): {time.perf_counter() - t:.1f} s, step "
+                  f"{runs[-1]['state'].step}", flush=True)
+            if epochs == 1:
+                launches = [c.launches for c in counters]
+                saved = state_to_dict(runs[0]["state"])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps1 = saved["step"]
+        steps2 = runs[1]["state"].step - steps1
+        if not runs[1]["ckpt_restore_s"] or [e["epoch"] for e in runs[1]["epochs"]] != [1]:
+            fail("the second run did not auto-resume and take one more epoch")
+        want = [12 * (steps1 + eval_batches), 12 * steps1, 6 * (steps1 + eval_batches),
+                6 * steps1, 0, 0]
+        print(f"  first run: {steps1} steps and {eval_batches} eval batches; launches "
+              + ", ".join(f"{k} {n}" for k, n in zip(COUNTED, launches))
+              + f" (expect {want}: 12/12/6/6 a step, K1 12 and K2 6 an eval forward)")
+        if launches != want:
+            fail("the trainer did not launch the kernels as expected")
+        for rec, n in zip(recs, launches):
+            rec["trainer_launches"] = n
+        logs = [json.loads(line) for line in open(os.path.join(out, "log.txt"))]
+        for e in logs:
+            print(f"  log.txt epoch {e['epoch']}: step {e['step']}, loss {e['loss']:.4f}, "
+                  f"AP {e['AP']:.4f}, APr {e['APr']:.4f}, eval {e['eval_ms_per_batch']:.1f} "
+                  f"ms/batch, train_time_s {e['train_time_s']}")
+        if [e["epoch"] for e in logs] != [0, 1] or not all(
+                math.isfinite(e["loss"]) and 0.0 <= e["AP"] <= 1.0 for e in logs):
+            fail("log.txt lacks two epochs with finite loss and AP in [0, 1]")
+
+        # the checkpoint of the first run, restored into a state built afresh
+        model, _, _ = build_model("richsem", cfg, device=DEVICE,
+                                  generator=torch.Generator(device=DEVICE).manual_seed(7))
+        fresh = create_train_state(model, build_optimizer(model, cfg, steps_per_epoch=1),
+                                   use_ema=cfg.use_ema)
+        CheckpointManager(os.path.join(out, "ckpt")).restore(fresh, step=steps1)
+        back = state_to_dict(fresh)
+
+        def leaves(d, prefix=""):
+            for k, v in (d or {}).items():
+                yield from (leaves(v, f"{prefix}{k}.") if isinstance(v, dict)
+                            else [(f"{prefix}{k}", v)])
+
+        a, b = dict(leaves(saved)), dict(leaves(back))
+        same = a.keys() == b.keys() and all(
+            torch.equal(a[k], b[k]) if torch.is_tensor(a[k]) else a[k] == b[k] for k in a)
+        print(f"  restored state equals the saved one bit for bit: {same}")
+        if not same:
+            fail("the restored state differs from the saved one")
+        del model, fresh, back, saved, a, b, runs[0]["state"]
+
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "richsem_tpu_torch.train.main", *common, "--eval",
+             "--device", DEVICE],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode != 0:
+            print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
+            fail("python -m richsem_tpu_torch.train.main --eval failed")
+        ev = json.load(open(os.path.join(out, "eval.json")))
+        print(f"  CLI --eval ({time.perf_counter() - t:.1f} s with start-up): step {ev['step']}, "
+              f"AP {ev['AP']:.4f}, AP50 {ev['AP50']:.4f}, {ev['eval_ms_per_batch']:.1f} ms/batch")
+        if ev["step"] != steps1 + steps2 or not 0.0 <= ev["AP"] <= 1.0:
+            fail("--eval did not evaluate the last checkpoint to an AP in [0, 1]")
+
+        step_ms = [1e3 * s for r in runs for s in r["step_s"]]
+        wait_ms = [1e3 * s for r in runs for s in r["data_s"]]
+        steady = [1e3 * s for r in runs for s in r["step_s"][1:]]
+        save_s = [s for r in runs for s in r["ckpt_save_s"]]
+        print(f"  train steps ({steps1} + {steps2}): {', '.join(f'{t:.1f}' for t in step_ms)} ms "
+              f"(host clock, loader wait included); median {statistics.median(steady):.2f} ms/step "
+              f"without each run's first step = {BATCH * 1e3 / statistics.median(steady):.3f} "
+              f"img/s")
+        print(f"  loader wait a step: median {statistics.median(wait_ms):.2f} ms, max "
+              f"{max(wait_ms):.2f} ms; eval {logs[0]['eval_ms_per_batch']:.1f} and "
+              f"{logs[1]['eval_ms_per_batch']:.1f} ms/batch; checkpoint save "
+              f"{', '.join(f'{s:.2f}' for s in save_s)} s, restore "
+              f"{runs[1]['ckpt_restore_s'][0]:.2f} s; peak memory {peak_gb:.2f} GB", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("phase 13: the trainer trains, evaluates, checkpoints and resumes through "
+          "train/main.py", flush=True)
 
 
 # the __global__ functions of richsem_tpu_torch/csrc (K2-bwd is three of them)
@@ -880,10 +1199,6 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     t0 = time.perf_counter()
     smi = phase_build()
-    bounds = probe_bounds()
-    for r in sorted({b[0] for b in bounds}):
-        print(f"  bounds of the TPU probes still to port, row {r}: " + "; ".join(
-            f"{call} {bms:.4g} ms ({by})" for row, call, bms, by in bounds if row == r))
     value, cases = k1_cases()
     k1_rec = phase_k1(value, cases)
     k1b_rec = phase_k1_bwd(value, cases)
@@ -896,15 +1211,18 @@ def main() -> None:
     del args, dy
     torch.cuda.empty_cache()
     recs = [k1_rec, k1b_rec, k2_rec, k2b_rec, k3_rec, k3b_rec]
+    probe_recs = phase_probes()
     if sys.argv[1:] != ["kernels"]:
         phase_eval(k1_rec, k2_rec)
         torch.cuda.empty_cache()
         phase_train(recs)
         torch.cuda.empty_cache()
         phase_flagship(recs)
+        torch.cuda.empty_cache()
+        phase_trainer(recs)
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
-    print(json.dumps({"kernels": recs}))
+    print(json.dumps({"kernels": recs + probe_recs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,314 @@
+"""Image decode and resize without OpenCV.
+
+The JAX data path calls OpenCV in three places on its main path: the decode
+(``cv2.imread`` + ``cvtColor``, ``richsem_tpu/data/datasets.py:35-39``) and the
+two resizes (``transforms.py:82-83`` and ``:240-241``). This module takes their
+place on every machine:
+
+* :func:`imread_rgb` decodes PNG with ``zlib`` and numpy: 8-bit gray, gray +
+  alpha, RGB, RGBA and palette images, non-interlaced, every filter type. PNG is
+  lossless, so the pixels are ``cv2.imread``'s (alpha dropped, gray repeated).
+  Other formats, and PNG variants this decoder does not read (interlaced, 16-bit,
+  under 8 bits), go through OpenCV when it imports and raise a ``ValueError``
+  naming the format and the missing decoder when it does not.
+* :func:`resize` reproduces ``cv2.resize`` on uint8 images: ``INTER_LINEAR``
+  (half-pixel centres, edge clamp, OpenCV's 11-bit fixed-point weights and its
+  vectorised rounding) and ``INTER_AREA`` (for shrinking, OpenCV's overlap
+  weights per axis, summed in float32; for growing, its linear variant).
+  Results agree with OpenCV's within one level.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import struct
+import zlib
+from typing import Optional, Tuple
+
+import numpy as np
+
+INTER_LINEAR = "linear"
+INTER_AREA = "area"
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG color type -> samples a pixel
+
+
+def _format_of(head: bytes) -> str:
+    if head.startswith(PNG_SIGNATURE):
+        return "PNG"
+    if head.startswith(b"\xff\xd8\xff"):
+        return "JPEG"
+    if head[:4] in (b"II*\x00", b"MM\x00*"):
+        return "TIFF"
+    if head.startswith(b"BM"):
+        return "BMP"
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        return "WebP"
+    return "unknown"
+
+
+def _cv2_read(path: str, fmt: str, why: str) -> Optional[np.ndarray]:
+    try:
+        import cv2
+    except ImportError as e:
+        raise ValueError(
+            f"{path}: {fmt} image ({why}) needs OpenCV's decoder, and cv2 does not "
+            f"import ({e}); the built-in decoder reads 8-bit non-interlaced PNG") from e
+    img = cv2.imread(path, cv2.IMREAD_COLOR)
+    if img is None:
+        return None
+    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
+    """Undo the per-row PNG filters: raw [h, 1 + w * bpp] -> [h, w, bpp] uint8."""
+    ftype = raw[:, 0]
+    if (ftype > 4).any():
+        raise ValueError(f"bad PNG filter type {int(ftype.max())}")
+    filt = raw[:, 1:].reshape(h, w, bpp)
+    if (ftype <= 2).all():  # None / Sub / Up: each row at once
+        out = np.zeros((h, w, bpp), np.uint8)
+        prior = np.zeros((w, bpp), np.uint8)
+        for y in range(h):
+            row = filt[y]
+            if ftype[y] == 1:
+                row = np.cumsum(row, axis=0, dtype=np.uint8)  # wraps modulo 256
+            elif ftype[y] == 2:
+                row = row + prior
+            out[y] = prior = row
+        return out
+    # Average and Paeth depend on the left, upper and upper-left pixels: walk
+    # the anti-diagonals, every row of a diagonal at once, each by its filter
+    o = np.zeros((h + 1, w + 1, bpp), np.int16)  # a zero row and column in front
+    f = filt.astype(np.int16)
+    ft = ftype.astype(np.int16)
+    for d in range(h + w - 1):
+        ys = np.arange(max(0, d - w + 1), min(h, d + 1))
+        xs = d - ys
+        a, b, c = o[ys + 1, xs], o[ys, xs + 1], o[ys, xs]
+        t = ft[ys][:, None]
+        pred = np.select([t == 0, t == 1, t == 2, t == 3],
+                         [np.zeros_like(a), a, b, (a + b) >> 1], _paeth(a, b, c))
+        o[ys + 1, xs + 1] = (f[ys, xs] + pred) & 0xFF
+    return o[1:, 1:].astype(np.uint8)
+
+
+def decode_png(data: bytes) -> Optional[np.ndarray]:
+    """PNG bytes -> RGB uint8 [h, w, 3]; None for a truncated or corrupt file.
+    Raises ``NotImplementedError`` for a variant the decoder does not read."""
+    if not data.startswith(PNG_SIGNATURE):
+        return None
+    pos, idat, palette, hdr = len(PNG_SIGNATURE), [], None, None
+    try:
+        while pos + 8 <= len(data):
+            n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+            body = data[pos + 8:pos + 8 + n]
+            if len(body) != n:
+                return None
+            pos += 12 + n
+            if kind == b"IHDR":
+                hdr = struct.unpack(">IIBBBBB", body)
+            elif kind == b"PLTE":
+                palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            elif kind == b"IDAT":
+                idat.append(body)
+            elif kind == b"IEND":
+                break
+        if hdr is None or not idat:
+            return None
+        w, h, depth, ctype, _, _, interlace = hdr
+        if ctype not in _CHANNELS:
+            return None
+        if depth != 8 or interlace:
+            raise NotImplementedError(f"bit depth {depth}, interlace {interlace}")
+        ch = _CHANNELS[ctype]
+        raw = zlib.decompress(b"".join(idat))
+    except (struct.error, zlib.error, ValueError):
+        return None
+    if len(raw) < h * (1 + w * ch):
+        return None
+    raw = np.frombuffer(raw, np.uint8)[: h * (1 + w * ch)].reshape(h, 1 + w * ch)
+    try:
+        px = _unfilter(raw, h, w, ch)
+    except ValueError:
+        return None
+    if ctype == 3:
+        if palette is None:
+            return None
+        return palette[np.minimum(px[..., 0], len(palette) - 1)]
+    if ctype in (0, 4):  # gray (+ alpha): the alpha is dropped, the gray repeated
+        return np.repeat(px[..., :1], 3, axis=2)
+    return np.ascontiguousarray(px[..., :3])  # RGB (+ alpha, dropped)
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def encode_png(img: np.ndarray, filters=0, level: int = 1) -> bytes:
+    """uint8 [h, w] (gray), [h, w, 3] (RGB) or [h, w, 4] (RGBA) -> PNG bytes.
+    ``filters``: one PNG filter type (0-4) for every row, or one per row."""
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise ValueError(f"encode_png takes uint8 [h, w(, c)], got {img.dtype} {img.shape}")
+    px = img[..., None] if img.ndim == 2 else img
+    h, w, ch = px.shape
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[ch]
+    ft = np.broadcast_to(np.asarray(filters, np.uint8), (h,))
+    x = px.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, 1:] = x[:, :-1]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, 1:] = x[:-1, :-1]
+    preds = [np.zeros_like(x), a, b, (a + b) >> 1, _paeth(a, b, c)]
+    t = ft.reshape(h, 1, 1)
+    filt = (x - np.select([t == k for k in range(4)], preds[:4], preds[4])) & 0xFF
+    raw = np.concatenate([ft[:, None], filt.astype(np.uint8).reshape(h, w * ch)], axis=1)
+    return (PNG_SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + _chunk(b"IEND", b""))
+
+
+def imread_rgb(path: str) -> Optional[np.ndarray]:
+    """Read an image file as RGB uint8 [h, w, 3]: ``cv2.imread`` + ``BGR2RGB``
+    without OpenCV for PNG. None when the file is missing, truncated or corrupt,
+    as ``cv2.imread`` returns."""
+    if not os.path.isfile(path):
+        return None
+    with open(path, "rb") as f:
+        data = f.read()
+    fmt = _format_of(data[:16])
+    if fmt != "PNG":
+        return _cv2_read(path, fmt, "not PNG")
+    try:
+        return decode_png(data)
+    except NotImplementedError as e:
+        return _cv2_read(path, fmt, str(e))
+
+
+# ---------------------------------------------------------------------------
+# resize
+# ---------------------------------------------------------------------------
+_COEF_BITS = 11
+_COEF_SCALE = 1 << _COEF_BITS
+
+
+def _linear_taps(src: int, dst: int, area_mode: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """OpenCV's two taps and fixed-point weights along one axis -> (index [dst, 2],
+    weight [dst, 2] int32)."""
+    scale = src / dst
+    d = np.arange(dst, dtype=np.float64)
+    if area_mode:
+        sx = np.floor(d * scale).astype(np.int64)
+        fx = ((d + 1) - (sx + 1) * (dst / src)).astype(np.float32)
+        fx = np.where(fx <= 0, np.float32(0), fx - np.floor(fx)).astype(np.float32)
+    else:
+        f = ((d + 0.5) * scale - 0.5).astype(np.float32)
+        sx = np.floor(f).astype(np.int64)
+        fx = (f - np.floor(f)).astype(np.float32)
+    low = sx < 0
+    fx[low], sx[low] = 0, 0
+    high = sx >= src - 1
+    fx[high], sx[high] = 0, src - 1
+    w0 = np.rint((np.float32(1) - fx) * np.float32(_COEF_SCALE)).astype(np.int32)
+    w1 = np.rint(fx * np.float32(_COEF_SCALE)).astype(np.int32)
+    idx = np.stack([sx, np.minimum(sx + 1, src - 1)], 1)
+    return idx, np.stack([w0, w1], 1)
+
+
+def _resize_linear(img: np.ndarray, nw: int, nh: int, area_mode: bool = False) -> np.ndarray:
+    h, w = img.shape[:2]
+    xi, xw = _linear_taps(w, nw, area_mode)
+    yi, yw = _linear_taps(h, nh, area_mode)
+    s = img.astype(np.int32)
+    # horizontal pass in int32 (weights sum to 2^11), then the two rows each
+    # output row reads, combined as OpenCV's vector path does: 16-bit high
+    # products of the rows >> 4 with the weights, then a rounding shift by 2
+    hor = s[:, xi[:, 0]] * xw[:, 0, None] + s[:, xi[:, 1]] * xw[:, 1, None]
+    r0 = hor[yi[:, 0]] >> 4
+    r1 = hor[yi[:, 1]] >> 4
+    b0 = yw[:, 0].reshape(-1, 1, 1)
+    b1 = yw[:, 1].reshape(-1, 1, 1)
+    out = (((r0 * b0) >> 16) + ((r1 * b1) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def _area_tab(src: int, dst: int) -> Tuple[np.ndarray, np.ndarray]:
+    """OpenCV's ``computeResizeAreaTab`` along one axis -> (index [dst, K],
+    weight [dst, K] float32), K taps a destination pixel, zero-weight padded."""
+    scale = src / dst
+    rows = []
+    for dx in range(dst):
+        fsx1 = dx * scale
+        fsx2 = fsx1 + scale
+        cell = min(scale, src - fsx1)
+        sx1, sx2 = math.ceil(fsx1), math.floor(fsx2)
+        sx2 = min(sx2, src - 1)
+        sx1 = min(sx1, sx2)
+        taps = []
+        if sx1 - fsx1 > 1e-3:
+            taps.append((sx1 - 1, (sx1 - fsx1) / cell))
+        taps += [(sx, 1.0 / cell) for sx in range(sx1, sx2)]
+        if fsx2 - sx2 > 1e-3:
+            taps.append((sx2, min(min(fsx2 - sx2, 1.0), cell) / cell))
+        rows.append(taps)
+    k = max(len(t) for t in rows)
+    idx = np.zeros((dst, k), np.int64)
+    wt = np.zeros((dst, k), np.float32)
+    for i, taps in enumerate(rows):
+        for j, (s, a) in enumerate(taps):
+            idx[i, j], wt[i, j] = s, a
+    return idx, wt
+
+
+def _resize_area(img: np.ndarray, nw: int, nh: int) -> np.ndarray:
+    h, w = img.shape[:2]
+    if w % nw == 0 and h % nh == 0:  # OpenCV's integer-scale path: block sums
+        sx, sy = w // nw, h // nh
+        blocks = img.astype(np.int32).reshape(nh, sy, nw, sx, *img.shape[2:]).sum(axis=(1, 3))
+        if (sx, sy) == (2, 2):  # its vector path rounds halves up
+            return ((blocks + 2) >> 2).astype(np.uint8)
+        return np.clip(np.rint(blocks * np.float32(1.0 / (sx * sy))), 0, 255).astype(np.uint8)
+    xi, xw = _area_tab(w, nw)
+    yi, yw = _area_tab(h, nh)
+    s = img.astype(np.float32)
+    hor = np.zeros((h, nw) + img.shape[2:], np.float32)
+    for j in range(xi.shape[1]):  # the taps in OpenCV's order, float32 sums
+        wj = xw[:, j].reshape((1, nw) + (1,) * (img.ndim - 2))
+        hor = hor + s[:, xi[:, j]] * wj
+    out = np.zeros((nh, nw) + img.shape[2:], np.float32)
+    for j in range(yi.shape[1]):
+        wj = yw[:, j].reshape((nh,) + (1,) * (img.ndim - 1))
+        out = out + hor[yi[:, j]] * wj
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def resize(img: np.ndarray, size: Tuple[int, int], interpolation: str = INTER_LINEAR
+           ) -> np.ndarray:
+    """``cv2.resize(img, (nw, nh), interpolation=...)`` for uint8 [h, w(, c)]."""
+    nw, nh = int(size[0]), int(size[1])
+    if img.dtype != np.uint8:
+        raise TypeError(f"resize takes uint8 images, got {img.dtype}")
+    h, w = img.shape[:2]
+    if (nh, nw) == (h, w):
+        return img.copy()
+    if nw < 1 or nh < 1:
+        raise ValueError(f"bad target size {(nw, nh)}")
+    if interpolation == INTER_AREA:
+        if nw <= w and nh <= h:
+            return _resize_area(img, nw, nh)
+        return _resize_linear(img, nw, nh, area_mode=True)
+    if interpolation == INTER_LINEAR:
+        return _resize_linear(img, nw, nh)
+    raise ValueError(f"unknown interpolation {interpolation!r}")

@@ -1,12 +1,15 @@
-"""The port imports neither JAX, flax nor the JAX package.
+"""The port imports neither JAX, flax nor the JAX package, nor OpenCV.
 
-In a fresh interpreter where ``import jax``, ``import flax`` and
-``import richsem_tpu`` all fail, every module of the port imports, the tiny
+In a fresh interpreter where ``import jax``, ``import flax``,
+``import richsem_tpu`` and ``import cv2`` all fail, every module of the port
+imports, the tiny
 model builds on the CPU, serves one batch and takes one training step (CDN,
 matching, the federated loss, the clipped AdamW), then one flagship step with
 a tiny CLIP teacher (RoIAlign, the distillation losses) and the separable
 decoder sampler, and the six kernels' launch counters stay at 0 (CPU tensors
-run the plain versions).
+run the plain versions). In another such interpreter the data path reads PNGs
+and runs a two-image loader epoch, the trainer's entry point takes a step on
+the CPU, and the probes run their plain versions.
 """
 
 import os
@@ -46,11 +49,31 @@ MODULES = [
     "richsem_tpu_torch.ops.lap",
     "richsem_tpu_torch.train.optim",
     "richsem_tpu_torch.train.engine",
+    "richsem_tpu_torch.train.main",
+    "richsem_tpu_torch.data",
+    "richsem_tpu_torch.data.image_io",
+    "richsem_tpu_torch.data.coco_api",
+    "richsem_tpu_torch.data.transforms",
+    "richsem_tpu_torch.data.datasets",
+    "richsem_tpu_torch.data.samplers",
+    "richsem_tpu_torch.data.loader",
+    "richsem_tpu_torch.data.synthetic",
+    "richsem_tpu_torch.data.evaluation",
+    "richsem_tpu_torch.data.evaluation.detection_eval",
+    "richsem_tpu_torch.utils.logging",
+    "richsem_tpu_torch.utils.checkpoint",
+    "richsem_tpu_torch.tools",
+    "richsem_tpu_torch.tools._probe",
+    "richsem_tpu_torch.tools.bench_cal",
+    "richsem_tpu_torch.tools.bench_cell",
+    "richsem_tpu_torch.tools.bench_vpu_model",
 ]
+
+BLOCKED = ("jax", "flax", "richsem_tpu", "cv2")
 
 SCRIPT = """
 import importlib, sys
-for name in ("jax", "flax", "richsem_tpu"):
+for name in BLOCKED:
     sys.modules[name] = None  # any import of them now raises ImportError
 import torch
 torch.set_num_threads(2)
@@ -117,20 +140,78 @@ for name in (ms_deform_attn.ms_deform_attn, ms_deform_attn.ms_deform_attn_backwa
              fused_ffn.encoder_tail, fused_ffn.encoder_tail_backward,
              ms_deform_attn_sep.ms_deform_attn_sep, ms_deform_attn_sep.ms_deform_attn_sep_backward):
     assert name.launches == 0
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "richsem_tpu")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "richsem_tpu", "cv2")
+             and sys.modules[m] is not None)
+assert not bad, bad
+print("OK")
+"""
+
+DATA_SCRIPT = """
+import importlib, os, sys, tempfile
+for name in BLOCKED:
+    sys.modules[name] = None
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from richsem_tpu_torch.config import Config
+from richsem_tpu_torch.data.datasets import build_dataset
+from richsem_tpu_torch.data.image_io import imread_rgb
+from richsem_tpu_torch.data.loader import DataLoader
+from richsem_tpu_torch.data.samplers import ShuffleSampler
+from richsem_tpu_torch.data.synthetic import write_lvis
+from richsem_tpu_torch.tools import bench_cal, bench_cell, bench_vpu_model
+from richsem_tpu_torch.train import main
+
+root = tempfile.mkdtemp()
+write_lvis(root, n_train=2, n_val=2, hw=((40, 60), (50, 70)), n_cats=5, max_boxes=3,
+           filters=(4,))
+img = imread_rgb(os.path.join(root, "coco", "train2017", "000000000001.png"))
+assert img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3
+cfg = Config.fromfile("configs/richsem/dino_4scale_lvis.py")
+cfg.update(data_root=root, dataset_file="lvis", data_aug_scales=[48, 64], data_aug_max_size=96,
+           data_aug_scales2_resize=[40], data_aug_scales2_crop=[32, 40],
+           train_canvas_buckets=[(128, 128)], eval_canvas=(128, 128), max_gt_per_image=4)
+ds = build_dataset("train", cfg)
+batches = list(DataLoader(ds, ShuffleSampler(len(ds)), 2, [(128, 128)], 4).epoch(0))
+assert len(batches) == 1 and batches[0]["images"].shape == (2, 128, 128, 3)
+assert batches[0]["valid"].any()
+
+cfg.update(hidden_dim=64, nheads=4, enc_layers=1, dec_layers=1, dim_feedforward=128,
+           num_queries=20, num_classes=6, dn_labelbook_size=6, fed_num_sample_cats=3,
+           compute_dtype="float32", num_select=20, epochs=1, output_dir=os.path.join(root, "out"),
+           device="cpu", seed=0, eval=False, test=False, resume="", pretrain_model_path="",
+           start_epoch=0, debug=False)
+result = main.train_loop(cfg)
+assert result["state"].step == 1 and os.path.isfile(os.path.join(root, "out", "ckpt", "1.pt"))
+out, _ = bench_cal.run_grid_overhead(4, device="cpu")
+assert torch.equal(out, torch.full((4, 8, 128), 2.0))
+assert bench_cell.check_repeat_semantics(device="cpu")[0].tolist() == list(range(8)) * 2
+for fn in (bench_cal.vpu, bench_cal.mxu, bench_cal.grid_overhead, bench_cal.repeat,
+           bench_cell.cell, bench_cell.tile, bench_vpu_model.chain, bench_vpu_model.fma,
+           bench_vpu_model.fma_chunk):
+    assert fn.launches == 0
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "richsem_tpu", "cv2")
              and sys.modules[m] is not None)
 assert not bad, bad
 print("OK")
 """
 
 
-def test_port_runs_without_jax():
-    code = f"MODULES = {MODULES!r}\n" + SCRIPT
+def _run(script):
+    code = f"MODULES = {MODULES!r}\nBLOCKED = {BLOCKED!r}\n" + script
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip().endswith("OK")
+
+
+def test_port_runs_without_jax():
+    _run(SCRIPT)
+
+
+def test_data_path_and_trainer_run_without_opencv_or_jax():
+    _run(DATA_SCRIPT)
 
 
 def test_entry_points_default_to_the_card():

@@ -7,13 +7,18 @@ Phases, each printed as it completes:
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the build of every hand-written kernel from
    ``richsem_tpu_torch/csrc`` (nine sources, one nvcc per source, all at once,
-   sm_90a) with its register report.
+   sm_90a) with its register report; K1-bwd and K2-bwd must spill nothing.
 2. K1 (deformable attention) against its plain PyTorch version at the
    production encoder shapes (clamped offsets) and decoder shapes (1,100 box
    queries, unclamped), in bf16 and f32: max abs error and both times.
-3. K1-bwd against the autograd gradient of the plain version, same shapes.
+3. K1-bwd against the autograd gradient of the plain version, same shapes,
+   and a third case at the encoder's shapes with ``bench.py``'s valid extent
+   (800 x 1224 in 896 x 1344: valid ratios below 1 that differ by level), and
+   one profiled call at the encoder and at the decoder.
 4. K2 (fused encoder tail) against its plain version at N = 49,980 in bf16.
-5. K2-bwd against the plain version's autograd gradient: all ten gradients.
+5. K2-bwd against the plain version's autograd gradient: all ten gradients at
+   N = 49,980 and at ragged N = 1 and 200, two calls at N = 49,980 bit for
+   bit, and one profiled call (device time of each of its kernels).
 6. The flagship eval step (``configs/richsem/richsem_4scale_lvis.py``, bf16,
    random weights from a seeded generator, a 1204 x 1024 text bank) on 3
    batches of 2 images at 896 x 1344: outputs checked, K1/K2 launches counted
@@ -80,6 +85,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -99,6 +105,8 @@ KERNELS = ("ms_deform_attn_fwd", "ms_deform_attn_bwd", "fused_encoder_tail_fwd",
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 BF16_VEC_FLOPS = 133.8e12  # bf16 outside the tensor cores (NVIDIA's H100 white paper, SXM5)
 COS_MIN = 0.9  # least gradient cosine, kernels vs plain versions (phases 7, 10, 11)
+NO_SPILL = ("ms_deform_attn_bwd", "fused_encoder_tail_bwd")  # ptxas must report 0 spill bytes
+VALID = (800, 1224)  # bench.py's valid extent inside CANVAS
 
 
 def fail(msg: str) -> None:
@@ -189,7 +197,12 @@ def phase_build():
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name in NO_SPILL:
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", _build.build_log(name))
+        if not spills or any(int(b) for b in spills):
+            fail(f"{name}: ptxas reports spills (or no report): {spills}")
+    print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s; {', '.join(NO_SPILL)} "
+          "spill nothing", flush=True)
     return smi
 
 
@@ -269,8 +282,31 @@ def phase_k1(value, cases):
     return rec
 
 
+def k1_valid_case():
+    """The encoder's K1 inputs with bench.py's valid extent (VALID inside
+    CANVAS): reference points scaled by valid ratios below 1 that differ by
+    level (F3's geometry), offsets clamped to +-5.5 as in the model."""
+    import torch
+
+    from richsem_tpu_torch.models.transformer_utils import encoder_reference_points
+    from richsem_tpu_torch.ops import ms_deform_attn as k1
+    from richsem_tpu_torch.utils.misc import resize_mask, valid_ratios
+
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    b, m, n_lvl, p = BATCH, 8, 4, 4
+    s = sum(h * w for h, w in SHAPES)
+    pad = torch.ones((b, *CANVAS), dtype=torch.bool, device=DEVICE)
+    pad[:, : VALID[0], : VALID[1]] = False
+    vr = torch.stack([valid_ratios(resize_mask(pad, hw)) for hw in SHAPES], dim=1)
+    refs = encoder_reference_points(SHAPES, vr)
+    offs = (torch.rand((b, s, m, n_lvl, p, 2), generator=g, device=DEVICE) * 2 - 1) * 5.5
+    aw = torch.softmax(torch.randn((b, s, m, n_lvl * p), generator=g, device=DEVICE), -1)
+    return k1.compute_sampling_locations(refs, offs, SHAPES, p), aw.reshape(b, s, m, n_lvl, p)
+
+
 def phase_k1_bwd(value, cases):
-    """K1-bwd against autograd through the plain version, same inputs and g."""
+    """K1-bwd against autograd through the plain version, same inputs and g: the
+    encoder, the decoder and the encoder with bench.py's valid extent."""
     import torch
 
     from richsem_tpu_torch.ops import ms_deform_attn as k1
@@ -280,12 +316,12 @@ def phase_k1_bwd(value, cases):
            "source": "richsem_tpu_torch/csrc/ms_deform_attn_bwd.cu",
            "replaces": "richsem_tpu/ops/ms_deform_attn_pallas2.py:306", "library_ms": None}
     errs = []
-    for case, (loc, aw) in cases.items():
+    all_cases = {**cases, "encoder_valid": k1_valid_case()}
+    for case, (loc, aw) in all_cases.items():
         for dtype in (torch.bfloat16, torch.float32):
             v = value.to(dtype)
             b, q, m = loc.shape[:3]
             grad = torch.randn((b, q, m * v.shape[-1]), generator=g, device=DEVICE).to(dtype)
-            out = k1.ms_deform_attn_backward(v, SHAPES, loc, aw, grad)
 
             def plain():
                 leaves = [t.detach().requires_grad_() for t in (v, loc, aw)]
@@ -293,9 +329,10 @@ def phase_k1_bwd(value, cases):
                 return torch.autograd.grad(y, leaves, grad)
 
             ref = plain()
+            out = k1.ms_deform_attn_backward(v, SHAPES, loc, aw, grad)
             torch.cuda.synchronize()
             tag = f"K1-bwd {case} Q={q} {str(dtype)[6:]}"
-            # f32: the atomic adds into d_value and the warp sums run in another
+            # f32: the atomic adds into d_value and the lane sums run in another
             # order than autograd's index_put/sum, a few ulps of each sum; bf16:
             # d_value is rounded to bf16 once, and may land one bf16 step (2^-8
             # relative) apart where the f32 sums differ in their last bits.
@@ -311,9 +348,12 @@ def phase_k1_bwd(value, cases):
                                 32 * k1_taps(loc) * v.shape[-1], F32_FLOPS)
                 print(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                       f"bound {bms:.4f} ms ({by})", flush=True)
-                key = "" if case == "encoder" else "decoder_"
+                key = {"encoder": "", "decoder": "decoder_", "encoder_valid": "valid_extent_"}[case]
                 rec[f"{key}ms"], rec[f"{key}plain_ms"] = ms, plain_ms
                 rec[f"{key}bound_ms"], rec[f"{key}bound_by"] = bms, by
+                if case != "encoder_valid":  # the decoder's CUDA-event time is the host's
+                    profile_once(lambda: k1.ms_deform_attn_backward(v, SHAPES, loc, aw, grad),
+                                 top=3)
     rec["max_abs_err"] = max(errs)
     print("phase 3: K1-bwd matches the plain version's autograd gradient", flush=True)
     return rec
@@ -446,7 +486,9 @@ def phase_k2(args):
 
 
 def phase_k2_bwd(args, dy):
-    """K2-bwd against autograd through the plain tail: all ten gradients."""
+    """K2-bwd against autograd through the plain tail: all ten gradients, at
+    N = 49,980 and at the ragged N = 1 and 200 (the first rows of the same
+    inputs); two calls at N = 49,980 bit for bit; one profiled call."""
     import torch
 
     from richsem_tpu_torch.ops import fused_ffn as k2
@@ -454,29 +496,74 @@ def phase_k2_bwd(args, dy):
     n, d = args[0].shape
     f = args[2].shape[0]
     tensors, rest = list(args[:10]), args[10:]
-    out = k2.encoder_tail_backward(*args, dy)
-    out = (out[0], *out)  # du1 is the gradient of both src and attn_out
+    names = ("d_src", "d_attn", "dW1", "db1", "dW2", "db2", "ds1", "dsb1", "ds2", "dsb2")
 
-    def plain():
+    def plain(tensors, dy):
         leaves = [t.detach().requires_grad_() for t in tensors]
         y = k2.encoder_tail_plain(*leaves, *rest)
         return torch.autograd.grad(y, leaves, dy)
 
-    ref = plain()
-    torch.cuda.synchronize()
-    names = ("d_src", "d_attn", "dW1", "db1", "dW2", "db2", "ds1", "dsb1", "ds2", "dsb2")
-    # bf16: the plain version rounds dW1, dW2, db2 and dx_ffn to bf16 (2^-8
-    # relative) where the kernel keeps them f32, and a relu mask may flip where a
-    # recomputed pre-activation lands one bf16 step apart; 2e-2 of the largest
-    # magnitude covers both
-    errs = [compare_rel(f"K2-bwd N={n} bf16 {name}", o, r, 2e-2)
-            for name, o, r in zip(names, out, ref)]
-    ms = cuda_ms(lambda: k2.encoder_tail_backward(*args, dy), iters=10)
-    plain_ms = cuda_ms(plain, iters=5, warmup=1)
-    bms, by = bound(nbytes(*args[:2], dy, out[0]) + 2 * (2 * d * f + f + d) + 4 * 4 * d
-                    + 4 * (2 * d * f + f + 5 * d), 12 * n * d * f, BF16_FLOPS)
-    print(f"  K2-bwd N={n} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bms:.4f} ms ({by})")
+    def plain_x_mask(t_rows):
+        """The plain version's bf16(x) and relu mask (h1 > 0)."""
+        src, attn, w1, b1 = t_rows[:4]
+        s1, sb1 = t_rows[6:8]
+        eps, cdt = rest
+        x = k2._ln(src + attn, s1.float(), sb1.float(), eps).to(cdt)
+        return x, torch.relu(x @ w1.to(cdt).t() + b1.to(cdt)) > 0
+
+    errs = []
+    for rows in (n, 1, 200):
+        t_rows = [t[:rows] for t in tensors[:2]] + tensors[2:]
+        seen = {}
+        out = k2.encoder_tail_backward(*t_rows, *rest, dy[:rows], transients=seen)
+        out = (out[0], *out)  # du1 is the gradient of both src and attn_out
+        ref = plain(t_rows, dy[:rows])
+        torch.cuda.synchronize()
+        # The row pass recomputes bf16(x) with LN1 summed in PyTorch's order
+        # (as torch 2.11's CUDA mean reduces a 256-wide row), so that its relu
+        # mask is the plain version's. A mask that flips moves its row of d_src
+        # by a large part of the tolerance: count the flips, bound them, and
+        # check the rows without one on their own, so that a PyTorch that
+        # reduces in another order shows here by name.
+        x_p, mask_p = plain_x_mask(t_rows)
+        x_diff = int((seen["xb"] != x_p).sum())
+        flip = (seen["h1"] > 0) != mask_p
+        flips, flip_rows = int(flip.sum()), flip.any(dim=1)
+        allowed = math.ceil(1e-5 * flip.numel())
+        print(f"  K2-bwd N={rows}: bf16(x) differs from PyTorch's in {x_diff} of {x_p.numel()} "
+              f"elements; {flips} of {flip.numel()} relu masks flip (at most {allowed}), in "
+              f"{int(flip_rows.sum())} rows", flush=True)
+        if flips > allowed:
+            fail(f"K2-bwd: {flips} relu masks flip against the plain version; LN1's order "
+                 f"mirrors torch 2.11's mean, this is torch {torch.__version__}")
+        if flips:
+            keep = ~flip_rows
+            for name, o, r in zip(names[:2], out[:2], ref[:2]):
+                compare_rel(f"K2-bwd N={rows} bf16 {name} (rows without a flip)", o[keep],
+                            r[keep], 2e-2)
+        del seen, x_p, mask_p, flip, flip_rows
+        # bf16: the plain version rounds dW1, dW2, db2 and dx_ffn to bf16 (2^-8
+        # relative) where the kernel keeps them f32, and a relu mask may flip
+        # where a recomputed pre-activation lands one bf16 step apart; 2e-2 of
+        # the largest magnitude covers both
+        errs += [compare_rel(f"K2-bwd N={rows} bf16 {name}", o, r, 2e-2)
+                 for name, o, r in zip(names, out, ref)]
+        if rows == n:
+            again = k2.encoder_tail_backward(*args, dy)
+            same = all(torch.equal(a, b) for a, b in zip(out[1:], again))
+            print(f"  K2-bwd N={n}: two calls bit for bit: {same}", flush=True)
+            if not same:
+                fail("K2-bwd is not bit-reproducible")
+            del again, out, ref
+            ms = cuda_ms(lambda: k2.encoder_tail_backward(*args, dy), iters=10)
+            plain_ms = cuda_ms(lambda: plain(tensors, dy), iters=5, warmup=1)
+            bms, by = bound(nbytes(*args[:2], dy, args[0]) + 2 * (2 * d * f + f + d) + 4 * 4 * d
+                            + 4 * (2 * d * f + f + 5 * d), 12 * n * d * f, BF16_FLOPS)
+            print(f"  K2-bwd N={n} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {bms:.4f} ms ({by})")
+            if ms >= plain_ms:
+                fail("K2-bwd is not faster than its plain version")
+            profile_once(lambda: k2.encoder_tail_backward(*args, dy), top=6)
     print("phase 5: K2-bwd matches the plain version's autograd gradient", flush=True)
     return {"name": "fused_encoder_tail_bwd", "route": "cuda",
             "source": "richsem_tpu_torch/csrc/fused_encoder_tail_bwd.cu",
@@ -1155,7 +1242,7 @@ def phase_trainer(recs):
 
 # the __global__ functions of richsem_tpu_torch/csrc (K2-bwd is three of them)
 HAND_WRITTEN = ("msda_fwd_kernel", "msda_bwd_kernel", "encoder_tail_fwd_kernel",
-                "row_block_kernel", "atb_kernel", "colsum_kernel", "msda_sep_fwd_kernel",
+                "row_pass_kernel", "dw_gemm_kernel", "colsum_kernel", "msda_sep_fwd_kernel",
                 "msda_sep_bwd_kernel")
 
 

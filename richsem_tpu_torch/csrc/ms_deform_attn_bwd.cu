@@ -22,24 +22,33 @@
 // One kernel serves the clamped encoder and the unclamped decoder; the clamp's
 // own gradient is taken outside, by autograd.
 //
-// Layouts: value [B, S, M, D] (bf16 or f32), loc [B, Q, M, L, P, 2] f32,
+// Layouts: value [B, S, M, D] (bf16 or f32, D = 32), loc [B, Q, M, L, P, 2] f32,
 // aw [B, Q, M, L, P] f32, g [B, Q, M*D] in the value's dtype; outputs
 // d_value [B, S, M, D] f32 (zeroed by the caller, cast by it afterwards),
 // d_loc like loc, d_aw like aw.
 //
-// Design: one warp per (b, q, m), lanes over D, as K1. Per tap the warp reads
-// the four corner rows (D contiguous values each), forms the three per-channel
-// products, reduces them across the warp with shuffles, and scatters
-// aw * w_k * g into the f32 d_value with atomicAdd. What bounds it on the card:
-// the gathered corner reads and the scattered atomic adds, B*Q*M*L*P*4 of each
-// per channel; at the encoder shapes (B2, Q=S=24,990, M8, L4, P4, D32) that is
-// 51 M corner rows read and 51 M rows of 32 atomics, nearly all in L2 (value
-// and d_value are 25.6 and 51 MB). Encoder queries near each other hit the same
-// value rows, so the atomics contend; the order of the f32 adds changes from
-// run to run, which moves d_value by a few f32 ulps of its magnitude. Device
-// memory traffic proper is value, loc, aw, g read once and d_value (f32),
-// d_loc, d_aw written once. Sorting taps by row, or accumulating d_value per
-// query tile in shared memory, is later work.
+// What bounds it. At the encoder shapes (B2, Q = S = 24,990, M8, L4, P4, D32)
+// a call has 6.40 M taps, i.e. 25.6 M corner rows of 32 channels to gather and
+// to add into d_value (819 M f32 adds), nearly all in L2 (value and d_value
+// are 25.6 and 51 MB). Each tap is a dependent chain (location -> corner
+// addresses -> four row reads -> products -> adds), so the kernel is bound by
+// how many taps are in flight and by the L2 traffic of the reads and adds, far
+// from the bytes bound of the call's inputs and outputs.
+//
+// Design. A block serves one (b, m) and kTile = 16 queries. Eight lanes serve
+// one tap, four channels a lane (8- or 16-byte loads), so a warp takes four
+// taps at once, reduces d_aw and d_loc over 8 lanes (3 shuffles each) and adds
+// each corner's four channels with one float4 atomic (sm_90): 4x fewer atomic
+// instructions than one channel a lane, and no shuffles over 32 lanes.
+//
+// Every corner goes to d_value directly, not through the TPU kernel's per-tile
+// d_value windows (_bwd_kernel's dwin_refs): Hopper has no shared-memory f32
+// atomic add, so a window needs a counting sort of the block's corners by
+// pixel and a gather, and pays only with 64-query tiles (4x fewer blocks in
+// flight); made exact that way, it took twice as long on an H100 (PERF.md).
+//
+// The order of the f32 adds into d_value changes from run to run, which moves
+// d_value by a few f32 ulps of its magnitude.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -47,6 +56,11 @@
 namespace {
 
 constexpr int kMaxLevels = 8;
+constexpr int kD = 32;          // channels a head
+constexpr int kLanes = 8;       // lanes a tap: 4 channels each
+constexpr int kThreads = 256;
+constexpr int kGroups = kThreads / kLanes;
+constexpr int kTile = 16;       // queries a block
 
 struct Levels {
   int n;
@@ -55,93 +69,101 @@ struct Levels {
   long long start[kMaxLevels];
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
+  v[0] = __low2float(a); v[1] = __high2float(a); v[2] = __low2float(b); v[3] = __high2float(b);
+}
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ float group_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v + __shfl_xor_sync(0xffffffffu, v, 4);
 }
 
 template <typename T>
-__global__ void msda_bwd_kernel(const T* __restrict__ value,
-                                const float* __restrict__ loc,
-                                const float* __restrict__ aw,
-                                const T* __restrict__ grad,
-                                float* __restrict__ d_value,
-                                float* __restrict__ d_loc,
-                                float* __restrict__ d_aw,
-                                long long n_warps, int S, int Q, int M, int D,
-                                int P, Levels lv) {
-  const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= n_warps) return;  // uniform across the warp
-  const int m = static_cast<int>(warp % M);
-  const long long b = warp / M / Q;
-  const int lp = lv.n * P;
-  const float* locw = loc + warp * lp * 2;
-  const float* aww = aw + warp * lp;
-  const T* gw = grad + warp * D;
-  float* dlocw = d_loc + warp * lp * 2;
-  float* daww = d_aw + warp * lp;
-  const long long row_stride = static_cast<long long>(M) * D;
-  const long long base = b * S * row_stride + static_cast<long long>(m) * D;
+__global__ void __launch_bounds__(kThreads)
+msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+                const float* __restrict__ aw, const T* __restrict__ grad,
+                float* __restrict__ d_value, float* __restrict__ d_loc,
+                float* __restrict__ d_aw, int S, int Q, int M, int P, Levels lv) {
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y / M;
+  const int m = blockIdx.y % M;
+  const int lp_n = lv.n * P;
+  const int n_taps = kTile * lp_n;
+  const long long row_stride = static_cast<long long>(M) * kD;
+  const long long vbase = static_cast<long long>(b) * S * row_stride + static_cast<long long>(m) * kD;
 
-  for (int l = 0; l < lv.n; ++l) {
-    const int h = lv.h[l];
-    const int w = lv.w[l];
-    const long long lbase = base + lv.start[l] * row_stride;
-    for (int p = 0; p < P; ++p) {
-      const int i = l * P + p;
-      // Rounded as PyTorch rounds loc * size - 0.5 (no fused multiply-add):
-      // the bilinear derivative jumps at integer pixels, so a sample one ulp
-      // across one must fall on the same side as in the plain version.
-      const float x = __fsub_rn(__fmul_rn(locw[2 * i], static_cast<float>(w)), 0.5f);
-      const float y = __fsub_rn(__fmul_rn(locw[2 * i + 1], static_cast<float>(h)), 0.5f);
-      const float a = aww[i];
-      float s_aw = 0.f, s_x = 0.f, s_y = 0.f;
-      if (x > -1.f && x < w && y > -1.f && y < h) {  // else every corner is out
-        const float xf = floorf(x);
-        const float yf = floorf(y);
-        const float dx = x - xf;
-        const float dy = y - yf;
-        const int x0 = static_cast<int>(xf);
-        const int y0 = static_cast<int>(yf);
-        const bool in00 = y0 >= 0 && x0 >= 0;
-        const bool in01 = y0 >= 0 && x0 + 1 < w;
-        const bool in10 = y0 + 1 < h && x0 >= 0;
-        const bool in11 = y0 + 1 < h && x0 + 1 < w;
-        const long long r00 = lbase + (static_cast<long long>(y0) * w + x0) * row_stride;
-        const long long r01 = r00 + row_stride;
-        const long long r10 = r00 + static_cast<long long>(w) * row_stride;
-        const long long r11 = r10 + row_stride;
-        const float w00 = (1.f - dy) * (1.f - dx), w01 = (1.f - dy) * dx;
-        const float w10 = dy * (1.f - dx), w11 = dy * dx;
-        for (int c = lane; c < D; c += 32) {
-          const float g = to_f32(gw[c]);
-          const float v00 = in00 ? to_f32(value[r00 + c]) : 0.f;
-          const float v01 = in01 ? to_f32(value[r01 + c]) : 0.f;
-          const float v10 = in10 ? to_f32(value[r10 + c]) : 0.f;
-          const float v11 = in11 ? to_f32(value[r11 + c]) : 0.f;
-          s_aw += g * (w00 * v00 + w01 * v01 + w10 * v10 + w11 * v11);
-          s_x += g * ((1.f - dy) * (v01 - v00) + dy * (v11 - v10));
-          s_y += g * ((1.f - dx) * (v10 - v00) + dx * (v11 - v01));
-          const float ag = a * g;
-          if (in00) atomicAdd(d_value + r00 + c, ag * w00);
-          if (in01) atomicAdd(d_value + r01 + c, ag * w01);
-          if (in10) atomicAdd(d_value + r10 + c, ag * w10);
-          if (in11) atomicAdd(d_value + r11 + c, ag * w11);
+  // Eight lanes a tap, channels 4k .. 4k + 3 on lane k; the four taps of a warp
+  // run the loop together (group_sum below).
+  const int k = tid % kLanes;
+  for (int t = tid / kLanes; t < n_taps; t += kGroups) {
+    const int q = blockIdx.x * kTile + t / lp_n;
+    const bool live = q < Q;
+    const int lp = t % lp_n, l = lp / P;
+    const int h = lv.h[l], w = lv.w[l];
+    float x = -2.f, y = -2.f, a = 0.f;
+    long long tap = 0;
+    if (live) {
+      // Rounded as PyTorch rounds loc * size - 0.5 (no fused multiply-add): the
+      // bilinear derivative jumps at integer pixels, so a sample one ulp across
+      // one must fall on the same side as in the plain version.
+      tap = ((static_cast<long long>(b) * Q + q) * M + m) * lp_n + lp;
+      x = __fsub_rn(__fmul_rn(loc[2 * tap], static_cast<float>(w)), 0.5f);
+      y = __fsub_rn(__fmul_rn(loc[2 * tap + 1], static_cast<float>(h)), 0.5f);
+      a = aw[tap];
+    }
+    float s_aw = 0.f, s_x = 0.f, s_y = 0.f;
+    if (live && x > -1.f && x < w && y > -1.f && y < h) {  // else every corner is out
+      float g[4];
+      load4(grad + ((static_cast<long long>(b) * Q + q) * M + m) * kD + 4 * k, g);
+      const float xf = floorf(x), yf = floorf(y);
+      const float dx = x - xf, dy = y - yf;
+      const int x0 = static_cast<int>(xf), y0 = static_cast<int>(yf);
+      const bool in[4] = {y0 >= 0 && x0 >= 0, y0 >= 0 && x0 + 1 < w, y0 + 1 < h && x0 >= 0,
+                          y0 + 1 < h && x0 + 1 < w};
+      const int cx[4] = {x0, x0 + 1, x0, x0 + 1}, cy[4] = {y0, y0, y0 + 1, y0 + 1};
+      const float wk[4] = {(1.f - dy) * (1.f - dx), (1.f - dy) * dx, dy * (1.f - dx), dy * dx};
+      const long long lbase = vbase + lv.start[l] * row_stride;
+      float v[4][4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (in[c]) {
+          load4(value + lbase + (static_cast<long long>(cy[c]) * w + cx[c]) * row_stride + 4 * k,
+                v[c]);
+        } else {
+          v[c][0] = v[c][1] = v[c][2] = v[c][3] = 0.f;
         }
       }
-      s_aw = warp_sum(s_aw);
-      s_x = warp_sum(s_x);
-      s_y = warp_sum(s_y);
-      if (lane == 0) {
-        daww[i] = s_aw;
-        dlocw[2 * i] = a * s_x * w;
-        dlocw[2 * i + 1] = a * s_y * h;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s_aw += g[i] * (wk[0] * v[0][i] + wk[1] * v[1][i] + wk[2] * v[2][i] + wk[3] * v[3][i]);
+        s_x += g[i] * ((1.f - dy) * (v[1][i] - v[0][i]) + dy * (v[3][i] - v[2][i]));
+        s_y += g[i] * ((1.f - dx) * (v[2][i] - v[0][i]) + dx * (v[3][i] - v[1][i]));
       }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (!in[c]) continue;
+        atomicAdd(reinterpret_cast<float4*>(
+                      d_value + lbase + (static_cast<long long>(cy[c]) * w + cx[c]) * row_stride +
+                      4 * k),
+                  make_float4(a * g[0] * wk[c], a * g[1] * wk[c], a * g[2] * wk[c],
+                              a * g[3] * wk[c]));
+      }
+    }
+    s_aw = group_sum(s_aw);
+    s_x = group_sum(s_x);
+    s_y = group_sum(s_y);
+    if (k == 0 && live) {
+      d_aw[tap] = s_aw;
+      d_loc[2 * tap] = a * s_x * w;
+      d_loc[2 * tap + 1] = a * s_y * h;
     }
   }
 }
@@ -150,7 +172,8 @@ template <typename T>
 int launch(const void* value, const void* loc, const void* aw, const void* grad,
            void* d_value, void* d_loc, void* d_aw, int B, int S, int Q, int M,
            int D, int L, int P, const int* shapes, cudaStream_t stream) {
-  if (L < 1 || L > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
+  if (L < 1 || L > kMaxLevels || D != kD || B * M > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   Levels lv;
   lv.n = L;
   long long start = 0;
@@ -161,30 +184,27 @@ int launch(const void* value, const void* loc, const void* aw, const void* grad,
     start += static_cast<long long>(lv.h[l]) * lv.w[l];
   }
   if (start != S) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n_warps = static_cast<long long>(B) * Q * M;
-  if (n_warps == 0) return static_cast<int>(cudaSuccess);
-  constexpr int kThreads = 256;
-  const long long blocks = (n_warps * 32 + kThreads - 1) / kThreads;
-  msda_bwd_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+  if (static_cast<long long>(B) * Q * M == 0) return static_cast<int>(cudaSuccess);
+  msda_bwd_kernel<T><<<dim3((Q + kTile - 1) / kTile, B * M), kThreads, 0, stream>>>(
       static_cast<const T*>(value), static_cast<const float*>(loc),
       static_cast<const float*>(aw), static_cast<const T*>(grad),
-      static_cast<float*>(d_value), static_cast<float*>(d_loc),
-      static_cast<float*>(d_aw), n_warps, S, Q, M, D, P, lv);
+      static_cast<float*>(d_value), static_cast<float*>(d_loc), static_cast<float*>(d_aw), S,
+      Q, M, P, lv);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// shapes: host array of L (h, w) pairs; d_value must be zeroed. Returns
-// cudaGetLastError() after the launch.
+// shapes: host array of L (h, w) pairs; d_value must be zeroed. D must be 32.
+// Returns cudaGetLastError() after the launch.
 extern "C" int msda_bwd(const void* value, const void* loc, const void* aw,
                         const void* grad, void* d_value, void* d_loc, void* d_aw,
                         int B, int S, int Q, int M, int D, int L, int P,
                         const int* shapes, int value_is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (value_is_bf16)
-    return launch<__nv_bfloat16>(value, loc, aw, grad, d_value, d_loc, d_aw, B, S,
-                                 Q, M, D, L, P, shapes, s);
-  return launch<float>(value, loc, aw, grad, d_value, d_loc, d_aw, B, S, Q, M, D,
-                       L, P, shapes, s);
+    return launch<__nv_bfloat16>(value, loc, aw, grad, d_value, d_loc, d_aw, B, S, Q, M, D, L,
+                                 P, shapes, s);
+  return launch<float>(value, loc, aw, grad, d_value, d_loc, d_aw, B, S, Q, M, D, L, P, shapes,
+                       s);
 }

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
 ``nvcc`` builds it in seconds. The shared library goes to
 ``build/richsem_tpu_torch/<name>-<hash>.so`` at the root of the checkout,
-keyed by a hash of the source and the flags, so an edited kernel is rebuilt
+keyed by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited kernel or header is rebuilt
 and an unchanged one is reused. ``nvcc``'s ``-Xptxas -v`` report (registers,
 shared memory, spills) is kept beside it as ``<name>-<hash>.log``.
 
@@ -42,9 +43,15 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Path of the shared library for ``csrc/<name>.cu`` at its current source."""
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Path of the shared library for ``csrc/<name>.cu`` at its current source
+    and headers."""
+    h = hashlib.sha256()
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for fname in (f"{name}.cu", *headers):
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
 
 

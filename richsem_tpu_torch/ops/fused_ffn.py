@@ -69,8 +69,10 @@ def _k2_bwd_lib() -> ctypes.CDLL:
     fn = lib.encoder_tail_bwd
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 22 + [i32, i32, i32, ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 23 + [i32, i32, i32, ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
+        lib.encoder_tail_bwd_splits.argtypes = [i32]
+        lib.encoder_tail_bwd_splits.restype = i32
     return lib
 
 
@@ -117,19 +119,32 @@ def _encoder_tail_cuda(args, eps):
     return out
 
 
-def _encoder_tail_bwd_cuda(args, eps, dy):
+def _check_bwd_width(f: int) -> None:
+    # the row pass walks the hidden in 64-wide chunks, two at a time, and keeps
+    # the relu mask of at most 32 chunks on chip
+    if f % 128 or f > 2048:
+        raise ValueError(f"K2-bwd needs F % 128 == 0 and F <= 2048, got F={f}")
+
+
+def _encoder_tail_bwd_cuda(args, eps, dy, transients=None):
     """K2-bwd on the checked inputs of :func:`_cuda_args` and the f32 upstream
     gradient -> f32 (du1, dw1, db1, dw2, db2, ds1, dsb1, ds2, dsb2).
 
-    Transients: bf16 x, h1, dh1 and du2 (rows padded to the 64-row block) that
-    the row-block pass writes for the weight-gradient products, and per-block
-    partial sums; ~410 MB at N = 49,980, F = 2048."""
+    Transients: bf16 x, h1, dh1 and du2 (rows padded to the 128-row block) that
+    the row pass writes for the weight-gradient products (461 MB at
+    N = 49,980, F = 2048), the per-block column sums (5.2 MB), and the f32
+    partials of dW1 and dW2 of up to 4 row splits (16.8 MB). A ``transients``
+    dict receives the first N rows of bf16 x and h1 (chip_smoke.py phase 5
+    counts where they differ from the plain version's)."""
     src = args[0]
     n, d = src.shape
     f = args[2].shape[0]
+    _check_bwd_width(f)
     dev = src.device
-    n_blk = (n + 63) // 64
-    n_pad = n_blk * 64
+    n_blk = (n + 127) // 128
+    n_pad = n_blk * 128
+    lib = _k2_bwd_lib()
+    splits = lib.encoder_tail_bwd_splits(n)
     dy = dy.to(torch.float32).contiguous()
     bf16 = dict(dtype=torch.bfloat16, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -138,16 +153,19 @@ def _encoder_tail_bwd_cuda(args, eps, dy):
     h1, dh1 = torch.empty(n_pad, f, **bf16), torch.empty(n_pad, f, **bf16)
     part_vec = torch.empty(n_blk, 5 * d, **f32)  # ds1, dsb1, ds2, dsb2, db2
     part_db1 = torch.empty(n_blk, f, **f32)
-    dw1, dw2 = torch.zeros(f, d, **f32), torch.zeros(d, f, **f32)
+    part_dw = torch.empty(2 * splits, d * f, **f32)  # dW1 (as [F, d]), then dW2
+    dw1, dw2 = torch.empty(f, d, **f32), torch.empty(d, f, **f32)
     vec, db1 = torch.empty(5 * d, **f32), torch.empty(f, **f32)
     ptrs = [t.data_ptr() for t in (*args, dy, du1, xb, h1, dh1, du2c, part_vec,
-                                   part_db1, dw1, dw2, vec, db1)]
+                                   part_db1, part_dw, dw1, dw2, vec, db1)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _k2_bwd_lib().encoder_tail_bwd(*ptrs, n, d, f, float(eps), stream)
+        err = lib.encoder_tail_bwd(*ptrs, n, d, f, float(eps), stream)
     if err != 0:
         raise RuntimeError(f"K2-bwd fused_encoder_tail_bwd launch failed: CUDA error {err}")
     encoder_tail_backward.launches += 1
+    if transients is not None:
+        transients.update(xb=xb[:n], h1=h1[:n])
     ds1, dsb1, ds2, dsb2, db2 = vec.view(5, d).unbind(0)
     return du1, dw1, db1, dw2, db2, ds1, dsb1, ds2, dsb2
 
@@ -179,18 +197,23 @@ def encoder_tail(src, attn_out, w1, b1, w2, b2, s1, sb1, s2, sb2,
                                   eps, cdt)
     if src.device.type != "cuda":
         raise RuntimeError(f"encoder_tail: no kernel for device {src.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (src, attn_out, w1, b1, w2, b2, s1, sb1, s2, sb2)):
+        _check_bwd_width(w1.shape[0])  # fail before the forward, not in the backward
     return _EncoderTailFn.apply(src, attn_out, w1, b1, w2, b2, s1, sb1, s2, sb2,
                                 eps, cdt)
 
 
 def encoder_tail_backward(src, attn_out, w1, b1, w2, b2, s1, sb1, s2, sb2,
-                          eps: float, cdt: torch.dtype, dy: torch.Tensor):
+                          eps: float, cdt: torch.dtype, dy: torch.Tensor,
+                          transients: dict | None = None):
     """K2-bwd called directly -> (du1, dw1, db1, dw2, db2, ds1, dsb1, ds2, dsb2),
-    f32, weights in nn.Linear layout. CUDA tensors only."""
+    f32, weights in nn.Linear layout. CUDA tensors only. ``transients``: see
+    :func:`_encoder_tail_bwd_cuda`."""
     if src.device.type != "cuda":
         raise RuntimeError(f"encoder_tail_backward: no kernel for device {src.device}")
     args = _cuda_args(src, attn_out, w1, b1, w2, b2, s1, sb1, s2, sb2, cdt)
-    return _encoder_tail_bwd_cuda(args, eps, dy)
+    return _encoder_tail_bwd_cuda(args, eps, dy, transients)
 
 
 encoder_tail.launches = 0  # K2 launches; chip_smoke.py reads and resets it

@@ -155,6 +155,15 @@ def _lib(name: str, fn_name: str, n_ptr: int) -> ctypes.CDLL:
     return lib
 
 
+K1_BWD_HEAD_DIM = 32  # K1-bwd's lanes hold four channels each, eight lanes a tap
+
+
+def _check_bwd_head_dim(value):
+    if value.shape[-1] != K1_BWD_HEAD_DIM:
+        raise ValueError(
+            f"K1-bwd takes a head dim of {K1_BWD_HEAD_DIM}, got {value.shape[-1]}")
+
+
 def _check_cuda(value, loc, aw, kernel: str = "K1"):
     if value.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{kernel} takes a bf16 or f32 value, got {value.dtype}")
@@ -189,6 +198,7 @@ def _ms_deform_attn_cuda(value, spatial_shapes, loc, aw):
 
 def _ms_deform_attn_bwd_cuda(value, spatial_shapes, loc, aw, grad_out):
     """K1-bwd: d_value (f32 scratch, cast to the value's dtype), d_loc, d_aw."""
+    _check_bwd_head_dim(value)
     grad_out = grad_out.to(value.dtype).contiguous()
     d_value = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
     d_loc = torch.empty_like(loc)
@@ -240,6 +250,9 @@ def ms_deform_attn(
         raise RuntimeError(f"ms_deform_attn: no kernel for device {value.device}")
     _check(value, spatial_shapes, sampling_locations, attention_weights)
     _check_cuda(value, sampling_locations, attention_weights)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (value, sampling_locations, attention_weights)):
+        _check_bwd_head_dim(value)  # fail before the forward, not in the backward
     return _MSDeformAttnFn.apply(
         value.contiguous(), sampling_locations.contiguous(),
         attention_weights.contiguous(), spatial_shapes,

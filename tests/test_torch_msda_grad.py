@@ -5,6 +5,11 @@ VJP in interpret mode (clamped, in-window offsets on a pyramid whose valid
 extent is the whole canvas, ROADMAP F3), and the separable decoder path at
 decoder shapes (box references, unclamped offsets, taps out of bounds).
 
+A test-local emulation of how K1-bwd splits the work (16-query blocks, eight
+lanes a tap with four channels each, the lanes' shuffle tree, every corner
+added to d_value directly) is held against the same VJPs, on F3's canvas too,
+where it must match the exact gather that the TPU kernel's windows miss.
+
 Inputs and the upstream gradient are drawn with numpy from fixed seeds and
 handed to both sides. Offsets are skewed off exact integer pixels, where the
 floor-based bilinear derivative and the windowed kernel's tent derivative
@@ -23,7 +28,10 @@ from richsem_tpu.models.transformer_utils import encoder_reference_points
 from richsem_tpu.ops.ms_deform_attn import ms_deform_attn as jax_msda
 from richsem_tpu.ops.ms_deform_attn_sep import ms_deform_attn_sep
 from richsem_tpu_torch.models.layers import clip
+from richsem_tpu_torch.models.transformer_utils import (
+    encoder_reference_points as encoder_reference_points_torch)
 from richsem_tpu_torch.ops import ms_deform_attn as port
+from richsem_tpu_torch.utils.misc import resize_mask, valid_ratios
 
 torch.set_num_threads(2)
 
@@ -44,24 +52,24 @@ def _softmax_aw(rng, b, q):
     return (a / a.sum(-1, keepdims=True)).reshape(b, q, M, 4, P)
 
 
-def _encoder_inputs(seed, bound):
+def _encoder_inputs(seed, bound, d=D):
     rng = np.random.default_rng(seed)
-    val = rng.normal(size=(B, S, M, D)).astype(np.float32)
+    val = rng.normal(size=(B, S, M, d)).astype(np.float32)
     refs = np.asarray(encoder_reference_points(SHAPES, jnp.ones((B, 4, 2), jnp.float32)))
     offs = (rng.uniform(-bound, bound, (B, S, M, 4, P, 2)) * 0.9973 + 0.00137)
     loc = port.compute_sampling_locations(_t(refs), _t(offs), SHAPES, P).numpy()
-    return val, loc, _softmax_aw(rng, B, S), rng.normal(size=(B, S, M * D)).astype(np.float32)
+    return val, loc, _softmax_aw(rng, B, S), rng.normal(size=(B, S, M * d)).astype(np.float32)
 
 
-def _decoder_inputs(seed, q=37):
+def _decoder_inputs(seed, q=37, d=D):
     rng = np.random.default_rng(seed)
-    val = rng.normal(size=(B, S, M, D)).astype(np.float32)
+    val = rng.normal(size=(B, S, M, d)).astype(np.float32)
     boxes = np.concatenate([rng.uniform(0.0, 1.0, (B, q, 4, 2)),
                             rng.uniform(0.05, 0.9, (B, q, 4, 2))], -1).astype(np.float32)
     offs = rng.normal(size=(B, q, M, 4, P, 2)).astype(np.float32) * 4
     loc = port.compute_sampling_locations(_t(boxes), _t(offs), SHAPES, P).numpy()
     assert ((loc < 0) | (loc > 1)).any()
-    return val, loc, _softmax_aw(rng, B, q), rng.normal(size=(B, q, M * D)).astype(np.float32)
+    return val, loc, _softmax_aw(rng, B, q), rng.normal(size=(B, q, M * d)).astype(np.float32)
 
 
 def _port_grads(val, loc, aw, g):
@@ -70,8 +78,8 @@ def _port_grads(val, loc, aw, g):
     return [t.numpy() for t in torch.autograd.grad(out, leaves, _t(g))]
 
 
-def _jax_grads(fn, val, loc, aw, g):
-    _, vjp = jax.vjp(lambda v, l, a: fn(v, SHAPES, l, a),
+def _jax_grads(fn, val, loc, aw, g, shapes=SHAPES):
+    _, vjp = jax.vjp(lambda v, l, a: fn(v, shapes, l, a),
                      jnp.asarray(val), jnp.asarray(loc), jnp.asarray(aw))
     return [np.asarray(x) for x in vjp(jnp.asarray(g))]
 
@@ -148,3 +156,132 @@ def test_backward_wrapper_never_runs_on_the_cpu():
     with pytest.raises(RuntimeError, match="no kernel"):
         port.ms_deform_attn_backward(_t(val), SHAPES, _t(loc), _t(aw), _t(g))
     assert port.ms_deform_attn_backward.launches == 0
+
+
+def _k1_bwd_direct(val, loc, aw, g, shapes, tile=16):
+    """How K1-bwd splits the work, in plain torch on the CPU (f32). A block is
+    one (b, m) and ``tile`` queries; eight lanes take a tap, lane k channels
+    4k .. 4k + 3. Each lane sums its four channels' products in order, and the
+    lanes' sums meet in K1-bwd's shuffle tree (xor 1, then 2, then 4) for d_aw
+    and d_loc; every in-bounds corner adds (aw * g) * w_k straight into
+    d_value, block by block. -> (d_value, d_loc, d_aw, blocks)."""
+    val, loc, aw, g = (torch.from_numpy(np.asarray(x, np.float32)) for x in (val, loc, aw, g))
+    b_, s_, m_, d_ = val.shape
+    q_, p_ = loc.shape[1], loc.shape[4]
+    lanes = d_ // 4
+    assert d_ == 32 and lanes == 8
+    starts = np.concatenate([[0], np.cumsum([h * w for h, w in shapes])])
+    gq = g.view(b_, q_, m_, lanes, 4)
+    flat = val.reshape(-1, 4)  # rows (b, token, m, lane)
+    d_value = torch.zeros(b_ * s_ * m_ * lanes, 4)
+    d_loc, d_aw = torch.zeros_like(loc), torch.zeros_like(aw)
+    bi = torch.arange(b_)[:, None, None, None, None]
+    mi = torch.arange(m_)[None, None, :, None, None]
+    ki = torch.arange(lanes)[None, None, None, None, :]
+
+    def tree(v):  # [..., 8 lanes] -> the value lane 0 holds after the shuffles
+        v = v[..., 0::2] + v[..., 1::2]
+        v = v[..., 0::2] + v[..., 1::2]
+        return v[..., 0] + v[..., 1]
+
+    blocks = 0
+    for q0 in range(0, q_, tile):
+        qs = slice(q0, min(q0 + tile, q_))
+        blocks += b_ * m_
+        for lvl, (h, w) in enumerate(shapes):
+            x = loc[:, qs, :, lvl, :, 0] * w - 0.5  # [B, T, M, P]
+            y = loc[:, qs, :, lvl, :, 1] * h - 0.5
+            a = aw[:, qs, :, lvl]
+            inside = ((x > -1) & (x < w) & (y > -1) & (y < h))[..., None]
+            x0, y0 = torch.floor(x), torch.floor(y)
+            dx, dy = (x - x0)[..., None, None], (y - y0)[..., None, None]
+            cx = [x0, x0 + 1, x0, x0 + 1]
+            cy = [y0, y0, y0 + 1, y0 + 1]
+            wk = [(1 - dy) * (1 - dx), (1 - dy) * dx, dy * (1 - dx), dy * dx]
+            gg = gq[:, qs, :, None]  # [B, T, M, 1, 8, 4]
+            v, rows, inb = [], [], []
+            for c in range(4):
+                ok = inside & ((cx[c] >= 0) & (cx[c] < w) & (cy[c] >= 0) & (cy[c] < h))[..., None]
+                tok = starts[lvl] + (cy[c].clamp(0, h - 1) * w + cx[c].clamp(0, w - 1)).long()
+                row = ((bi * s_ + tok[..., None]) * m_ + mi) * lanes + ki  # [B, T, M, P, 8]
+                v.append(torch.where(ok[..., None], flat[row], 0.0))
+                rows.append(row)
+                inb.append(ok.expand_as(row))
+            s_aw = torch.zeros(v[0].shape[:-1])
+            s_x, s_y = torch.zeros_like(s_aw), torch.zeros_like(s_aw)
+            for i in range(4):  # a lane's four channels, in order
+                vi = [t[..., i] for t in v]
+                gi = gg[..., i]
+                s_aw = s_aw + gi * (wk[0][..., 0] * vi[0] + wk[1][..., 0] * vi[1]
+                                    + wk[2][..., 0] * vi[2] + wk[3][..., 0] * vi[3])
+                s_x = s_x + gi * ((1 - dy[..., 0]) * (vi[1] - vi[0]) + dy[..., 0] * (vi[3] - vi[2]))
+                s_y = s_y + gi * ((1 - dx[..., 0]) * (vi[2] - vi[0]) + dx[..., 0] * (vi[3] - vi[1]))
+            s_aw, s_x, s_y = (torch.where(inside, t, 0.0) for t in (s_aw, s_x, s_y))
+            d_aw[:, qs, :, lvl] = tree(s_aw)
+            d_loc[:, qs, :, lvl, :, 0] = a * tree(s_x) * w
+            d_loc[:, qs, :, lvl, :, 1] = a * tree(s_y) * h
+            for c in range(4):
+                add = a[..., None, None] * gg * wk[c]  # (aw * g) * w_k, [B, T, M, P, 8, 4]
+                d_value.index_add_(0, rows[c][inb[c]], add[inb[c]])
+    return d_value.view(b_, s_, m_, d_).numpy(), d_loc.numpy(), d_aw.numpy(), blocks
+
+
+def _f3_inputs(seed, bound=5.5, d=D):
+    """F3's geometry: a 256 x 384 canvas whose valid extent is 200 x 300, so
+    the levels' valid ratios differ and the windowed TPU kernel drops taps."""
+    shapes = ((32, 48), (16, 24), (8, 12), (4, 6))
+    pad = torch.ones(B, 256, 384, dtype=torch.bool)
+    pad[:, :200, :300] = False
+    vr = torch.stack([valid_ratios(resize_mask(pad, hw)) for hw in shapes], 1)
+    s = sum(h * w for h, w in shapes)
+    rng = np.random.default_rng(seed)
+    val = rng.normal(size=(B, s, M, d)).astype(np.float32)
+    refs = encoder_reference_points_torch(shapes, vr)
+    offs = rng.uniform(-bound, bound, (B, s, M, 4, P, 2)) * 0.9973 + 0.00137
+    loc = port.compute_sampling_locations(refs, _t(offs), shapes, P).numpy()
+    return shapes, (val, loc, _softmax_aw(rng, B, s), rng.normal(size=(B, s, M * d)).astype(np.float32))
+
+
+
+@pytest.mark.parametrize("case", ["encoder", "decoder", "f3", "encoder-bf16"])
+def test_k1_bwd_split_matches_jax_gather_vjp(case):
+    """The emulated K1-bwd against the VJP of the JAX exact gather (f32; the
+    same products summed in another order, TOL): the clamped encoder, the
+    unclamped decoder with taps out of bounds and a query count that is not a
+    multiple of the block's 16, and F3's canvas, where the TPU kernel's windows
+    drop taps and K1-bwd keeps every one. encoder-bf16: the kernel reads a
+    bf16 value and gradient and its wrapper rounds the f32 d_value to bf16
+    once (2^-8 relative)."""
+    shapes = SHAPES
+    if case == "f3":
+        shapes, inputs = _f3_inputs(7, d=32)
+    elif case == "decoder":
+        inputs = _decoder_inputs(9, q=37, d=32)
+    else:
+        inputs = _encoder_inputs(6, 5.5, d=32)
+    tol = TOL
+    if case == "encoder-bf16":
+        val, loc, aw, g = inputs
+        val, g = (_t(x).to(torch.bfloat16).float().numpy() for x in (val, g))
+        inputs = (val, loc, aw, g)
+    d_value, d_loc, d_aw, blocks = _k1_bwd_direct(*inputs, shapes)
+    q = inputs[1].shape[1]
+    assert blocks == B * M * -(-q // 16)
+    ref = _jax_grads(jax_msda, *inputs, shapes=shapes)
+    if case == "encoder-bf16":
+        d_value = _t(d_value).to(torch.bfloat16).float().numpy()
+        np.testing.assert_allclose(d_value, ref[0], rtol=2 ** -8,
+                                   atol=TOL * np.abs(ref[0]).max(), err_msg="d_value")
+        d_value = ref[0]
+    _close([d_value, d_loc, d_aw], ref, tol)
+
+
+def test_k1_bwd_split_matches_pallas2_vjp_interpret(_interpret_mode):
+    """On a canvas that F3 does not touch (valid extent = canvas), with offsets
+    inside the windowed kernel's margin, the emulated K1-bwd matches the VJP of
+    ``ms_deform_attn_pallas2`` in interpret mode."""
+    inputs = _encoder_inputs(8, 3.5, d=32)
+    d_value, d_loc, d_aw, _ = _k1_bwd_direct(*inputs, SHAPES)
+    ref = _jax_grads(lambda v, s, l, a: mp2.ms_deform_attn_pallas2(
+        v, s, l, a, tile=(8, 8), margin=4), *inputs)
+    _close([d_value, d_loc, d_aw], ref, TOL)

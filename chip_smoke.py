@@ -7,15 +7,23 @@ Phases, each printed as it completes:
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the build of every hand-written kernel from
    ``richsem_tpu_torch/csrc`` (nine sources, one nvcc per source, all at once,
-   sm_90a) with its register report; K1-bwd and K2-bwd must spill nothing.
+   sm_90a) with its register report; K1, K1-bwd, K2 and K2-bwd must spill
+   nothing.
 2. K1 (deformable attention) against its plain PyTorch version at the
    production encoder shapes (clamped offsets) and decoder shapes (1,100 box
-   queries, unclamped), in bf16 and f32: max abs error and both times.
+   queries, unclamped), in bf16 and f32: max abs error and both times; one
+   profiled call at the decoder (device time, since the CUDA-event time of so
+   short a call is the host's).
 3. K1-bwd against the autograd gradient of the plain version, same shapes,
    and a third case at the encoder's shapes with ``bench.py``'s valid extent
    (800 x 1224 in 896 x 1344: valid ratios below 1 that differ by level), and
    one profiled call at the encoder and at the decoder.
-4. K2 (fused encoder tail) against its plain version at N = 49,980 in bf16.
+4. K2 (fused encoder tail) against its plain version at N = 49,980 in bf16:
+   the output, and the elements of bf16(x) and of the relu masks that differ
+   from the plain version's (at most 1e-5 of the masks may flip); the same
+   output from the entry point that also writes those, bit for bit; the time
+   beside ``gemm_ms``, two ``torch.matmul`` calls of K2's product shapes
+   (informational: another function), and one profiled call.
 5. K2-bwd against the plain version's autograd gradient: all ten gradients at
    N = 49,980 and at ragged N = 1 and 200, two calls at N = 49,980 bit for
    bit, and one profiled call (device time of each of its kernels).
@@ -67,6 +75,17 @@ Phases, each printed as it completes:
 
 ``python3 chip_smoke.py kernels`` stops after the kernel phases (1-5, 8, 9, 12).
 
+``python3 chip_smoke.py ab [DIR]`` only times the encoder's kernels of the port
+in DIR (default: this checkout), for A/B runs of two trees: it imports
+``richsem_tpu_torch`` from DIR, builds its kernels from DIR's sources, draws the
+inputs of phases 2, 4 and 5 and prints one JSON line with, for K1 (encoder and
+decoder, bf16), K1-bwd (encoder), K2 and K2-bwd (N = 49,980), the CUDA-event
+time of a call, the kernels' device time from ``profile_once`` (mean over 5
+calls) and, for K2 and K2-bwd, a SHA-256 of the outputs. Compare two trees in
+one call on the card, in turns, each in a process of its own:
+
+    for t in build/parent . . build/parent; do python3 chip_smoke.py ab $t; done
+
 The kernels' JSON record lists nine sources: the six kernels of the model,
 each with ``launches`` from the flagship train step (phase 10, K3 and K3-bwd
 from phase 11) and ``trainer_launches`` from phase 13, and the three probe
@@ -105,7 +124,8 @@ KERNELS = ("ms_deform_attn_fwd", "ms_deform_attn_bwd", "fused_encoder_tail_fwd",
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 BF16_VEC_FLOPS = 133.8e12  # bf16 outside the tensor cores (NVIDIA's H100 white paper, SXM5)
 COS_MIN = 0.9  # least gradient cosine, kernels vs plain versions (phases 7, 10, 11)
-NO_SPILL = ("ms_deform_attn_bwd", "fused_encoder_tail_bwd")  # ptxas must report 0 spill bytes
+NO_SPILL = ("ms_deform_attn_fwd", "ms_deform_attn_bwd", "fused_encoder_tail_fwd",
+            "fused_encoder_tail_bwd")  # ptxas must report 0 spill bytes
 VALID = (800, 1224)  # bench.py's valid extent inside CANVAS
 
 
@@ -272,6 +292,9 @@ def phase_k1(value, cases):
                 key = "" if case == "encoder" else "decoder_"
                 rec[f"{key}ms"], rec[f"{key}plain_ms"] = ms, plain_ms
                 rec[f"{key}bound_ms"], rec[f"{key}bound_by"] = bms, by
+                if case == "decoder":  # the CUDA-event time of so short a call is the host's
+                    dev = profile_once(lambda: k1.ms_deform_attn(v, SHAPES, loc, aw), top=3)
+                    rec["decoder_device_ms"] = dev.get("msda_fwd_kernel")
     # Tolerances: both versions sum the 64 taps in f32, in another order and
     # with or without fused multiply-adds. In f32 that moves a sum of terms
     # below 4 by a few ulps each, under 5e-5 in all; in bf16 the sum is then
@@ -470,19 +493,49 @@ def phase_k2(args):
     # one bf16 rounding step of h2 (2^-8 relative, |h2| < 4) that falls the
     # other way after a differently ordered f32 sum passes through LN2
     err = compare(f"K2 N={n} bf16", out, ref, 3e-2, 0.0)
+    del ref
+    # K2 computes LN1 as K2-bwd does (PyTorch's order and roundings), so that its
+    # bf16(x) and relu masks are the plain version's: count where they differ
+    seen = {}
+    again = k2._encoder_tail_cuda(k2._cuda_args(*args[:10], args[11]), args[10], transients=seen)
+    same = torch.equal(again, out)
+    src, attn, w1, b1 = args[:4]
+    eps, cdt = args[10:]
+    x_p = k2._ln(src + attn, args[6].float(), args[7].float(), eps).to(cdt)
+    mask_p = torch.relu(x_p @ w1.to(cdt).t() + b1.to(cdt)) > 0
+    x_diff = int((seen["xb"] != x_p).sum())
+    flips = int(((seen["h1"] > 0) != mask_p).sum())
+    allowed = math.ceil(1e-5 * mask_p.numel())
+    print(f"  K2 N={n}: bf16(x) differs from PyTorch's in {x_diff} of {x_p.numel()} elements; "
+          f"{flips} of {mask_p.numel()} relu masks flip (at most {allowed}); the entry point "
+          f"that writes them gives the same y bit for bit: {same}", flush=True)
+    if flips > allowed:
+        fail(f"K2: {flips} relu masks flip against the plain version; LN1's order mirrors "
+             f"torch 2.11's mean, this is torch {torch.__version__}")
+    if not same:
+        fail("K2's two entry points disagree")
+    del seen, again, x_p, mask_p
     ms = cuda_ms(lambda: k2.encoder_tail(*args))
     plain_ms = cuda_ms(lambda: k2.encoder_tail_plain(*args))
+    # K2's two products on cuBLAS, as a yardstick (not library_ms: another function)
+    xg = torch.randn((n, d), generator=torch.Generator(device=DEVICE).manual_seed(6),
+                     device=DEVICE).to(torch.bfloat16)
+    w1g, w2g = w1.to(torch.bfloat16), args[4].to(torch.bfloat16)
+    gemm_ms = cuda_ms(lambda: torch.matmul(torch.matmul(xg, w1g.t()), w2g.t()))
+    del xg
     # inputs as the kernel reads them: f32 streams, bf16 weights, f32 LN params
     bms, by = bound(nbytes(*args[:2], out) + 2 * (2 * d * f + f + d) + 4 * 4 * d,
                     4 * n * d * f, BF16_FLOPS)
     print(f"  K2 N={n} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bms:.4f} ms ({by})")
+          f"bound {bms:.4f} ms ({by}), share {bms / ms:.3f}; gemm_ms {gemm_ms:.4f} "
+          f"(torch.matmul [{n}x{d}]x[{d}x{f}] and back)", flush=True)
+    profile_once(lambda: k2.encoder_tail(*args), top=3)
     print("phase 4: K2 matches its plain version", flush=True)
     return {"name": "fused_encoder_tail_fwd", "route": "cuda",
             "source": "richsem_tpu_torch/csrc/fused_encoder_tail_fwd.cu",
             "replaces": "richsem_tpu/ops/fused_ffn.py:82",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+            "bound_ms": bms, "bound_by": by, "library_ms": None, "gemm_ms": gemm_ms}
 
 
 def phase_k2_bwd(args, dy):
@@ -1246,9 +1299,10 @@ HAND_WRITTEN = ("msda_fwd_kernel", "msda_bwd_kernel", "encoder_tail_fwd_kernel",
                 "msda_sep_bwd_kernel")
 
 
-def profile_once(fn, top: int = 12):
+def profile_once(fn, top: int = 12) -> dict:
     """Device time by kernel over one call of ``fn`` (torch.profiler / CUPTI):
-    the busiest ``top`` kernels, then every hand-written one."""
+    the busiest ``top`` kernels, then every hand-written one. -> device ms of
+    each hand-written kernel that ran ({} when nothing was recorded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1262,7 +1316,7 @@ def profile_once(fn, top: int = 12):
     total_us = sum(e.self_device_time_total for e in rows)
     if not rows:
         print("  profile: no device time recorded (not measured)")
-        return
+        return {}
     print(f"  profile: device busy {total_us / 1e3:.2f} ms of a {wall_ms:.2f} ms call "
           f"(idle share {max(0.0, 1 - total_us / 1e3 / wall_ms):.3f}), "
           f"{sum(e.count for e in rows)} device operations; top kernels:")
@@ -1272,6 +1326,66 @@ def profile_once(fn, top: int = 12):
     if mine:
         print("    hand-written: " + "; ".join(
             f"{k} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for k, e in mine))
+    out = {}
+    for k, e in mine:
+        out[k] = out.get(k, 0.0) + e.self_device_time_total / 1e3
+    return out
+
+
+def phase_ab(root: str) -> None:
+    """The ``ab`` subcommand: the encoder's kernels of the port in ``root``."""
+    import hashlib
+
+    import torch
+
+    from richsem_tpu_torch.ops import fused_ffn as k2
+    from richsem_tpu_torch.ops import ms_deform_attn as k1
+
+    pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(k1.__file__))))
+    if pkg_root != root:
+        fail(f"ab: richsem_tpu_torch came from {pkg_root}, not {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    rec = {"root": root, "card": smi}
+
+    def device_ms(fn, kernels, iters=5):
+        dev = profile_once(lambda: [fn() for _ in range(iters)], top=len(kernels))
+        return sum(dev.get(k, 0.0) for k in kernels) / iters if dev else None
+
+    def digest(tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy())
+        return h.hexdigest()[:16]
+
+    value, cases = k1_cases()
+    v = value.to(torch.bfloat16)
+    for case, (loc, aw) in cases.items():
+        fn = lambda: k1.ms_deform_attn(v, SHAPES, loc, aw)  # noqa: E731
+        rec[f"k1_{case}_ms"] = cuda_ms(fn)
+        rec[f"k1_{case}_device_ms"] = device_ms(fn, ["msda_fwd_kernel"])
+    loc, aw = cases["encoder"]
+    grad = torch.randn((v.shape[0], loc.shape[1], 256),
+                       generator=torch.Generator(device=DEVICE).manual_seed(3),
+                       device=DEVICE).to(torch.bfloat16)
+    fn = lambda: k1.ms_deform_attn_backward(v, SHAPES, loc, aw, grad)  # noqa: E731
+    rec["k1_bwd_encoder_ms"] = cuda_ms(fn, iters=10)
+    rec["k1_bwd_encoder_device_ms"] = device_ms(fn, ["msda_bwd_kernel"])
+    del value, cases, v, loc, aw, grad
+    args, dy = k2_args()
+    fn = lambda: k2.encoder_tail(*args)  # noqa: E731
+    rec["k2_ms"] = cuda_ms(fn)
+    rec["k2_device_ms"] = device_ms(fn, ["encoder_tail_fwd_kernel"])
+    rec["k2_sha"] = digest([fn()])
+    fn = lambda: k2.encoder_tail_backward(*args, dy)  # noqa: E731
+    rec["k2_bwd_ms"] = cuda_ms(fn, iters=10)
+    rec["k2_bwd_device_ms"] = device_ms(fn, ["row_pass_kernel", "dw_gemm_kernel",
+                                             "colsum_kernel"])
+    rec["k2_bwd_sha"] = digest(fn())
+    print(json.dumps(rec), flush=True)
 
 
 def main() -> None:
@@ -1283,6 +1397,11 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     if not os.path.isdir(os.path.join(ROOT, "richsem_tpu_torch")) or not os.path.isfile(CONFIG):
         fail("run from the root of a checkout (richsem_tpu_torch/ and configs/ not found)")
+    if sys.argv[1:2] == ["ab"]:
+        root = os.path.abspath(sys.argv[2] if len(sys.argv) > 2 else ROOT)
+        sys.path.insert(0, root)
+        phase_ab(root)
+        return
     sys.path.insert(0, ROOT)
     t0 = time.perf_counter()
     smi = phase_build()

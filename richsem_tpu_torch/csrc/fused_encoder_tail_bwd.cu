@@ -59,14 +59,14 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "encoder_tail_common.cuh"
 #include "hopper_wgmma.cuh"
 
 namespace {
 
 using namespace hopper;
+using namespace tail;  // kD = 256, kFC = 64, LN1, the chunk staging
 
-constexpr int kD = 256;          // model width
-constexpr int kFC = 64;          // hidden units per chunk
 constexpr int kBM = 128;         // rows per block: 64 per consumer warpgroup
 constexpr int kThreads = 256;    // two warpgroups
 constexpr int kWarps = kThreads / 32;
@@ -88,49 +88,11 @@ constexpr int kB1Off = kParOff + 4 * kD * 4;                  // bf16 b1 [kMaxCh
 constexpr int kRowSmem = kB1Off + kMaxChunks * kFC * 2 + 1024;  // + alignment slack
 static_assert(kRowSmem <= 232448, "too much shared memory");
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// Sum over the four lanes of a quad: the 64 columns of a fragment row.
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // Sum over the eight quads of a warp: a column's 16 fragment rows.
 __device__ __forceinline__ float col_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 4);
   v += __shfl_xor_sync(0xffffffffu, v, 8);
   return v + __shfl_xor_sync(0xffffffffu, v, 16);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Loads kept in program order (volatile): the LN passes load their row streams
-// kPf column pairs ahead, instead of having them scheduled early and kept live
-// beside the 128 accumulator registers. Plain C++ volatile accesses keep
-// [base + offset] addressing, so the unrolled passes need no register per
-// address.
-__device__ __forceinline__ float2 ldv2(const float* p) {
-  const volatile float* v = p;
-  return make_float2(v[0], v[1]);
-}
-
-// f32 pair (row g, columns c, c + 1) of a [N, 256] stream; zeros past row n
-// (read from row n - 1 and dropped, so that the load needs no predicate).
-__device__ __forceinline__ float2 load2(const float* p, long long g, int c, int n) {
-  const float2 v = ldv2(p + min(g, static_cast<long long>(n) - 1) * kD + c);
-  return g < n ? v : make_float2(0.f, 0.f);
-}
-
-// LayerNorm's affine output with PyTorch's roundings: (u - mean) * rstd * s + b,
-// each operation rounded, no fused multiply-add.
-__device__ __forceinline__ float ln_out(float u, float mean, float rstd, float s, float b) {
-  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(u, mean), rstd), s), b);
 }
 
 // Block column sums in a fixed order: after col_sum, lanes 0-3 of each warp hold
@@ -164,22 +126,10 @@ __device__ __forceinline__ bool step_is_w1(int t, int nc) {
 __device__ void load_step(uint32_t slot, const __nv_bfloat16* w1, const __nv_bfloat16* w2,
                           int t, int nc, int f, int tid) {
   const int f0 = ((t < 2 * nc ? t : t - 2 * nc) >> 1) * kFC;
-  if (step_is_w1(t, nc)) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int idx = tid + i * kThreads;
-      const int r = idx >> 5, c = idx & 31;
-      cp_async16(slot + (c >> 3) * 8192 + swz(r, c & 7),
-                 w1 + static_cast<long long>(f0 + r) * kD + c * 8);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int idx = tid + i * kThreads;
-      const int r = idx >> 3, c = idx & 7;
-      cp_async16(slot + swz(r, c), w2 + static_cast<long long>(r) * f + f0 + c * 8);
-    }
-  }
+  if (step_is_w1(t, nc))
+    stage_w1_chunk<kThreads>(slot, w1, f0, tid);
+  else
+    stage_w2_chunk<kThreads>(slot, w2, f, f0, tid);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -230,59 +180,23 @@ row_pass_kernel(const float* __restrict__ src, const float* __restrict__ attn,
   cp_async_commit();
 
   // ---- x = LN1(src + attn) -> bf16 A operand and xb_out; rows past n read 0.
-  // A warp a row; lane t holds channels 4t .. 4t+3 and 128+4t .. 128+4t+3 and
-  // sums them as torch 2.11's CUDA row reduction does (four running sums,
-  // combined in order, then a shuffle-down tree from offset 16 down to 1), with
-  // every operation rounded as PyTorch rounds it, so that bf16(x), and with it
-  // the relu mask, is PyTorch's.
+  // A warp a row, in PyTorch's order and roundings (ln1_row).
   for (int i = 0; i < kBM / kWarps; ++i) {
     const int r = warp * (kBM / kWarps) + i;
     const long long g = row0 + r;
-    float u[8];
-    if (g < n) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float4 sv = *reinterpret_cast<const float4*>(src + g * kD + 128 * h + 4 * lane);
-        const float4 av = *reinterpret_cast<const float4*>(attn + g * kD + 128 * h + 4 * lane);
-        u[4 * h] = sv.x + av.x; u[4 * h + 1] = sv.y + av.y;
-        u[4 * h + 2] = sv.z + av.z; u[4 * h + 3] = sv.w + av.w;
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) u[k] = 0.f;
-    }
-    float sum = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(u[0], u[4]), __fadd_rn(u[1], u[5])),
-                                    __fadd_rn(u[2], u[6])), __fadd_rn(u[3], u[7]));
-    float sq[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) sq[k] = __fmul_rn(u[k], u[k]);
-    float ssq = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(sq[0], sq[4]), __fadd_rn(sq[1], sq[5])),
-                                    __fadd_rn(sq[2], sq[6])), __fadd_rn(sq[3], sq[7]));
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      sum = __fadd_rn(sum, __shfl_down_sync(0xffffffffu, sum, o));
-      ssq = __fadd_rn(ssq, __shfl_down_sync(0xffffffffu, ssq, o));
-    }
-    const float mean = __fmul_rn(__shfl_sync(0xffffffffu, sum, 0), 1.f / kD);
-    const float msq = __fmul_rn(__shfl_sync(0xffffffffu, ssq, 0), 1.f / kD);
-    const float rstd = rsqrtf(__fadd_rn(__fsub_rn(msq, __fmul_rn(mean, mean)), eps));
+    float mean, rstd;
+    uint2 pk[2];
+    ln1_row(src, attn, g, n, lane, s1, sb1, eps, mean, rstd, pk);
     if (lane == 0) {
       mean1[r] = mean;
       rstd1[r] = rstd;
     }
-    const int lr = r & 63;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c0 = 128 * h + 4 * lane;
-      uint2 pk;
-      pk.x = pack_bf16(ln_out(u[4 * h], mean, rstd, s1[c0], sb1[c0]),
-                       ln_out(u[4 * h + 1], mean, rstd, s1[c0 + 1], sb1[c0 + 1]));
-      pk.y = pack_bf16(ln_out(u[4 * h + 2], mean, rstd, s1[c0 + 2], sb1[c0 + 2]),
-                       ln_out(u[4 * h + 3], mean, rstd, s1[c0 + 3], sb1[c0 + 3]));
-      // column c0 sits in block c0 / 64, 16-byte chunk (c0 % 64) / 8, half (c0 % 8) / 4
-      *reinterpret_cast<uint2*>(smem + kXaOff + (r >> 6) * 32768 + (c0 >> 6) * 8192 +
-                                swz(lr, (c0 & 63) >> 3) + (c0 & 4) * 2) = pk;
-      *reinterpret_cast<uint2*>(xb_out + g * kD + c0) = pk;
+      *reinterpret_cast<uint2*>(smem + kXaOff + (r >> 6) * 32768 + x_tile_offset(r & 63, c0)) =
+          pk[h];
+      *reinterpret_cast<uint2*>(xb_out + g * kD + c0) = pk[h];
     }
   }
 

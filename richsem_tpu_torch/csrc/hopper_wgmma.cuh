@@ -1,6 +1,8 @@
 // Hopper building blocks shared by the hand-written kernels: cp.async staging
 // into 128-byte-swizzled shared-memory tiles, wgmma shared-memory descriptors,
-// and warpgroup matrix products (wgmma.mma_async, bf16 in, f32 accumulators).
+// warpgroup matrix products (wgmma.mma_async, bf16 in, f32 accumulators, A
+// from shared memory or from registers), mbarriers, setmaxnreg and named
+// barriers.
 //
 // Tile layout. Every operand tile is a set of blocks of R rows x 64 bf16 (128
 // bytes a row), each block 1024-byte aligned; the 16-byte chunk c of row r sits
@@ -160,6 +162,83 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint32_t a_lo, uint3
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a_lo), "r"(b_lo), "n"(OA), "n"(OB), "n"(kDescHi), "r"(1), "n"(TA), "n"(TB));
+}
+
+// D[64 x 256] += A[64 x 16] B[16 x 256] with A in registers: a0..a3 hold the
+// bf16 pairs of the m64k16 register fragment (PTX ISA, "Register Fragments"):
+// thread t of the warpgroup, row0 = 16 * (t / 32) + (t % 32) / 4, q = t % 4:
+// a0 = (row0, 2q .. 2q+1), a1 = (row0 + 8, 2q ..), a2 = (row0, 8 + 2q ..),
+// a3 = (row0 + 8, 8 + 2q ..). That is the accumulator fragment of an m64n16
+// product, so the bf16 of accumulator pairs d[2i], d[2i + 1] of an m64n64
+// product are, four at a time, the A fragments of its four k-steps. B as in
+// wgmma_n256 (offset OB, transpose bit TB).
+template <int TB, int OB>
+__device__ __forceinline__ void wgmma_n256_rs(float (&d)[128], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint32_t b_lo) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 lb, hi;\n.reg .b64 db;\n"
+      "add.s32 lb, %132, %133;\n"
+      "mov.b32 hi, %134;\nmov.b64 db, {lb, hi};\n"
+      "setp.ne.b32 p, %135, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, db, p, 1, 1, %136;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b_lo), "n"(OB), "n"(kDescHi), "r"(1), "n"(TB));
+}
+
+// ---- mbarriers (shared-memory barriers with phases) ----------------------
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// Makes the initialised barriers visible to every thread (then a block barrier).
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Waits until the barrier's phase of the given parity has completed. A fresh
+// barrier is in phase 0: parity 1 passes at once (the producer's first pass
+// over an empty ring), parity 0 waits for the first completion.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Registers a warpgroup keeps (setmaxnreg; every warp of the warpgroup).
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// Named barrier over `count` threads (a multiple of 32), id 1..15.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // Byte offset of k-step k (16 deep) in an operand tile: K-major in blocks of

@@ -53,32 +53,16 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "msda_common.cuh"
+
 namespace {
 
-constexpr int kMaxLevels = 8;
-constexpr int kD = 32;          // channels a head
+using namespace msda;  // Levels, load4, the tap geometry; kD = 32
+
 constexpr int kLanes = 8;       // lanes a tap: 4 channels each
 constexpr int kThreads = 256;
 constexpr int kGroups = kThreads / kLanes;
 constexpr int kTile = 16;       // queries a block
-
-struct Levels {
-  int n;
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  long long start[kMaxLevels];
-};
-
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
-  v[0] = __low2float(a); v[1] = __high2float(a); v[2] = __low2float(b); v[3] = __high2float(b);
-}
 
 __device__ __forceinline__ float group_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
@@ -111,25 +95,23 @@ msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
     float x = -2.f, y = -2.f, a = 0.f;
     long long tap = 0;
     if (live) {
-      // Rounded as PyTorch rounds loc * size - 0.5 (no fused multiply-add): the
-      // bilinear derivative jumps at integer pixels, so a sample one ulp across
-      // one must fall on the same side as in the plain version.
+      // rounded as the plain version rounds it: the bilinear derivative jumps at
+      // integer pixels
       tap = ((static_cast<long long>(b) * Q + q) * M + m) * lp_n + lp;
-      x = __fsub_rn(__fmul_rn(loc[2 * tap], static_cast<float>(w)), 0.5f);
-      y = __fsub_rn(__fmul_rn(loc[2 * tap + 1], static_cast<float>(h)), 0.5f);
+      x = pixel(loc[2 * tap], w);
+      y = pixel(loc[2 * tap + 1], h);
       a = aw[tap];
     }
     float s_aw = 0.f, s_x = 0.f, s_y = 0.f;
-    if (live && x > -1.f && x < w && y > -1.f && y < h) {  // else every corner is out
+    if (live && inside(x, y, h, w)) {  // else every corner is out
       float g[4];
       load4(grad + ((static_cast<long long>(b) * Q + q) * M + m) * kD + 4 * k, g);
-      const float xf = floorf(x), yf = floorf(y);
-      const float dx = x - xf, dy = y - yf;
-      const int x0 = static_cast<int>(xf), y0 = static_cast<int>(yf);
-      const bool in[4] = {y0 >= 0 && x0 >= 0, y0 >= 0 && x0 + 1 < w, y0 + 1 < h && x0 >= 0,
-                          y0 + 1 < h && x0 + 1 < w};
-      const int cx[4] = {x0, x0 + 1, x0, x0 + 1}, cy[4] = {y0, y0, y0 + 1, y0 + 1};
-      const float wk[4] = {(1.f - dy) * (1.f - dx), (1.f - dy) * dx, dy * (1.f - dx), dy * dx};
+      const Corners cr = corners(x, y, h, w);
+      const float dx = cr.dx, dy = cr.dy;
+      const bool(&in)[4] = cr.in;
+      const float(&wk)[4] = cr.wk;
+      const int cx[4] = {cr.x0, cr.x0 + 1, cr.x0, cr.x0 + 1};
+      const int cy[4] = {cr.y0, cr.y0, cr.y0 + 1, cr.y0 + 1};
       const long long lbase = vbase + lv.start[l] * row_stride;
       float v[4][4];
 #pragma unroll
@@ -172,18 +154,9 @@ template <typename T>
 int launch(const void* value, const void* loc, const void* aw, const void* grad,
            void* d_value, void* d_loc, void* d_aw, int B, int S, int Q, int M,
            int D, int L, int P, const int* shapes, cudaStream_t stream) {
-  if (L < 1 || L > kMaxLevels || D != kD || B * M > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
   Levels lv;
-  lv.n = L;
-  long long start = 0;
-  for (int l = 0; l < L; ++l) {
-    lv.h[l] = shapes[2 * l];
-    lv.w[l] = shapes[2 * l + 1];
-    lv.start[l] = start;
-    start += static_cast<long long>(lv.h[l]) * lv.w[l];
-  }
-  if (start != S) return static_cast<int>(cudaErrorInvalidValue);
+  if (D != kD || B * M > 65535 || !make_levels(lv, L, shapes, S))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(B) * Q * M == 0) return static_cast<int>(cudaSuccess);
   msda_bwd_kernel<T><<<dim3((Q + kTile - 1) / kTile, B * M), kThreads, 0, stream>>>(
       static_cast<const T*>(value), static_cast<const float*>(loc),

@@ -323,13 +323,13 @@ class DINO(nn.Module):
             )
         c = self.cfg = cfg
         if c.backbone not in ("resnet50", "resnet101"):
-            raise _not_ported(f"backbone {c.backbone!r}", "item 10")
+            raise _not_ported(f"backbone {c.backbone!r}", "item 11")
         for knob in ("masks", "use_clip_visual_query", "share_vl_proj", "enc_cls_agn",
-                     "distill_aux_layers"):
+                     "distill_aux_layers", "two_stage_cls"):
             if getattr(c, knob):
-                raise _not_ported(f"knob {knob}", "item 10")
+                raise _not_ported(f"knob {knob}", "item 11")
         if c.activation != "relu":
-            raise _not_ported(f"activation {c.activation!r} in the encoder tail", "item 10")
+            raise _not_ported(f"activation {c.activation!r} in the encoder tail", "item 11")
         if c.two_stage_type != "standard":
             raise NotImplementedError(c.two_stage_type)
         blocks = (3, 4, 6, 3) if c.backbone == "resnet50" else (3, 4, 23, 3)

@@ -24,7 +24,7 @@ def postprocess(
     if nms_iou_threshold > 0:
         raise NotImplementedError(
             "NMS is not ported to richsem_tpu_torch yet (ops/nms.py; ROADMAP.md "
-            "queue 1, item 3); the shipped configs use nms_iou_threshold=-1"
+            "queue 1, item 11); the shipped configs use nms_iou_threshold=-1"
         )
     b, nq, c = pred_logits.shape
     prob = torch.sigmoid(pred_logits.float()).reshape(b, nq * c)

@@ -56,11 +56,11 @@ _K2_BWD = "fused_encoder_tail_bwd"
 
 def _k2_lib() -> ctypes.CDLL:
     lib = _build.load(_K2)
-    fn = lib.encoder_tail_fwd
-    if fn.argtypes is None:
+    if lib.encoder_tail_fwd.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 11 + [i32, i32, i32, ctypes.c_float, ptr]
-        fn.restype = ctypes.c_int
+        for fn, n_ptr in ((lib.encoder_tail_fwd, 11), (lib.encoder_tail_fwd_transients, 13)):
+            fn.argtypes = [ptr] * n_ptr + [i32, i32, i32, ctypes.c_float, ptr]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -93,8 +93,8 @@ def _cuda_args(src, attn_out, w1, b1, w2, b2, s1, sb1, s2, sb2, cdt):
             f"bad shapes: src {tuple(src.shape)}, attn_out {tuple(attn_out.shape)}, "
             f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}"
         )
-    if d != 256 or f % 64:
-        raise ValueError(f"K2 needs d == 256 and F % 64 == 0, got d={d}, F={f}")
+    if d != 256 or f % 64 or f > 4096:
+        raise ValueError(f"K2 needs d == 256, F % 64 == 0 and F <= 4096, got d={d}, F={f}")
     dev = src.device
     args = [src, attn_out]
     args += [t.to(device=dev, dtype=torch.bfloat16) for t in (w1, b1, w2, b2)]
@@ -102,17 +102,26 @@ def _cuda_args(src, attn_out, w1, b1, w2, b2, s1, sb1, s2, sb2, cdt):
     return [t.contiguous() for t in args]
 
 
-def _encoder_tail_cuda(args, eps):
-    """K2 on the checked inputs of :func:`_cuda_args`."""
+def _encoder_tail_cuda(args, eps, transients=None):
+    """K2 on the checked inputs of :func:`_cuda_args`. A ``transients`` dict
+    receives the kernel's bf16 x [N, d] and bf16 h1 [N, F] (after the relu),
+    which chip_smoke.py compares with the plain version's; y is the same."""
     src = args[0]
     n, d = src.shape
     f = args[2].shape[0]
     out = torch.empty(n, d, dtype=torch.float32, device=src.device)
+    ptrs = [t.data_ptr() for t in args] + [out.data_ptr()]
+    lib = _k2_lib()
+    fn = lib.encoder_tail_fwd
+    if transients is not None:
+        xb = torch.empty(n, d, dtype=torch.bfloat16, device=src.device)
+        h1 = torch.empty(n, f, dtype=torch.bfloat16, device=src.device)
+        transients.update(xb=xb, h1=h1)
+        ptrs += [xb.data_ptr(), h1.data_ptr()]
+        fn = lib.encoder_tail_fwd_transients
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _k2_lib().encoder_tail_fwd(
-            *[t.data_ptr() for t in args], out.data_ptr(), n, d, f, float(eps), stream
-        )
+        err = fn(*ptrs, n, d, f, float(eps), stream)
     if err != 0:
         raise RuntimeError(f"K2 fused_encoder_tail_fwd launch failed: CUDA error {err}")
     encoder_tail.launches += 1

@@ -1,0 +1,68 @@
+"""The port refuses what it has not ported, and names the ROADMAP item that
+holds it: the knobs, backbones and activation of the detector and NMS in the
+post-processing (queue 1, item 11), and data-parallel training (item 10).
+
+``two_stage_cls`` with the distillation branch on changes the function the
+JAX model trains (the CLIP logits join every decoder layer's logits), so the
+port raises on it; the shipped recipes set it False, and without the
+distillation branch it is gated off as in JAX.
+"""
+
+import pytest
+import torch
+
+from richsem_tpu.config import Config as JaxConfig
+from richsem_tpu.models.dino import DINOConfig as JaxDINOConfig
+from richsem_tpu_torch.config import Config
+from richsem_tpu_torch.models.dino import DINO, DINOConfig
+from richsem_tpu_torch.models.postprocess import postprocess
+from richsem_tpu_torch.train import main
+
+FLAGSHIP = "configs/richsem/richsem_4scale_lvis.py"
+
+
+def _flagship(**overrides):
+    cfg = Config.fromfile(FLAGSHIP)
+    for k, v in overrides.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def test_two_stage_cls_with_distillation_raises():
+    cfg = DINOConfig.from_config(_flagship(two_stage_cls=True))
+    assert cfg.two_stage_cls and cfg.use_visual_distill
+    with pytest.raises(NotImplementedError, match=r"two_stage_cls.*queue 1, item 11"):
+        DINO(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("distill", [False, True])
+def test_two_stage_cls_gating_matches_jax(distill):
+    """from_config keeps two_stage_cls only beside the distillation branch, as
+    the JAX DINOConfig does; the shipped recipe has it off."""
+    overrides = dict(two_stage_cls=True, use_visual_distill=distill)
+    out = DINOConfig.from_config(_flagship(**overrides))
+    jax_cfg = JaxConfig.fromfile(FLAGSHIP)
+    for k, v in overrides.items():
+        setattr(jax_cfg, k, v)
+    assert out.two_stage_cls == JaxDINOConfig.from_config(jax_cfg).two_stage_cls == distill
+    assert DINOConfig.from_config(Config.fromfile(FLAGSHIP)).two_stage_cls is False
+
+
+def _nms():
+    postprocess(torch.zeros(1, 4, 3), torch.full((1, 4, 4), 0.5),
+                torch.tensor([[64, 64]]), num_select=2, nms_iou_threshold=0.5)
+
+
+@pytest.mark.parametrize("what,call", [
+    ("backbone", lambda: DINO(DINOConfig(backbone="swin_T_224_1k"), device="cpu")),
+    ("knob", lambda: DINO(DINOConfig(share_vl_proj=True), device="cpu")),
+    ("activation", lambda: DINO(DINOConfig(activation="gelu"), device="cpu")),
+    ("nms", _nms),
+], ids=["backbone", "knob", "activation", "nms"])
+def test_unported_messages_name_item_11(what, call):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1, item 11\)"):
+        call()
+
+
+def test_ddp_message_names_item_10():
+    assert main._DDP.endswith("ROADMAP.md queue 1, item 10")

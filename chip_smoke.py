@@ -7,8 +7,8 @@ Phases, each printed as it completes:
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the build of every hand-written kernel from
    ``richsem_tpu_torch/csrc`` (nine sources, one nvcc per source, all at once,
-   sm_90a) with its register report; K1, K1-bwd, K2 and K2-bwd must spill
-   nothing.
+   sm_90a) with its register report; K1, K1-bwd, K2, K2-bwd, K3 and K3-bwd
+   must spill nothing.
 2. K1 (deformable attention) against its plain PyTorch version at the
    production encoder shapes (clamped offsets) and decoder shapes (1,100 box
    queries, unclamped), in bf16 and f32: max abs error and both times; one
@@ -41,9 +41,12 @@ Phases, each printed as it completes:
    against those of the same step with the plain versions in place of every
    kernel, and one profiled step.
 8. K3 (the separable decoder sampler) against its plain dense version at the
-   decoder's shapes (1,100 queries), bf16 and f32; run right after phase 3,
-   on its inputs.
-9. K3-bwd against the plain version's explicit backward, same shapes.
+   decoder's shapes (1,100 queries) and at odd row counts (B1, Q 37, M 1 and
+   3), bf16 and f32; run right after phase 3, on its inputs; five profiled
+   calls (the mean device time, ``device_ms``).
+9. K3-bwd against the plain version's explicit backward, same shapes; five
+   profiled calls (the kernel's mean device time, ``device_ms``, and beside it
+   the wrapper's zeroed f32 d_value and its cast to bf16).
 10. The flagship train step (``richsem_4scale_lvis.py``: the CLIP-text
     classifier, a random-weight bf16 CLIP-RN50 teacher and a random
     1204 x 1024 text bank as ``bench.py:114-126`` builds them, distillation
@@ -75,14 +78,17 @@ Phases, each printed as it completes:
 
 ``python3 chip_smoke.py kernels`` stops after the kernel phases (1-5, 8, 9, 12).
 
-``python3 chip_smoke.py ab [DIR]`` only times the encoder's kernels of the port
+``python3 chip_smoke.py ab [DIR]`` only times the model's kernels of the port
 in DIR (default: this checkout), for A/B runs of two trees: it imports
 ``richsem_tpu_torch`` from DIR, builds its kernels from DIR's sources, draws the
-inputs of phases 2, 4 and 5 and prints one JSON line with, for K1 (encoder and
-decoder, bf16), K1-bwd (encoder), K2 and K2-bwd (N = 49,980), the CUDA-event
-time of a call, the kernels' device time from ``profile_once`` (mean over 5
-calls) and, for K2 and K2-bwd, a SHA-256 of the outputs. Compare two trees in
-one call on the card, in turns, each in a process of its own:
+inputs of phases 2-5, 8 and 9 and prints one JSON line with, for K1 (encoder
+and decoder, bf16), K3 and K3-bwd (the decoder, bf16), K1-bwd (encoder), K2
+and K2-bwd (N = 49,980), the CUDA-event time of a call and the kernels'
+device time from ``profile_once`` (mean over 5 calls); for K3-bwd also the
+device time of the wrapper's zeroed f32 d_value and of its cast to bf16; and
+a SHA-256 prefix of the outputs of K1 (both cases), K3, K2 and K2-bwd.
+Compare two trees in one call on the card, in turns, each in a process of
+its own:
 
     for t in build/parent . . build/parent; do python3 chip_smoke.py ab $t; done
 
@@ -125,7 +131,8 @@ HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 BF16_VEC_FLOPS = 133.8e12  # bf16 outside the tensor cores (NVIDIA's H100 white paper, SXM5)
 COS_MIN = 0.9  # least gradient cosine, kernels vs plain versions (phases 7, 10, 11)
 NO_SPILL = ("ms_deform_attn_fwd", "ms_deform_attn_bwd", "fused_encoder_tail_fwd",
-            "fused_encoder_tail_bwd")  # ptxas must report 0 spill bytes
+            "fused_encoder_tail_bwd", "ms_deform_attn_sep_fwd",
+            "ms_deform_attn_sep_bwd")  # ptxas must report 0 spill bytes
 VALID = (800, 1224)  # bench.py's valid extent inside CANVAS
 
 
@@ -293,8 +300,9 @@ def phase_k1(value, cases):
                 rec[f"{key}ms"], rec[f"{key}plain_ms"] = ms, plain_ms
                 rec[f"{key}bound_ms"], rec[f"{key}bound_by"] = bms, by
                 if case == "decoder":  # the CUDA-event time of so short a call is the host's
-                    dev = profile_once(lambda: k1.ms_deform_attn(v, SHAPES, loc, aw), top=3)
-                    rec["decoder_device_ms"] = dev.get("msda_fwd_kernel")
+                    rec["decoder_device_ms"] = device_ms(
+                        lambda: k1.ms_deform_attn(v, SHAPES, loc, aw),
+                        ["msda_fwd_kernel"])["msda_fwd_kernel"]
     # Tolerances: both versions sum the 64 taps in f32, in another order and
     # with or without fused multiply-adds. In f32 that moves a sum of terms
     # below 4 by a few ulps each, under 5e-5 in all; in bf16 the sum is then
@@ -382,6 +390,22 @@ def phase_k1_bwd(value, cases):
     return rec
 
 
+def k3_cases(v, loc, aw, dtype, grad=None):
+    """K3's and K3-bwd's checks at one dtype: the decoder's shapes, then odd
+    row counts (B1, Q 37 and M 1 or 3: 37 and 111 rows), where the last warp's
+    spare half-warp runs. -> (tag, wrapper arguments) pairs."""
+    b, q, m = loc.shape[:3]
+    out = [(f"decoder Q={q}", (v, SHAPES, loc, aw) + ((grad,) if grad is not None else ()))]
+    for mo in (1, 3):
+        args = (v[:1, :, :mo].contiguous(), SHAPES, loc[:1, :37, :mo].contiguous(),
+                aw[:1, :37, :mo].contiguous())
+        if grad is not None:
+            d = v.shape[-1]
+            args += (grad.reshape(b, q, m, d)[:1, :37, :mo].reshape(1, 37, mo * d).contiguous(),)
+        out.append((f"rows={37 * mo}", args))
+    return [(f"{tag} {str(dtype)[6:]}", args) for tag, args in out]
+
+
 def phase_k3(value, loc, aw):
     """K3 (the separable decoder sampler) against its plain dense version at
     the decoder's shapes (1,100 box queries, unclamped, some taps out)."""
@@ -395,17 +419,20 @@ def phase_k3(value, loc, aw):
     errs = []
     for dtype in (torch.bfloat16, torch.float32):
         v = value.to(dtype)
-        out = k3.ms_deform_attn_sep(v, SHAPES, loc, aw)
-        ref = k3.ms_deform_attn_sep_plain(v, SHAPES, loc, aw)
-        torch.cuda.synchronize()
-        tag = f"K3 decoder Q={loc.shape[1]} {str(dtype)[6:]}"
-        # Both round hxw and rh where the TPU kernel does and sum in f32 in
-        # another order: f32 within 5e-5 of the largest magnitude; bf16 may
-        # land one bf16 step apart, as K1 (1e-2 + 1e-2 * |plain|)
-        if dtype == torch.float32:
-            errs.append(compare_rel(tag, out, ref, 5e-5))
-        else:
-            errs.append(compare(tag, out, ref, 1e-2, 1e-2))
+        for tag, args in k3_cases(v, loc, aw, dtype):
+            out = k3.ms_deform_attn_sep(*args)
+            ref = k3.ms_deform_attn_sep_plain(*args)
+            torch.cuda.synchronize()
+            # Both round hxw and rh where the TPU kernel does and sum in f32 in
+            # another order: f32 within 5e-5 of the largest magnitude; bf16 may
+            # land one bf16 step apart, as K1 (1e-2 + 1e-2 * |plain|)
+            if dtype == torch.float32:
+                errs.append(compare_rel(f"K3 {tag}", out, ref, 5e-5))
+            else:
+                errs.append(compare(f"K3 {tag}", out, ref, 1e-2, 1e-2))
+        if dtype == torch.bfloat16:
+            tag = f"K3 decoder Q={loc.shape[1]} bf16"
+            out = k3.ms_deform_attn_sep(v, SHAPES, loc, aw)
             ms = cuda_ms(lambda: k3.ms_deform_attn_sep(v, SHAPES, loc, aw))
             plain_ms = cuda_ms(lambda: k3.ms_deform_attn_sep_plain(v, SHAPES, loc, aw), iters=3,
                                warmup=1)
@@ -415,6 +442,9 @@ def phase_k3(value, loc, aw):
             print(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"bound {bms:.4f} ms ({by})", flush=True)
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+            # the CUDA-event time of so short a call is the host's
+            rec["device_ms"] = device_ms(lambda: k3.ms_deform_attn_sep(v, SHAPES, loc, aw),
+                                         ["msda_sep_fwd_kernel"])["msda_sep_fwd_kernel"]
     rec["max_abs_err"] = max(errs)
     print("phase 8: K3 matches its plain version", flush=True)
     return rec
@@ -435,17 +465,19 @@ def phase_k3_bwd(value, loc, aw):
         v = value.to(dtype)
         b, q, m = loc.shape[:3]
         grad = torch.randn((b, q, m * v.shape[-1]), generator=g, device=DEVICE).to(dtype)
-        out = k3.ms_deform_attn_sep_backward(v, SHAPES, loc, aw, grad)
-        ref = k3.ms_deform_attn_sep_backward_plain(v, SHAPES, loc, aw, grad)
-        torch.cuda.synchronize()
-        tag = f"K3-bwd decoder Q={q} {str(dtype)[6:]}"
         # as K1-bwd: the atomic adds into d_value and the warp sums run in
         # another order than the dense products; bf16 rounds d_value once, and
         # may land one step (2^-8 relative) apart
         rel = 1e-4 if dtype == torch.float32 else 2e-2
-        for name, o, r in zip(("d_value", "d_loc", "d_aw"), out, ref):
-            errs.append(compare_rel(f"{tag} {name}", o, r, rel))
+        for tag, args in k3_cases(v, loc, aw, dtype, grad):
+            out = k3.ms_deform_attn_sep_backward(*args)
+            ref = k3.ms_deform_attn_sep_backward_plain(*args)
+            torch.cuda.synchronize()
+            for name, o, r in zip(("d_value", "d_loc", "d_aw"), out, ref):
+                errs.append(compare_rel(f"K3-bwd {tag} {name}", o, r, rel))
         if dtype == torch.bfloat16:
+            tag = f"K3-bwd decoder Q={q} bf16"
+            out = k3.ms_deform_attn_sep_backward(v, SHAPES, loc, aw, grad)
             ms = cuda_ms(lambda: k3.ms_deform_attn_sep_backward(v, SHAPES, loc, aw, grad))
             plain_ms = cuda_ms(
                 lambda: k3.ms_deform_attn_sep_backward_plain(v, SHAPES, loc, aw, grad),
@@ -458,6 +490,11 @@ def phase_k3_bwd(value, loc, aw):
             print(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"bound {bms:.4f} ms ({by})", flush=True)
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+            # the kernel alone; the wrapper's zeroed f32 d_value and its cast
+            # to bf16 are printed beside it
+            rec["device_ms"] = device_ms(
+                lambda: k3.ms_deform_attn_sep_backward(v, SHAPES, loc, aw, grad),
+                ["msda_sep_bwd_kernel"], also=SCRATCH_OPS)["msda_sep_bwd_kernel"]
     rec["max_abs_err"] = max(errs)
     print("phase 9: K3-bwd matches the plain version's explicit backward", flush=True)
     return rec
@@ -1299,10 +1336,16 @@ HAND_WRITTEN = ("msda_fwd_kernel", "msda_bwd_kernel", "encoder_tail_fwd_kernel",
                 "msda_sep_bwd_kernel")
 
 
-def profile_once(fn, top: int = 12) -> dict:
+# the device operations of a backward wrapper around its kernel: the zeroed f32
+# d_value scratch and its cast to the value's dtype
+SCRATCH_OPS = {"zero": "FillFunctor", "cast": "copy_kernel"}
+
+
+def profile_once(fn, top: int = 12, also: dict = None) -> dict:
     """Device time by kernel over one call of ``fn`` (torch.profiler / CUPTI):
     the busiest ``top`` kernels, then every hand-written one. -> device ms of
-    each hand-written kernel that ran ({} when nothing was recorded)."""
+    each hand-written kernel that ran, and of the operations whose names hold
+    each substring in ``also`` under its key ({} when nothing was recorded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1329,17 +1372,41 @@ def profile_once(fn, top: int = 12) -> dict:
     out = {}
     for k, e in mine:
         out[k] = out.get(k, 0.0) + e.self_device_time_total / 1e3
+    for k, sub in (also or {}).items():
+        hits = [e.self_device_time_total for e in rows if sub in e.key]
+        if hits:
+            out[k] = sum(hits) / 1e3
+    if also:
+        print("    " + "; ".join(f"{k} ({sub}) " + (f"{out[k]:.4f} ms" if k in out else "not seen")
+                                for k, sub in also.items()))
     return out
 
 
+def device_ms(fn, kernels, iters: int = 5, also: dict = None) -> dict:
+    """Device ms a call of ``fn``, the mean over ``iters`` profiled calls, of
+    each hand-written kernel in ``kernels`` and each key of ``also`` (see
+    ``profile_once``); None for one that the profile did not record (not
+    measured). A single profiled call reads high: the first one warms the
+    profiler."""
+    dev = profile_once(lambda: [fn() for _ in range(iters)], top=len(kernels) + len(also or {}),
+                       also=also)
+    return {k: dev[k] / iters if k in dev else None for k in [*kernels, *(also or {})]}
+
+
+def total_ms(dev: dict):
+    """The sum of ``device_ms``'s times, None unless all were measured."""
+    return None if None in dev.values() else sum(dev.values())
+
+
 def phase_ab(root: str) -> None:
-    """The ``ab`` subcommand: the encoder's kernels of the port in ``root``."""
+    """The ``ab`` subcommand: the model's kernels of the port in ``root``."""
     import hashlib
 
     import torch
 
     from richsem_tpu_torch.ops import fused_ffn as k2
     from richsem_tpu_torch.ops import ms_deform_attn as k1
+    from richsem_tpu_torch.ops import ms_deform_attn_sep as k3
 
     pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(k1.__file__))))
     if pkg_root != root:
@@ -1350,10 +1417,6 @@ def phase_ab(root: str) -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     rec = {"root": root, "card": smi}
-
-    def device_ms(fn, kernels, iters=5):
-        dev = profile_once(lambda: [fn() for _ in range(iters)], top=len(kernels))
-        return sum(dev.get(k, 0.0) for k in kernels) / iters if dev else None
 
     def digest(tensors):
         h = hashlib.sha256()
@@ -1366,24 +1429,40 @@ def phase_ab(root: str) -> None:
     for case, (loc, aw) in cases.items():
         fn = lambda: k1.ms_deform_attn(v, SHAPES, loc, aw)  # noqa: E731
         rec[f"k1_{case}_ms"] = cuda_ms(fn)
-        rec[f"k1_{case}_device_ms"] = device_ms(fn, ["msda_fwd_kernel"])
+        rec[f"k1_{case}_device_ms"] = total_ms(device_ms(fn, ["msda_fwd_kernel"]))
+        rec[f"k1_{case}_sha"] = digest([fn()])
+    # K3 and K3-bwd on phases 8 and 9's inputs (the decoder's, bf16)
+    loc, aw = cases["decoder"]
+    grad = torch.randn((v.shape[0], loc.shape[1], 256),
+                       generator=torch.Generator(device=DEVICE).manual_seed(4),
+                       device=DEVICE).to(torch.bfloat16)
+    fn = lambda: k3.ms_deform_attn_sep(v, SHAPES, loc, aw)  # noqa: E731
+    rec["k3_ms"] = cuda_ms(fn)
+    rec["k3_device_ms"] = total_ms(device_ms(fn, ["msda_sep_fwd_kernel"]))
+    rec["k3_sha"] = digest([fn()])
+    fn = lambda: k3.ms_deform_attn_sep_backward(v, SHAPES, loc, aw, grad)  # noqa: E731
+    rec["k3_bwd_ms"] = cuda_ms(fn, iters=10)
+    dev = device_ms(fn, ["msda_sep_bwd_kernel"], also=SCRATCH_OPS)
+    for key, op in (("device", "msda_sep_bwd_kernel"), ("zero_device", "zero"),
+                    ("cast_device", "cast")):
+        rec[f"k3_bwd_{key}_ms"] = dev[op]
     loc, aw = cases["encoder"]
     grad = torch.randn((v.shape[0], loc.shape[1], 256),
                        generator=torch.Generator(device=DEVICE).manual_seed(3),
                        device=DEVICE).to(torch.bfloat16)
     fn = lambda: k1.ms_deform_attn_backward(v, SHAPES, loc, aw, grad)  # noqa: E731
     rec["k1_bwd_encoder_ms"] = cuda_ms(fn, iters=10)
-    rec["k1_bwd_encoder_device_ms"] = device_ms(fn, ["msda_bwd_kernel"])
+    rec["k1_bwd_encoder_device_ms"] = total_ms(device_ms(fn, ["msda_bwd_kernel"]))
     del value, cases, v, loc, aw, grad
     args, dy = k2_args()
     fn = lambda: k2.encoder_tail(*args)  # noqa: E731
     rec["k2_ms"] = cuda_ms(fn)
-    rec["k2_device_ms"] = device_ms(fn, ["encoder_tail_fwd_kernel"])
+    rec["k2_device_ms"] = total_ms(device_ms(fn, ["encoder_tail_fwd_kernel"]))
     rec["k2_sha"] = digest([fn()])
     fn = lambda: k2.encoder_tail_backward(*args, dy)  # noqa: E731
     rec["k2_bwd_ms"] = cuda_ms(fn, iters=10)
-    rec["k2_bwd_device_ms"] = device_ms(fn, ["row_pass_kernel", "dw_gemm_kernel",
-                                             "colsum_kernel"])
+    rec["k2_bwd_device_ms"] = total_ms(device_ms(fn, ["row_pass_kernel", "dw_gemm_kernel",
+                                                      "colsum_kernel"]))
     rec["k2_bwd_sha"] = digest(fn())
     print(json.dumps(rec), flush=True)
 

@@ -57,18 +57,12 @@
 
 namespace {
 
-using namespace msda;  // Levels, load4, the tap geometry; kD = 32
+using namespace msda;  // Levels, load4, the tap geometry, group_sum; kD = 32
 
 constexpr int kLanes = 8;       // lanes a tap: 4 channels each
 constexpr int kThreads = 256;
 constexpr int kGroups = kThreads / kLanes;
 constexpr int kTile = 16;       // queries a block
-
-__device__ __forceinline__ float group_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  return v + __shfl_xor_sync(0xffffffffu, v, 4);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

@@ -53,50 +53,11 @@
 
 namespace {
 
-using namespace msda;  // Levels, the tap geometry; kD = 32
+using namespace msda;  // Levels, Chans, store_out, the tap geometry; kD = 32
 
 constexpr int kThreads = 256;  // 8 warps: 16 rows a block
-constexpr int kLanes = 4;       // lanes a tap
-constexpr int kC = kD / kLanes;  // channels a lane: 8
-
-// kC channels of one value row, as loaded: one 16-byte load (two for f32),
-// converted to f32 where the products need them.
-template <typename T>
-struct Chans {
-  static constexpr int kWords = kC * static_cast<int>(sizeof(T)) / 4;
-  uint32_t r[kWords];
-
-  __device__ __forceinline__ void load(const T* p) {
-#pragma unroll
-    for (int i = 0; i < kWords / 4; ++i) {
-      const uint4 t = __ldg(reinterpret_cast<const uint4*>(p) + i);
-      r[4 * i] = t.x; r[4 * i + 1] = t.y; r[4 * i + 2] = t.z; r[4 * i + 3] = t.w;
-    }
-  }
-  __device__ __forceinline__ float at(int i) const {
-    if constexpr (sizeof(T) == 4)
-      return __uint_as_float(r[i]);
-    else
-      return __uint_as_float((i & 1) ? (r[i >> 1] & 0xffff0000u) : (r[i >> 1] << 16));
-  }
-};
-
-__device__ __forceinline__ void store_out(float* p, const float (&v)[kC]) {
-#pragma unroll
-  for (int i = 0; i < kC; i += 4)
-    *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
-}
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, const float (&v)[kC]) {
-#pragma unroll
-  for (int i = 0; i < kC; i += 4) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[i], v[i + 1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[i + 2], v[i + 3]);
-    uint2 t;
-    t.x = *reinterpret_cast<const uint32_t*>(&lo);
-    t.y = *reinterpret_cast<const uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(p + i) = t;
-  }
-}
+constexpr int kLanes = kFwdLanes;  // lanes a tap: 4
+constexpr int kC = kFwdChans;      // channels a lane: 8
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

@@ -6,8 +6,8 @@
 // products, [ck, W] x [W, H*D] then a 0/1 reduction matrix over y, because the
 // MXU is the TPU's fast unit. Only two x-taps and two y-taps of each hat are
 // nonzero, and adding the zeros of the dense product is exact, so this kernel
-// gathers those four taps per (b, q, m, l, p), as K1 does, and rounds where the
-// TPU kernel rounds (cdt = bf16 for a bf16 value, else f32):
+// gathers those four corners per (b, q, m, l, p), as K1 does, and rounds where
+// the TPU kernel rounds (cdt = bf16 for a bf16 value, else f32):
 //
 //   x = loc_x * W - 0.5, y = loc_y * H - 0.5       (no FMA contraction)
 //   hxw_i = cdt(max(0, 1 - |x - i|) * aw)          for the in-range taps i in {x0, x0+1}
@@ -16,137 +16,151 @@
 //   out[b, q, m, :] = cdt(sum_p f32(sum_l sum_j rh_j))
 //
 // so that it agrees with the plain dense version up to the order of f32 sums.
+// The rounding of rh_j is per channel, so the four corners cannot fold into
+// four weights as in K1: each lane forms r_j and rh_j for its own channels.
+// r_j keeps __fmul_rn / __fadd_rn: for an f32 value an FMA would round once
+// where the TPU kernel rounds twice.
 //
 // Layouts (row-major, as the JAX package's public functions have them):
-//   value [B, S, M, D] (bf16 or f32), loc [B, Q, M, L, P, 2] f32 (x, y),
-//   aw [B, Q, M, L, P] f32 -> out [B, Q, M*D] in the value's dtype.
+//   value [B, S, M, 32] (bf16 or f32), loc [B, Q, M, L, P, 2] f32 (x, y),
+//   aw [B, Q, M, L, P] f32 -> out [B, Q, M*32] in the value's dtype.
 //
-// Design: one warp per (b, q, m); the 32 lanes cover 32 channels of D, so each
-// tap reads D contiguous values (64 bytes in bf16) as one coalesced access, and
-// every lane computes the tap geometry itself from broadcast loads of loc/aw.
 // What bounds it on the card: at the decoder's shapes (B2, Q = 1,100 with the
-// 200 DN queries, M8, L4, P4, D32) the call gathers B*Q*M*L*P*4 taps of 64 B =
-// 18 MB, almost all from L2 (the 25.6 MB value fits the 50 MB L2), and moves
-// ~30 MB of device memory (value, loc, aw read once, out written once), so
-// its bound is the bytes; at ~17,600 warps it is also short of filling the
-// card for long. Sharing the tap geometry across lanes and two channels a
-// lane are later work.
+// 200 DN queries, M8, L4, P4) a call has 281,600 taps, whose 1,126,400 corner
+// rows of 64 B (bf16) make 72 MB of gathers, almost all from L2 (the 25.6 MB
+// value fits the 50 MB L2), against 30 MB of device memory (value, loc and aw
+// read once, out written once): its bound is the bytes. Each tap is a short
+// dependent chain (location -> corner addresses -> four row reads ->
+// products), so what the kernel can do about it is keep many loads in flight
+// and spend few instructions a tap.
+//
+// Design (K1's, ms_deform_attn_fwd.cu):
+// - A warp serves two (b, q, m) rows, one per half-warp, in row-major order.
+//   One coalesced load a warp brings both rows' 16 taps of loc and aw. When
+//   the rows are odd in number, the last warp's spare half-warp reads the last
+//   row's addresses with every tap zeroed and writes nothing.
+// - The lane that loads a tap computes its geometry once (msda_common.cuh:
+//   sep_tap, shared with K3-bwd): the clamped token of the first corner and
+//   the steps to the others, the two rounded hxw and the two hat(y, j), with
+//   every factor of an out-of-range corner or tap set to 0. Six shuffles hand
+//   them to the tap's lane group.
+// - Four lanes serve a tap, eight channels each (Chans: one 16-byte load a
+//   corner in bf16, two in f32).
+// - Every corner load is issued unconditionally, from a clamped in-bounds
+//   address, for a batch of two taps before the first product; an
+//   out-of-range corner or tap gives zero through its zero weights.
+// - Each lane sums its taps' rh_j in f32 in order; the row's lane groups then
+//   meet in a fixed shuffle tree (xor 4, then xor 8), and the first group
+//   writes the row.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "msda_common.cuh"
+
 namespace {
 
-constexpr int kMaxLevels = 8;
+using namespace msda;  // Levels, Chans, store_out, SepTap, sep_tap; kD = 32
 
-struct Levels {
-  int n;
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  long long start[kMaxLevels];
-};
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-// Rounding to the compute type: bf16 for a bf16 value, none for f32.
-template <typename T> __device__ __forceinline__ float round_cdt(float v);
-template <> __device__ __forceinline__ float round_cdt<float>(float v) { return v; }
-template <> __device__ __forceinline__ float round_cdt<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// max(0, 1 - |c - i|), as the TPU kernel's _hat.
-__device__ __forceinline__ float hat(float c, int i) {
-  return fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(c, static_cast<float>(i)))));
-}
+constexpr int kThreads = 256;      // 8 warps: 16 rows a block
+constexpr int kLanes = kFwdLanes;  // lanes a tap: 4
+constexpr int kC = kFwdChans;      // channels a lane: 8
 
 template <typename T>
-__global__ void msda_sep_fwd_kernel(const T* __restrict__ value,
-                                    const float* __restrict__ loc,
-                                    const float* __restrict__ aw,
-                                    T* __restrict__ out,
-                                    long long n_warps, int S, int Q, int M, int D,
-                                    int P, Levels lv) {
-  const long long warp = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+__global__ void __launch_bounds__(kThreads)
+msda_sep_fwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+                    const float* __restrict__ aw, T* __restrict__ out, long long n_rows,
+                    int S, int Q, int M, int P, Levels lv) {
+  constexpr int kGroups = 16 / kLanes;  // lane groups a row (a half-warp)
+  constexpr int kRounds = kLanes;       // taps a group takes from a 16-tap chunk
+  constexpr int kBatch = 16 / kC;       // taps whose loads are issued together
+  static_assert(kRounds % kBatch == 0, "batches split the rounds");
   const int lane = threadIdx.x & 31;
-  if (warp >= n_warps) return;
-  // warp enumerates (b, q, m) in row-major order: the row of loc/aw viewed as
-  // [B*Q*M, L*P(*2)] and of out viewed as [B*Q*M, D].
-  const int m = static_cast<int>(warp % M);
-  const long long b = warp / M / Q;
-  const int lp = lv.n * P;
-  const float* locw = loc + warp * lp * 2;
-  const float* aww = aw + warp * lp;
-  const long long row_stride = static_cast<long long>(M) * D;  // one token of value
+  const long long warp = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  if (2 * warp >= n_rows) return;  // uniform across the warp
+  const long long row = 2 * warp + (lane >> 4);  // (b, q, m), row-major
+  const bool live = row < n_rows;
+  const long long r = live ? row : n_rows - 1;  // a spare half-warp's taps are zero
+  const int hl = lane & 15, grp = hl / kLanes, k = hl % kLanes;
+  const int m = static_cast<int>(r % M);
+  const long long b = r / M / Q;
+  const int lp_n = lv.n * P;
+  const long long tok = static_cast<long long>(M) * kD;  // elements a token
+  const T* vrow = value + b * S * tok + static_cast<long long>(m) * kD + k * kC;
 
-  for (int c = lane; c < D; c += 32) {
-    const T* vbase = value + b * S * row_stride + static_cast<long long>(m) * D + c;
-    float acc = 0.f;
-    for (int p = 0; p < P; ++p) {
-      float acc_p = 0.f;  // the TPU kernel sums levels per row, then rows over P
-      for (int l = 0; l < lv.n; ++l) {
-        const int h = lv.h[l];
-        const int w = lv.w[l];
-        const int i = l * P + p;
-        const float x = __fsub_rn(__fmul_rn(locw[2 * i], static_cast<float>(w)), 0.5f);
-        const float y = __fsub_rn(__fmul_rn(locw[2 * i + 1], static_cast<float>(h)), 0.5f);
-        // x <= -1 or x >= w (likewise y): every tap is outside the level or has
-        // a zero hat; skipping also keeps the int casts in range.
-        if (!(x > -1.f && x < w && y > -1.f && y < h)) continue;
-        const float a = aww[i];
-        const int x0 = static_cast<int>(floorf(x));
-        const int y0 = static_cast<int>(floorf(y));
-        const bool x0in = x0 >= 0, x1in = x0 + 1 < w;
-        const float hxw0 = x0in ? round_cdt<T>(__fmul_rn(hat(x, x0), a)) : 0.f;
-        const float hxw1 = x1in ? round_cdt<T>(__fmul_rn(hat(x, x0 + 1), a)) : 0.f;
-        const T* vl = vbase + lv.start[l] * row_stride;
-        for (int j = y0; j <= y0 + 1; ++j) {
-          if (j < 0 || j >= h) continue;
-          const T* row = vl + static_cast<long long>(j) * w * row_stride;
-          const float v0 = x0in ? to_f32(row[x0 * row_stride]) : 0.f;
-          const float v1 = x1in ? to_f32(row[(x0 + 1) * row_stride]) : 0.f;
-          const float r = __fadd_rn(__fmul_rn(hxw0, v0), __fmul_rn(hxw1, v1));
-          acc_p += round_cdt<T>(__fmul_rn(r, hat(y, j)));
-        }
+  float acc[kC];
+#pragma unroll
+  for (int j = 0; j < kC; ++j) acc[j] = 0.f;
+  for (int t0 = 0; t0 < lp_n; t0 += 16) {
+    // Lane l loads tap t0 + (l & 15) of its half-warp's row and computes its
+    // geometry (msda_common.cuh:sep_tap). A tap past the row's taps, or of a
+    // spare half-warp, keeps the token 0 and zero factors.
+    const int tl = t0 + hl;
+    SepTap tap;
+    if (live && tl < lp_n)
+      tap = sep_tap<T>(*reinterpret_cast<const float2*>(loc + (r * lp_n + tl) * 2),
+                       aw[r * lp_n + tl], tl / P, lv);
+#pragma unroll
+    for (int r0 = 0; r0 < kRounds; r0 += kBatch) {
+      Chans<T> v[kBatch][4];
+      float w0[kBatch], w1[kBatch], h0[kBatch], h1[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int ti = (r0 + i) * kGroups + grp;  // the group's tap in the chunk
+        const int src_lane = (lane & 16) | ti;
+        const int t = __shfl_sync(0xffffffffu, tap.tok, src_lane);
+        const int step = __shfl_sync(0xffffffffu, tap.step, src_lane);
+        w0[i] = __shfl_sync(0xffffffffu, tap.hxw[0], src_lane);
+        w1[i] = __shfl_sync(0xffffffffu, tap.hxw[1], src_lane);
+        h0[i] = __shfl_sync(0xffffffffu, tap.hy[0], src_lane);
+        h1[i] = __shfl_sync(0xffffffffu, tap.hy[1], src_lane);
+        const int sx = step & 1, sy = step >> 1;
+        const T* c00 = vrow + static_cast<long long>(t) * tok;
+        v[i][0].load(c00);
+        v[i][1].load(c00 + sx * tok);
+        v[i][2].load(c00 + static_cast<long long>(sy) * tok);
+        v[i][3].load(c00 + static_cast<long long>(sy + sx) * tok);
       }
-      acc += acc_p;
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+#pragma unroll
+        for (int j = 0; j < kC; ++j) {
+          // r_j of rows y0 and y0 + 1, then rh_j, in the TPU kernel's roundings
+          const float ry0 = __fadd_rn(__fmul_rn(w0[i], v[i][0].at(j)),
+                                      __fmul_rn(w1[i], v[i][1].at(j)));
+          const float ry1 = __fadd_rn(__fmul_rn(w0[i], v[i][2].at(j)),
+                                      __fmul_rn(w1[i], v[i][3].at(j)));
+          acc[j] += round_cdt<T>(__fmul_rn(ry0, h0[i]));
+          acc[j] += round_cdt<T>(__fmul_rn(ry1, h1[i]));
+        }
     }
-    store(out + warp * D + c, acc);
   }
+  // the row's lane groups in a fixed order: xor 4, then xor 8
+#pragma unroll
+  for (int s = kLanes; s < 16; s <<= 1)
+#pragma unroll
+    for (int j = 0; j < kC; ++j) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], s);
+  if (live && grp == 0) store_out(out + row * kD + k * kC, acc);
 }
 
 template <typename T>
-int launch(const void* value, const void* loc, const void* aw, void* out, int B,
-           int S, int Q, int M, int D, int L, int P, const int* shapes,
-           cudaStream_t stream) {
-  if (L < 1 || L > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
+int launch(const void* value, const void* loc, const void* aw, void* out, int B, int S, int Q,
+           int M, int D, int L, int P, const int* shapes, cudaStream_t stream) {
   Levels lv;
-  lv.n = L;
-  long long start = 0;
-  for (int l = 0; l < L; ++l) {
-    lv.h[l] = shapes[2 * l];
-    lv.w[l] = shapes[2 * l + 1];
-    lv.start[l] = start;
-    start += static_cast<long long>(lv.h[l]) * lv.w[l];
-  }
-  if (start != S) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n_warps = static_cast<long long>(B) * Q * M;
-  if (n_warps == 0) return static_cast<int>(cudaSuccess);
-  constexpr int kThreads = 256;
-  const long long blocks = (n_warps * 32 + kThreads - 1) / kThreads;
+  if (D != kD || !make_levels(lv, L, shapes, S)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_rows = static_cast<long long>(B) * Q * M;
+  if (n_rows == 0) return static_cast<int>(cudaSuccess);
+  const long long blocks = (n_rows + 2 * (kThreads / 32) - 1) / (2 * (kThreads / 32));
   msda_sep_fwd_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const T*>(value), static_cast<const float*>(loc),
-      static_cast<const float*>(aw), static_cast<T*>(out), n_warps, S, Q, M, D, P,
-      lv);
+      static_cast<const float*>(aw), static_cast<T*>(out), n_rows, S, Q, M, P, lv);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// shapes: host array of L (h, w) pairs. Returns cudaGetLastError() after the launch.
+// shapes: host array of L (h, w) pairs; D must be 32.
+// Returns cudaGetLastError() after the launch.
 extern "C" int msda_sep_fwd(const void* value, const void* loc, const void* aw,
                             void* out, int B, int S, int Q, int M, int D, int L, int P,
                             const int* shapes, int value_is_bf16, void* stream) {

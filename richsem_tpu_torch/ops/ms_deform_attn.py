@@ -155,13 +155,13 @@ def _lib(name: str, fn_name: str, n_ptr: int) -> ctypes.CDLL:
     return lib
 
 
-K1_HEAD_DIM = 32  # K1's lanes hold eight channels each and K1-bwd's four: 32 a head
+K1_HEAD_DIM = 32  # the forward kernels' lanes hold eight channels each, the backward's four
 
 
-def _check_head_dim(value):
+def _check_head_dim(value, kernels: str = "K1 and K1-bwd"):
     if value.shape[-1] != K1_HEAD_DIM:
         raise ValueError(
-            f"K1 and K1-bwd take a head dim of {K1_HEAD_DIM}, got {value.shape[-1]}")
+            f"{kernels} take a head dim of {K1_HEAD_DIM}, got {value.shape[-1]}")
 
 
 def _check_cuda(value, loc, aw, kernel: str = "K1"):

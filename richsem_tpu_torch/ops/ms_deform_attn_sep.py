@@ -28,8 +28,9 @@ and the backward of ``_bwd_kernel`` (:109-170), with ``g`` first rounded to
 * :func:`ms_deform_attn_sep` -- the public op. On a CUDA tensor it is a
   ``torch.autograd.Function`` around the hand-written kernels K3
   (``csrc/ms_deform_attn_sep_fwd.cu``) and K3-bwd
-  (``csrc/ms_deform_attn_sep_bwd.cu``), saving only ``(value, loc, aw)``; on a
-  CPU tensor it runs :func:`ms_deform_attn_sep_plain`. Nothing else: a CUDA
+  (``csrc/ms_deform_attn_sep_bwd.cu``), saving only ``(value, loc, aw)``; they
+  take a head dim of 32 only, as K1 and K1-bwd do. On a CPU tensor it runs
+  :func:`ms_deform_attn_sep_plain`, at any head dim. Nothing else: a CUDA
   call that cannot launch raises.
 * :func:`ms_deform_attn_sep_plain` -- the plain PyTorch version: the dense
   separable products above, chunked over rows as the TPU grid chunks them
@@ -49,7 +50,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from richsem_tpu_torch.ops.ms_deform_attn import _check, _check_cuda, _lib, _shape_args
+from richsem_tpu_torch.ops.ms_deform_attn import (_check, _check_cuda, _check_head_dim, _lib,
+                                                  _shape_args)
 
 _CK_TARGET = 512  # rows per chunk of the dense plain version, as the TPU grid
 
@@ -263,6 +265,7 @@ def ms_deform_attn_sep(
         raise RuntimeError(f"ms_deform_attn_sep: no kernel for device {value.device}")
     _check(value, spatial_shapes, sampling_locations, attention_weights)
     _check_cuda(value, sampling_locations, attention_weights, "K3")
+    _check_head_dim(value, "K3 and K3-bwd")
     return _SepFn.apply(
         value.contiguous(), sampling_locations.contiguous(),
         attention_weights.contiguous(), spatial_shapes,
@@ -277,6 +280,7 @@ def ms_deform_attn_sep_backward(value, spatial_shapes, sampling_locations,
         raise RuntimeError(f"ms_deform_attn_sep_backward: no kernel for device {value.device}")
     _check(value, spatial_shapes, sampling_locations, attention_weights)
     _check_cuda(value, sampling_locations, attention_weights, "K3")
+    _check_head_dim(value, "K3 and K3-bwd")
     return _sep_bwd_cuda(
         value.contiguous(), spatial_shapes, sampling_locations.contiguous(),
         attention_weights.contiguous(), grad_out,

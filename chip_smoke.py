@@ -7,8 +7,10 @@ Phases, each printed as it completes:
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the build of every hand-written kernel from
    ``richsem_tpu_torch/csrc`` (nine sources, one nvcc per source, all at once,
-   sm_90a) with its register report; K1, K1-bwd, K2, K2-bwd, K3 and K3-bwd
-   must spill nothing.
+   sm_90a) with its register report (and any ptxas note that it serialised
+   ``wgmma`` products); K1, K1-bwd, K2, K2-bwd, K3 and K3-bwd must spill
+   nothing, and so must ``mxu_kernel`` and ``fma_kernel``, checked by name
+   since their sources hold other kernels.
 2. K1 (deformable attention) against its plain PyTorch version at the
    production encoder shapes (clamped offsets) and decoder shapes (1,100 box
    queries, unclamped), in bf16 and f32: max abs error and both times; one
@@ -61,10 +63,18 @@ Phases, each printed as it completes:
     Pallas probes in ``tools/``): each module's ``main()`` at the JAX defaults
     with every probe kernel's launches counted and checked, then each probe
     kernel against its plain version (exact, or the stated tolerance) with
-    its CUDA-event time, the plain version's, the one PyTorch call that
-    computes the same function where there is one (``x * 2``, ``x.repeat``,
-    ``x + x`` and ``x * 3`` for chain-1 and chain-2, a broadcast product for
-    fma-1, ``torch.einsum`` for fma-P), the bound and the share.
+    its device time (the mean of five profiled calls) and CUDA-event time,
+    the plain version's time, the device and event times of the one PyTorch
+    call that computes the same function where there is one (``x * 2``,
+    ``x.repeat``, ``x + x`` and ``x * 3`` for chain-1 and chain-2, a
+    broadcast product for fma-1, ``torch.einsum`` for fma-P), the bound and
+    the share by device time. ``run_mxu`` also gets ``gemm_ms``, the device
+    time of one bf16 ``torch.matmul`` of the same tensor-core work on
+    operands concatenated outside the call (a yardstick, another function),
+    a check that two calls agree bit for bit, and an exact case that isolates
+    the packed add (``b = I``, 96 rows, s = 32). Last, the probe kernels in
+    the round's order by device time: those slower than their PyTorch call
+    by factor, then the rest by launches x (device ms - bound).
 13. The trainer through its entry point (``richsem_tpu_torch/train/main.py``):
     a synthetic LVIS-v1 directory (1203 categories, 16 train and 4 val PNGs of
     480-640 x 640-960 px, written with zlib), ``train_loop`` on
@@ -78,15 +88,20 @@ Phases, each printed as it completes:
 
 ``python3 chip_smoke.py kernels`` stops after the kernel phases (1-5, 8, 9, 12).
 
-``python3 chip_smoke.py ab [DIR]`` only times the model's kernels of the port
-in DIR (default: this checkout), for A/B runs of two trees: it imports
+``python3 chip_smoke.py ab [DIR]`` only times kernels of the port in DIR
+(default: this checkout), for A/B runs of two trees: it imports
 ``richsem_tpu_torch`` from DIR, builds its kernels from DIR's sources, draws the
 inputs of phases 2-5, 8 and 9 and prints one JSON line with, for K1 (encoder
 and decoder, bf16), K3 and K3-bwd (the decoder, bf16), K1-bwd (encoder), K2
 and K2-bwd (N = 49,980), the CUDA-event time of a call and the kernels'
 device time from ``profile_once`` (mean over 5 calls); for K3-bwd also the
 device time of the wrapper's zeroed f32 d_value and of its cast to bf16; and
-a SHA-256 prefix of the outputs of K1 (both cases), K3, K2 and K2-bwd.
+a SHA-256 prefix of the outputs of K1 (both cases), K3, K2 and K2-bwd. It
+then does the same for the probe kernels redesigned for Hopper,
+``mxu_kernel`` at run_mxu's four shapes, ``fma_kernel`` at fma-1, 2, 4,
+4-2acc and 4-chunk (event and device time, the bound, an output hash) and
+``tile_kernel`` at check_repeat_semantics' [8, 8] (beside the device time of
+``x.repeat``).
 Compare two trees in one call on the card, in turns, each in a process of
 its own:
 
@@ -96,8 +111,9 @@ The kernels' JSON record lists nine sources: the six kernels of the model,
 each with ``launches`` from the flagship train step (phase 10, K3 and K3-bwd
 from phase 11) and ``trainer_launches`` from phase 13, and the three probe
 sources, each with the numbers of one headline call at the top, every call
-under ``calls``, and ``launches`` summed over its kernels in the probes'
-``main()`` runs.
+under ``calls`` (each with ``device_ms`` beside the CUDA-event ``ms``, and
+``library_device_ms``), and ``launches`` summed over its kernels in the
+probes' ``main()`` runs.
 
 TF32 is off for every matmul and convolution here. The second-to-last line is
 the kernels' JSON record, the last ``{"ok": true, "device": {...}}``. Any
@@ -133,6 +149,8 @@ COS_MIN = 0.9  # least gradient cosine, kernels vs plain versions (phases 7, 10,
 NO_SPILL = ("ms_deform_attn_fwd", "ms_deform_attn_bwd", "fused_encoder_tail_fwd",
             "fused_encoder_tail_bwd", "ms_deform_attn_sep_fwd",
             "ms_deform_attn_sep_bwd")  # ptxas must report 0 spill bytes
+# kernels that must spill nothing in sources that hold other kernels too
+NO_SPILL_KERNELS = {"probe_cal": "mxu_kernel", "probe_vpu_model": "fma_kernel"}
 VALID = (800, 1224)  # bench.py's valid extent inside CANVAS
 
 
@@ -222,14 +240,21 @@ def phase_build():
     for name in KERNELS:
         _build.load(name)
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            # and any ptxas note that it serialised wgmma products
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 print(f"  {name}: {line.strip()}")
     for name in NO_SPILL:
         spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", _build.build_log(name))
         if not spills or any(int(b) for b in spills):
             fail(f"{name}: ptxas reports spills (or no report): {spills}")
-    print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s; {', '.join(NO_SPILL)} "
-          "spill nothing", flush=True)
+    for name, kernel in NO_SPILL_KERNELS.items():
+        props = re.findall(r"Function properties for (\S+)\n\s*\d+ bytes stack frame, (\d+) bytes "
+                           r"spill stores, (\d+) bytes spill loads", _build.build_log(name))
+        mine = [(f, int(st) + int(ld)) for f, st, ld in props if kernel in f]
+        if not mine or any(b for _, b in mine):
+            fail(f"{name}.cu {kernel}: ptxas reports spills (or no report): {mine}")
+    print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s; {', '.join(NO_SPILL)}, "
+          f"{', '.join(NO_SPILL_KERNELS.values())} spill nothing", flush=True)
     return smi
 
 
@@ -804,6 +829,8 @@ def launch_counters():
     from richsem_tpu_torch.ops import fused_ffn as k2
     from richsem_tpu_torch.ops import ms_deform_attn as k1
     from richsem_tpu_torch.ops import ms_deform_attn_sep as k3
+    from richsem_tpu_torch.tools import bench_cal, bench_cell
+    from richsem_tpu_torch.tools import bench_vpu_model as vm
 
     return (k1.ms_deform_attn, k1.ms_deform_attn_backward, k2.encoder_tail,
             k2.encoder_tail_backward, k3.ms_deform_attn_sep, k3.ms_deform_attn_sep_backward)
@@ -816,6 +843,8 @@ def plain_versions():
     from richsem_tpu_torch.ops import fused_ffn as k2
     from richsem_tpu_torch.ops import ms_deform_attn as k1
     from richsem_tpu_torch.ops import ms_deform_attn_sep as k3
+    from richsem_tpu_torch.tools import bench_cal, bench_cell
+    from richsem_tpu_torch.tools import bench_vpu_model as vm
 
     layers.ms_deform_attn, layers.ms_deform_attn_sep = (k1.ms_deform_attn_plain,
                                                         k3.ms_deform_attn_sep_plain)
@@ -1019,13 +1048,37 @@ def bound3(nbytes_: float, f32_ops: float = 0.0, bf16_ops: float = 0.0, bf16_mma
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def probe_case(call, replaces, launches, kern, plain, check, cost, library=None,
+MXU_SHAPES = ((768, 128), (768, 32), (96, 32), (96, 128))  # run_mxu's (k, d) in main()
+# fma-P as main() runs it: (label, P, two_acc); fma-4-chunk is fma_chunk
+FMA_CASES = (("fma-1", 1, False), ("fma-2", 2, False), ("fma-4", 4, False),
+             ("fma-4-2acc", 4, True), ("fma-4-chunk", 4, False))
+
+
+def mxu_cost(a, b, reps):
+    """bound3's arguments for ``bench_cal.mxu(a, b, reps)``: a and b read once,
+    the f32 output written once, the adds on the CUDA cores, the products on
+    the tensor cores."""
+    (k, s), d = a.shape, b.shape[1]
+    return {"nbytes_": nbytes(a, b) + 4 * k * d, "bf16_ops": k * s * reps,
+            "bf16_mma": 2 * k * s * d * reps}
+
+
+def fma_cost(hy, hx, p):
+    """bound3's arguments for fma-P: the P of 4 points of hy and hx that it
+    reads, the f32 output written once, 2P - 1 operations an output."""
+    elems = hy.shape[0] * hy.shape[1] * hy.shape[2] * hx.shape[2] * (hy.shape[3] // 4)
+    return {"nbytes_": nbytes(hy, hx) * p // 4 + 4 * elems, "f32_ops": (2 * p - 1) * elems}
+
+
+def probe_case(call, replaces, launches, kern, plain, check, cost, kernels, library=None,
                iters=20, plain_iters=3):
     """One probe call: the kernel against its plain version (``check`` is
     ``"exact"`` or a relative tolerance of the largest |plain|), CUDA-event times
     of both and of ``library`` (one PyTorch call computing the same function),
-    and the bound from ``cost``, :func:`bound3`'s arguments for these inputs
-    (bytes, f32 and bf16 elementwise operations, bf16 tensor-core
+    the device time of the kernel (its ``__global__`` functions ``kernels``) and
+    of every device operation of ``library``, each the mean of five profiled
+    calls, and the bound from ``cost``, :func:`bound3`'s arguments for these
+    inputs (bytes, f32 and bf16 elementwise operations, bf16 tensor-core
     operations). -> the call's record."""
     import torch
 
@@ -1037,13 +1090,37 @@ def probe_case(call, replaces, launches, kern, plain, check, cost, library=None,
     ms = cuda_ms(kern, iters=iters)
     plain_ms = cuda_ms(plain, iters=plain_iters, warmup=1)
     library_ms = cuda_ms(library, iters=iters) if library is not None else None
+    dev = measured_sum(device_ms(kern, kernels))
+    lib_dev = device_ms(library, [], also=ALL_OPS)["all"] if library is not None else None
     bms, by = bound3(**cost)
-    lib = f", library {library_ms:.4f} ms" if library_ms is not None else ""
-    print(f"  {call}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound {bms:.4f} ms "
-          f"({by}), share {bms / ms:.3f}; launches on the main path {launches}", flush=True)
+    lib = (f"; library {library_ms:.4f} ms by events, {_ms(lib_dev)} device"
+           if library is not None else "")
+    share = f"{bms / dev:.3f}" if dev else "not measured"
+    print(f"  {call}: kernel {_ms(dev)} ms device, {ms:.4f} by events; plain {plain_ms:.4f}{lib}; "
+          f"bound {bms:.4f} ms ({by}), share {share} by device time; launches on the main path "
+          f"{launches}", flush=True)
     return {"call": call, "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms}
+            "ms": ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms, "library_device_ms": lib_dev}
+
+
+def _ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def probe_ranking(calls) -> None:
+    """The round's order over the probe calls, by device time: first those
+    slower than their one PyTorch call, the largest factor first; then the
+    rest by launches x (device ms - bound ms)."""
+    slower = sorted((c for c in calls if c["device_ms"] and c["library_device_ms"]
+                     and c["device_ms"] > c["library_device_ms"]),
+                    key=lambda c: -c["device_ms"] / c["library_device_ms"])
+    rest = sorted((c for c in calls if c["device_ms"] and c not in slower),
+                  key=lambda c: -c["launches"] * (c["device_ms"] - c["bound_ms"]))
+    print("  ranking (device time): " + "; ".join(
+        [f"{c['call']} {c['device_ms'] / c['library_device_ms']:.3f}x its call" for c in slower]
+        + [f"{c['call']} {c['launches'] * (c['device_ms'] - c['bound_ms']):.2f} ms lost"
+           for c in rest]), flush=True)
 
 
 def probe_record(name, calls, headline):
@@ -1053,7 +1130,8 @@ def probe_record(name, calls, headline):
     return {"name": name, "route": "cuda", "source": f"richsem_tpu_torch/csrc/{name}.cu",
             "replaces": top["replaces"], "launches": sum(c["launches"] for c in calls),
             "max_abs_err": max(c["max_abs_err"] for c in calls),
-            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{k: top[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
             "headline": headline, "calls": calls}
 
 
@@ -1100,23 +1178,46 @@ def phase_probes():
             f"run_vpu({str(dt)[6:]}, reps=512)", "tools/bench_pallas_cal.py:55",
             n["vpu"] // 2, lambda: bench_cal.vpu(x, y, 512), lambda: bench_cal.vpu_plain(x, y, 512),
             "exact", {"nbytes_": 3 * nbytes(x),
-                      ("f32_ops" if dt == torch.float32 else "bf16_ops"): 6 * x.numel() * 512}))
-    for k, d in ((768, 128), (768, 32), (96, 32), (96, 128)):
+                      ("f32_ops" if dt == torch.float32 else "bf16_ops"): 6 * x.numel() * 512},
+            ["vpu_f32_kernel" if dt == torch.float32 else "vpu_bf16_kernel"]))
+    steps = torch.arange(512, device=DEVICE).to(torch.bfloat16)  # bf16(i), as _step
+    for k, d in MXU_SHAPES:
         a = torch.randn((k, s), generator=g, device=DEVICE).to(torch.bfloat16)
         b = torch.randn((s, d), generator=g, device=DEVICE).to(torch.bfloat16)
         # f32 sums of exact bf16 products, in another order
         cal.append(probe_case(
             f"run_mxu({k}, {s}, {d}, bfloat16, reps=512)", "tools/bench_pallas_cal.py:80",
             n["mxu"] // 4, lambda: bench_cal.mxu(a, b, 512), lambda: bench_cal.mxu_plain(a, b, 512),
-            1e-5, {"nbytes_": nbytes(a, b) + 4 * k * d, "bf16_ops": k * s * 512,
-                   "bf16_mma": 2 * k * s * d * 512}))
+            1e-5, mxu_cost(a, b, 512), MXU_KERNELS))
+        if not torch.equal(bench_cal.mxu(a, b, 512), bench_cal.mxu(a, b, 512)):
+            fail(f"run_mxu({k}, {s}, {d}): two calls differ (the partials' sum must be in a "
+                 "fixed order)")
+        # gemm_ms, a yardstick of the same tensor-core work (another function, so
+        # not the library column): one bf16 matmul [k, 512 s] x [512 s, d] of the
+        # operands concatenated outside the timed call
+        a_cat = (a[:, None, :] + steps[None, :, None]).reshape(k, 512 * s)
+        b_cat = b.repeat(512, 1)
+        cal[-1]["gemm_ms"] = device_ms(lambda: a_cat @ b_cat, [], also=ALL_OPS)["all"]
+        print(f"  gemm_ms (one torch.matmul [{k}, {512 * s}] x [{512 * s}, {d}], device): "
+              f"{_ms(cal[-1]['gemm_ms'])}", flush=True)
+        del a_cat, b_cat
+    # the packed add alone, exact: b = I, so out = sum_i bf16(a + bf16(i)); a a
+    # multiple of 2^-5 in [-8, 8], so a + i rounds (ties among them) above 8
+    # and the f32 sums of four such values are exact; 96 rows (a masked half
+    # tile) and s = 32 (a chunk half past s)
+    a = (torch.randint(0, 513, (96, 32), generator=g, device=DEVICE) / 32 - 8).to(torch.bfloat16)
+    eye = torch.eye(32, device=DEVICE, dtype=torch.bfloat16)
+    cal.append(probe_case(
+        "mxu(96, 32, 32, reps=4) with b = I: the packed add", "tools/bench_pallas_cal.py:80", 0,
+        lambda: bench_cal.mxu(a, eye, 4), lambda: bench_cal.mxu_plain(a, eye, 4), "exact",
+        mxu_cost(a, eye, 4), MXU_KERNELS))
     for cells in (4096, 16384):
         x = rand(cells, 8, 128, lo=-1, hi=1)
         cal.append(probe_case(
             f"run_grid_overhead({cells})", "tools/bench_pallas_cal.py:96", n["grid_overhead"] // 2,
             lambda: bench_cal.grid_overhead(x), lambda: bench_cal.grid_overhead_plain(x), "exact",
-            {"nbytes_": 2 * nbytes(x), "f32_ops": x.numel()}, library=lambda: x * 2, iters=50,
-            plain_iters=20))
+            {"nbytes_": 2 * nbytes(x), "f32_ops": x.numel()}, ["grid_kernel"],
+            library=lambda: x * 2, iters=50, plain_iters=20))
         print(f"  kernel time a block at {cells} blocks: {cal[-1]['ms'] / cells * 1e6:.2f} ns "
               f"(kernel ms / blocks; the kernel streams 8 KB a block, so this is memory "
               f"time, not the cost of scheduling a block)")
@@ -1126,7 +1227,8 @@ def phase_probes():
             f"run_repeat({str(dt)[6:]})", "tools/bench_pallas_cal.py:117", n["repeat"] // 2,
             lambda: bench_cal.repeat(x, 52, 256), lambda: bench_cal.repeat_plain(x, 52, 256),
             "exact", {"nbytes_": nbytes(x) * 53,
-                      ("f32_ops" if dt == torch.float32 else "bf16_ops"): 256 * x.numel() * 53}))
+                      ("f32_ops" if dt == torch.float32 else "bf16_ops"): 256 * x.numel() * 53},
+            ["repeat_f32_kernel" if dt == torch.float32 else "repeat_bf16_kernel"]))
 
     (yr, xr, aw), wins = bench_cell.cell_inputs(DEVICE)
     mk, win, p = yr.shape[0], sum(w.shape[2] * w.shape[3] for w in wins), bench_cell.P
@@ -1144,13 +1246,13 @@ def phase_probes():
         cells.append(probe_case(
             f"run_cell({mode!r}, reps=64)", "tools/bench_cell.py:102", n["cell"] // 2,
             lambda: bench_cell.cell(yr, xr, aw, wins, 64),
-            lambda: bench_cell.cell_plain(yr, xr, aw, wins, 64), 4e-3, cell_cost, iters=10,
-            plain_iters=1))
+            lambda: bench_cell.cell_plain(yr, xr, aw, wins, 64), 4e-3, cell_cost,
+            ["cell_kernel"], iters=10, plain_iters=1))
     x = torch.arange(8, dtype=torch.float32, device=DEVICE)[None].repeat(8, 1)
     cells.append(probe_case(
         "check_repeat_semantics()", "tools/bench_cell.py:121", n["tile"],
         lambda: bench_cell.tile(x, 2), lambda: bench_cell.tile_plain(x, 2), "exact",
-        {"nbytes_": nbytes(x) * 3}, library=lambda: x.repeat(1, 2)))
+        {"nbytes_": nbytes(x) * 3}, ["tile_kernel"], library=lambda: x.repeat(1, 2)))
     del yr, xr, aw, wins
 
     vm = []
@@ -1164,9 +1266,8 @@ def phase_probes():
         vm.append(probe_case(
             f"chain-{n_ops}", "tools/bench_vpu_model.py:53", n["chain"] // 4,
             lambda: bench_vpu_model.chain(x, n_ops), lambda: bench_vpu_model.chain_plain(x, n_ops),
-            "exact", {"nbytes_": 2 * nbytes(x), "f32_ops": n_ops * x.numel()},
+            "exact", {"nbytes_": 2 * nbytes(x), "f32_ops": n_ops * x.numel()}, ["chain_kernel"],
             library=libs.get(n_ops), iters=10, plain_iters=3))
-    elems = x.numel()
     del x, libs
     hy = torch.randn(big[:3] + (4 * kk,), generator=g, device=DEVICE)
     hx = torch.randn(big[:2] + (big[3], 4 * kk), generator=g, device=DEVICE)
@@ -1179,22 +1280,20 @@ def phase_probes():
             return lambda: hy[:, :, :, None, :kk] * hx[:, :, None, :, :kk]
         return lambda: torch.einsum("tmypk,tmxpk->tmyxk", hy_p[:, :, :, :p], hx_p[:, :, :, :p])
 
-    for label, p, two in (("fma-1", 1, False), ("fma-2", 2, False), ("fma-4", 4, False),
-                          ("fma-4-2acc", 4, True)):
+    for label, p, two in FMA_CASES[:-1]:
         vm.append(probe_case(
             label, "tools/bench_vpu_model.py:61", n["fma"] // 4,
             lambda: bench_vpu_model.fma(hy, hx, p, two),
-            lambda: bench_vpu_model.fma_plain(hy, hx, p, two), "exact",
-            {"nbytes_": nbytes(hy, hx) * p // 4 + 4 * elems, "f32_ops": (2 * p - 1) * elems},
-            library=library_fma(p), iters=10, plain_iters=3))
+            lambda: bench_vpu_model.fma_plain(hy, hx, p, two), "exact", fma_cost(hy, hx, p),
+            ["fma_kernel"], library=library_fma(p), iters=10, plain_iters=3))
     vm.append(probe_case(
         "fma-4-chunk", "tools/bench_vpu_model.py:75", n["fma_chunk"],
         lambda: bench_vpu_model.fma_chunk(hy, hx, 4),
-        lambda: bench_vpu_model.fma_chunk_plain(hy, hx, 4), "exact",
-        {"nbytes_": nbytes(hy, hx) + 4 * elems, "f32_ops": 7 * elems}, library=library_fma(4),
-        iters=10, plain_iters=3))
+        lambda: bench_vpu_model.fma_chunk_plain(hy, hx, 4), "exact", fma_cost(hy, hx, 4),
+        ["fma_kernel"], library=library_fma(4), iters=10, plain_iters=3))
     del hy, hx, hy_p, hx_p
     torch.cuda.empty_cache()
+    probe_ranking(cal + cells + vm)
     print(f"phase 12: the probes match their plain versions ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     return [probe_record("probe_cal", cal, "run_grid_overhead(16384)"),
@@ -1330,10 +1429,14 @@ def phase_trainer(recs):
           "train/main.py", flush=True)
 
 
-# the __global__ functions of richsem_tpu_torch/csrc (K2-bwd is three of them)
+# the __global__ functions of richsem_tpu_torch/csrc (K2-bwd is three of them;
+# the probes' after the model's)
 HAND_WRITTEN = ("msda_fwd_kernel", "msda_bwd_kernel", "encoder_tail_fwd_kernel",
                 "row_pass_kernel", "dw_gemm_kernel", "colsum_kernel", "msda_sep_fwd_kernel",
-                "msda_sep_bwd_kernel")
+                "msda_sep_bwd_kernel", "vpu_f32_kernel", "vpu_bf16_kernel", "mxu_kernel",
+                "mxu_reduce_kernel", "grid_kernel", "repeat_f32_kernel", "repeat_bf16_kernel",
+                "cell_kernel", "tile_kernel", "chain_kernel", "fma_kernel")
+MXU_KERNELS = ("mxu_kernel", "mxu_reduce_kernel")
 
 
 # the device operations of a backward wrapper around its kernel: the zeroed f32
@@ -1341,21 +1444,27 @@ HAND_WRITTEN = ("msda_fwd_kernel", "msda_bwd_kernel", "encoder_tail_fwd_kernel",
 SCRATCH_OPS = {"zero": "FillFunctor", "cast": "copy_kernel"}
 
 
-def profile_once(fn, top: int = 12, also: dict = None) -> dict:
+def profile_once(fn, top: int = 12, also: dict = None, counts: dict = None) -> dict:
     """Device time by kernel over one call of ``fn`` (torch.profiler / CUPTI):
     the busiest ``top`` kernels, then every hand-written one. -> device ms of
     each hand-written kernel that ran, and of the operations whose names hold
-    each substring in ``also`` under its key ({} when nothing was recorded)."""
+    each substring in ``also`` under its key ({} when nothing was recorded);
+    ``counts``, if given, gets how many operations each of those sums. The
+    window opens with a short ``torch.cuda._sleep`` (``spin_kernel``), left
+    out of every sum: a profile can miss the first device operation after it
+    starts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     rows = [e for e in prof.key_averages() if getattr(e, "device_type", None) is not None
-            and str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+            and str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
+            and "spin_kernel" not in e.key]
     total_us = sum(e.self_device_time_total for e in rows)
     if not rows:
         print("  profile: no device time recorded (not measured)")
@@ -1369,13 +1478,17 @@ def profile_once(fn, top: int = 12, also: dict = None) -> dict:
     if mine:
         print("    hand-written: " + "; ".join(
             f"{k} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for k, e in mine))
-    out = {}
+    out, n = {}, {}
     for k, e in mine:
         out[k] = out.get(k, 0.0) + e.self_device_time_total / 1e3
+        n[k] = n.get(k, 0) + e.count
     for k, sub in (also or {}).items():
-        hits = [e.self_device_time_total for e in rows if sub in e.key]
+        hits = [e for e in rows if sub in e.key]
         if hits:
-            out[k] = sum(hits) / 1e3
+            out[k] = sum(e.self_device_time_total for e in hits) / 1e3
+            n[k] = sum(e.count for e in hits)
+    if counts is not None:
+        counts.update(n)
     if also:
         print("    " + "; ".join(f"{k} ({sub}) " + (f"{out[k]:.4f} ms" if k in out else "not seen")
                                 for k, sub in also.items()))
@@ -1386,16 +1499,31 @@ def device_ms(fn, kernels, iters: int = 5, also: dict = None) -> dict:
     """Device ms a call of ``fn``, the mean over ``iters`` profiled calls, of
     each hand-written kernel in ``kernels`` and each key of ``also`` (see
     ``profile_once``); None for one that the profile did not record (not
-    measured). A single profiled call reads high: the first one warms the
-    profiler."""
-    dev = profile_once(lambda: [fn() for _ in range(iters)], top=len(kernels) + len(also or {}),
-                       also=also)
+    measured). A profile that recorded nothing, or a count of operations that
+    is not a multiple of ``iters`` (a call's lost), is taken again."""
+    for attempt in range(3):  # a profile now and then misses operations
+        counts = {}
+        dev = profile_once(lambda: [fn() for _ in range(iters)],
+                           top=len(kernels) + len(also or {}), also=also, counts=counts)
+        if dev and all(c % iters == 0 for c in counts.values()):
+            break
+        print(f"  profile: operations of some call not recorded (attempt {attempt + 1} of 3)")
     return {k: dev[k] / iters if k in dev else None for k in [*kernels, *(also or {})]}
 
 
 def total_ms(dev: dict):
     """The sum of ``device_ms``'s times, None unless all were measured."""
     return None if None in dev.values() else sum(dev.values())
+
+
+def measured_sum(dev: dict):
+    """The sum of ``device_ms``'s times that were measured, None if none was
+    (a tree whose kernel has fewer ``__global__`` functions adds what it has)."""
+    got = [v for v in dev.values() if v is not None]
+    return sum(got) if got else None
+
+
+ALL_OPS = {"all": ""}  # device_ms's ``also``: every device operation of the call
 
 
 def phase_ab(root: str) -> None:
@@ -1407,6 +1535,8 @@ def phase_ab(root: str) -> None:
     from richsem_tpu_torch.ops import fused_ffn as k2
     from richsem_tpu_torch.ops import ms_deform_attn as k1
     from richsem_tpu_torch.ops import ms_deform_attn_sep as k3
+    from richsem_tpu_torch.tools import bench_cal, bench_cell
+    from richsem_tpu_torch.tools import bench_vpu_model as vm
 
     pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(k1.__file__))))
     if pkg_root != root:
@@ -1464,6 +1594,37 @@ def phase_ab(root: str) -> None:
     rec["k2_bwd_device_ms"] = total_ms(device_ms(fn, ["row_pass_kernel", "dw_gemm_kernel",
                                                       "colsum_kernel"]))
     rec["k2_bwd_sha"] = digest(fn())
+    del args, dy
+    # the probe kernels redesigned in PR 8 at their main() shapes: mxu, fma, tile
+    g = torch.Generator(device=DEVICE).manual_seed(12)
+    s = bench_cal.S
+    for k, d in MXU_SHAPES:
+        a = torch.randn((k, s), generator=g, device=DEVICE).to(torch.bfloat16)
+        b = torch.randn((s, d), generator=g, device=DEVICE).to(torch.bfloat16)
+        fn = lambda: bench_cal.mxu(a, b, 512)  # noqa: E731
+        key = f"mxu_{k}_{d}"
+        rec[f"{key}_ms"] = cuda_ms(fn)
+        rec[f"{key}_device_ms"] = measured_sum(device_ms(fn, MXU_KERNELS))
+        rec[f"{key}_bound_ms"] = bound3(**mxu_cost(a, b, 512))[0]
+        rec[f"{key}_sha"] = digest([fn()])
+    del a, b
+    big = (vm.T, vm.M, vm.WY, vm.WXP, vm.K)
+    hy = torch.randn(big[:3] + (4 * vm.K,), generator=g, device=DEVICE)
+    hx = torch.randn(big[:2] + (vm.WXP, 4 * vm.K), generator=g, device=DEVICE)
+    for label, p, two in FMA_CASES:
+        fn = ((lambda: vm.fma_chunk(hy, hx, 4)) if label == "fma-4-chunk"
+              else (lambda: vm.fma(hy, hx, p, two)))
+        rec[f"{label}_ms"] = cuda_ms(fn, iters=10)
+        rec[f"{label}_device_ms"] = measured_sum(device_ms(fn, ["fma_kernel"]))
+        rec[f"{label}_bound_ms"] = bound3(**fma_cost(hy, hx, p))[0]
+        rec[f"{label}_sha"] = digest([fn()])
+    del hy, hx
+    x = torch.arange(8, dtype=torch.float32, device=DEVICE)[None].repeat(8, 1)
+    fn = lambda: bench_cell.tile(x, 2)  # noqa: E731
+    rec["tile_ms"] = cuda_ms(fn)
+    rec["tile_device_ms"] = measured_sum(device_ms(fn, ["tile_kernel"]))
+    rec["tile_library_device_ms"] = device_ms(lambda: x.repeat(1, 2), [], also=ALL_OPS)["all"]
+    rec["tile_sha"] = digest([fn()])
     print(json.dumps(rec), flush=True)
 
 

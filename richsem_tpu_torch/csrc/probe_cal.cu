@@ -1,4 +1,4 @@
-// Calibration probes of the card: CUDA-core rate, a tensor-core loop at the
+// Calibration probes of the card: CUDA-core rate, the tensor-core rate at the
 // decoder's narrow shapes, a one-block-per-cell grid, and a tiled accumulate.
 //
 // Replaces the four Pallas probes of tools/bench_pallas_cal.py (each computes
@@ -13,16 +13,18 @@
 //                  element-rep on the CUDA cores.
 //   probe_mxu   <- run_mxu :67
 //                  acc_f32 = 0; for i < reps: acc += bf16(a + bf16(i)) @ b
-//                  a [k, s], b [s, d] bf16, f32 out [k, d]. A block of four
-//                  warps owns a 32 x 32 output tile and stages its rows of a
-//                  and columns of b in shared memory once; per rep each warp
-//                  walks s, adds bf16(i) to the a fragments as it loads them,
-//                  and multiplies with WMMA (mma.sync, bf16 in, f32
-//                  accumulate) into a fresh fragment, which it then adds to the
-//                  carry, as fori_loop adds each rep's dot. Bound: the bf16
-//                  tensor-core rate; at (96, 1664, 32) only three blocks exist.
-//                  Each warp's products depend on one another, so the time is
-//                  this kernel's latency, not the tensor cores' rate.
+//                  a [k, s], b [s, d] bf16, f32 out [k, d]. The reps are
+//                  independent products that are only summed, so they are
+//                  split across blocks (split-K over the reps): a grid of
+//                  64-row tiles x N-column tiles x R, R as many as fill the
+//                  card in one wave, and the two warpgroups of a block take
+//                  one rep range each. Each block walks s in 64-wide chunks,
+//                  stages each chunk of a and b once and reuses it for all
+//                  its reps; per rep the packed add forms bf16(a + bf16(i))
+//                  as wgmma's register A operand (A never goes back to shared
+//                  memory). The 2 R partials are summed in a fixed order by a
+//                  second small kernel. Bound: the bf16 tensor-core rate
+//                  (mxu_kernel below).
 //   probe_grid  <- run_grid_overhead :92
 //                  out = 2 x, one block of 256 threads (4 floats each) per
 //                  [8, 128] cell. Bound: bytes (each block streams 8 KB, so
@@ -33,14 +35,16 @@
 //                  (pltpu.repeat tiles). One thread an output element.
 //
 // Plain C interface; each function returns cudaGetLastError() after its launch.
+// Needs sm_90a (wgmma).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
+
+#include "hopper_wgmma.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace hopper;
 
 __global__ void vpu_f32_kernel(const float* __restrict__ x, const float* __restrict__ y,
                                float* __restrict__ out, long long n, int reps) {
@@ -80,50 +84,265 @@ __global__ void vpu_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   out[idx] = __float2bfloat16_rn(acc);
 }
 
-constexpr int kMxuTile = 32;  // output rows and columns of a block
-constexpr int kMxuPad = 8;    // row padding of the staged operands (bf16 elements)
+// ---- probe_mxu: the tensor-core rate --------------------------------------
+// Grid (row tiles of 64) x (column tiles of N) x (R rep ranges), two
+// warpgroups a block: warpgroup g of block z takes the reps of range 2 z + g
+// of 2 R ([j reps / 2R, (j + 1) reps / 2R) for range j). For each 64-wide
+// chunk of s, in order, the block stages its 64 rows of a and the chunk's
+// rows of b by cp.async two chunks ahead (rows of a past k and s past s are
+// zeros), transposes the b chunk into a K-major 128-byte-swizzled tile for
+// wgmma, and each warpgroup loads its A fragments once. Then each warpgroup
+// takes its reps in groups of G (2 at N = 128, 4 at N = 32; as many groups
+// as the longer of the block's two ranges needs, a rep past its range adding
+// zeros): it forms bf16(a + bf16(i)) for each with packed adds
+// (add.rn.bf16x2: the exact sum rounded once, as the f32 add then the bf16
+// rounding of the plain version, since 24 >= 2 * 8 + 2) into the register A
+// operands, issues the group's 4 G m64nNk16 products as one wgmma group and
+// waits for them. No A register is written while a product runs, and every
+// loop runs the same count in both warpgroups (ptxas would serialise the
+// products otherwise); the other warpgroup's products keep the tensor cores
+// busy meanwhile. Every kFlush reps the accumulators are added into an f32
+// carry with __fadd_rn and cleared, so no chain of tensor-core sums grows
+// long. Each warpgroup writes its carry as the f32 partial [2 z + g, k, d];
+// mxu_reduce_kernel sums the 2 R partials in a fixed order. No atomics: two
+// calls give the same bits.
+namespace mxu {
 
-// a [k, s] and b [s, d] bf16 row-major; out [k, d] f32. k and d multiples of 32,
-// s of 16. The block stages its 32 rows of a and 32 columns of b once (s <= 1760
-// fits both in shared memory); each pass adds bf16(i) to the a fragments as they
-// are loaded, so nothing is staged again.
-__global__ void __launch_bounds__(128, 1)
+constexpr int kThreads = 256;           // two warpgroups
+constexpr int kRows = 64;               // rows of a block's tile: one m64 product
+constexpr int kChunk = 64;              // s a stage: four k-steps of 16
+constexpr int kARow = kChunk * 2 + 16;  // bytes a staged row of a (padded)
+constexpr int kFlush = 32;              // reps between flushes into the carry
+
+// Reps a warpgroup forms and multiplies between two waits: registers hold
+// G x 16 words of A beside the N / 2 accumulators and their carry.
+__host__ __device__ constexpr int group_reps(int n) { return n == 128 ? 2 : 4; }
+
+template <int N>
+struct Layout {
+  static constexpr int kBRow = N * 2 + 16;  // bytes a staged row of b (padded)
+  static constexpr int kBk = N * 128;       // K-major B tile: N rows of 64 s
+  static constexpr int kA = kRows * kARow;
+  static constexpr int kB = kChunk * kBRow;
+  static constexpr int kAOff = kBk;         // the K-major tile first (1024-aligned)
+  static constexpr int kBOff = kAOff + 2 * kA;
+  static constexpr int kBytes = kBOff + 2 * kB + 1024;  // + alignment slack
+};
+
+// Chunk c0 .. c0 + 63 of s into stage buf: 64 rows of a, 64 rows of b's N
+// columns at col0; zeros past k and past s.
+template <int N>
+__device__ __forceinline__ void stage(unsigned char* sm, uint32_t sa, int buf,
+                                      const __nv_bfloat16* __restrict__ a,
+                                      const __nv_bfloat16* __restrict__ b, int k, int s, int d,
+                                      int row0, int col0, int c0, int tid) {
+  using L = Layout<N>;
+#pragma unroll
+  for (int i = 0; i < kRows * 8 / kThreads; ++i) {
+    const int idx = tid + i * kThreads, r = idx >> 3, p = idx & 7;
+    const int off = L::kAOff + buf * L::kA + r * kARow + p * 16;
+    if (row0 + r < k && c0 + p * 8 < s)
+      cp_async16(sa + off, a + static_cast<long long>(row0 + r) * s + c0 + p * 8);
+    else
+      *reinterpret_cast<uint4*>(sm + off) = make_uint4(0, 0, 0, 0);
+  }
+  constexpr int kPieces = N / 8;
+#pragma unroll
+  for (int i = 0; i < kChunk * kPieces / kThreads; ++i) {
+    const int idx = tid + i * kThreads, r = idx / kPieces, p = idx % kPieces;
+    const int off = L::kBOff + buf * L::kB + r * L::kBRow + p * 16;
+    if (c0 + r < s)
+      cp_async16(sa + off, b + static_cast<long long>(c0 + r) * d + col0 + p * 8);
+    else
+      *reinterpret_cast<uint4*>(sm + off) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// The staged b chunk [64 s][N] into the K-major tile [N][64 s]: lane l packs
+// s = 2l and 2l + 1 of a column into one 32-bit store; warp w takes columns
+// 8 g .. 8 g + 7 for g = w, w + 8, ...
+template <int N>
+__device__ __forceinline__ void transpose_b(unsigned char* sm, int buf, int warp, int lane) {
+  using L = Layout<N>;
+  const unsigned char* src = sm + L::kBOff + buf * L::kB + 2 * lane * L::kBRow;
+  const int kk = 2 * lane;
+  for (int g = warp; g < N / 8; g += kThreads / 32) {
+    const uint4 lo = *reinterpret_cast<const uint4*>(src + g * 16);
+    const uint4 hi = *reinterpret_cast<const uint4*>(src + L::kBRow + g * 16);
+    const uint32_t lw[4] = {lo.x, lo.y, lo.z, lo.w}, hw[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      *reinterpret_cast<uint32_t*>(sm + swz(8 * g + e, kk >> 3) + (kk & 7) * 2) =
+          __byte_perm(lw[e >> 1], hw[e >> 1], (e & 1) ? 0x7632 : 0x5410);
+  }
+}
+
+// x = bf16(a + bf16(i)), two bf16 at a time; zeros for a rep past the range
+// (its products add exact zeros).
+__device__ __forceinline__ void add_rep(uint32_t (&x)[16], const uint32_t (&afr)[16], int i,
+                                        bool live) {
+  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(static_cast<float>(i)));
+  const uint32_t ii = h | (h << 16);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {  // volatile: kept after the wait for the last products
+    uint32_t v;
+    asm volatile("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(v) : "r"(afr[j]), "r"(ii));
+    x[j] = live ? v : 0u;
+  }
+}
+
+// acc += A B over the chunk's four k-steps, A [64 x 64] in registers, B the
+// K-major tile (a k-step 32 bytes along its rows).
+template <int N>
+__device__ __forceinline__ void products(float (&acc)[N / 2], const uint32_t (&x)[16],
+                                         uint32_t b_lo) {
+  if constexpr (N == 32) {
+    wgmma_n32_rs<0, 0>(acc, x[0], x[1], x[2], x[3], b_lo);
+    wgmma_n32_rs<0, 2>(acc, x[4], x[5], x[6], x[7], b_lo);
+    wgmma_n32_rs<0, 4>(acc, x[8], x[9], x[10], x[11], b_lo);
+    wgmma_n32_rs<0, 6>(acc, x[12], x[13], x[14], x[15], b_lo);
+  } else {
+    wgmma_n128_rs<0, 0>(acc, x[0], x[1], x[2], x[3], b_lo);
+    wgmma_n128_rs<0, 2>(acc, x[4], x[5], x[6], x[7], b_lo);
+    wgmma_n128_rs<0, 4>(acc, x[8], x[9], x[10], x[11], b_lo);
+    wgmma_n128_rs<0, 6>(acc, x[12], x[13], x[14], x[15], b_lo);
+  }
+}
+
+// The first rep of range j of `ranges`.
+__device__ __forceinline__ int rep_start(int reps, int j, int ranges) {
+  return static_cast<int>(static_cast<long long>(reps) * j / ranges);
+}
+
+template <int N>
+__device__ __forceinline__ void flush(float (&acc)[N / 2], float (&carry)[N / 2]) {
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) {
+    carry[j] = __fadd_rn(carry[j], acc[j]);
+    acc[j] = 0.f;
+  }
+}
+
+}  // namespace mxu
+
+// a [k, s] and b [s, d] bf16 row-major; part [2 R, k, d] f32 with R =
+// gridDim.z. s a multiple of 16, d of N.
+template <int N>
+__global__ void __launch_bounds__(mxu::kThreads, 1)
 mxu_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b,
-           float* __restrict__ out, int k, int s, int d, int reps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = s + kMxuPad;
-  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);  // [row][kk]
-  __nv_bfloat16* bs = as + kMxuTile * ld;                       // [col][kk]: col-major B
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int row0 = blockIdx.y * kMxuTile, col0 = blockIdx.x * kMxuTile;
-  const int wr = (warp >> 1) * 16, wc = (warp & 1) * 16;
-  for (int e = tid; e < kMxuTile * s; e += blockDim.x) {
-    const int r = e / s, c = e % s;
-    as[r * ld + c] = a[static_cast<long long>(row0 + r) * s + c];
-    const int kk = e / kMxuTile, col = e % kMxuTile;
-    bs[col * ld + kk] = b[static_cast<long long>(kk) * d + col0 + col];
-  }
-  __syncthreads();
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> carry, rep;
-  wmma::fill_fragment(carry, 0.f);
-  for (int i = 0; i < reps; ++i) {
-    const float fi = bf(static_cast<float>(i));
-    wmma::fill_fragment(rep, 0.f);
-    for (int kk = 0; kk < s; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, as + wr * ld + kk, ld);
-      wmma::load_matrix_sync(fb, bs + wc * ld + kk, ld);
+           float* __restrict__ part, int k, int s, int d, int reps) {
+  using namespace mxu;
+  using L = Layout<N>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sa = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* sm = smem_raw + (sa - smem_u32(smem_raw));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, q = lane & 3;
+  const int row0 = blockIdx.x * kRows, col0 = blockIdx.y * N;
+  const int ranges = 2 * gridDim.z, range = 2 * blockIdx.z + (tid >> 7);
+  const int i0 = rep_start(reps, range, ranges), i1 = rep_start(reps, range + 1, ranges);
+  // every loop below runs the same count in both warpgroups (ptxas serialises
+  // products on a path it takes for divergent): the longer range's groups
+  const int z0 = rep_start(reps, 2 * blockIdx.z, ranges);
+  const int z1 = rep_start(reps, 2 * blockIdx.z + 1, ranges);
+  const int z2 = rep_start(reps, 2 * blockIdx.z + 2, ranges);
+  const int groups = (max(z1 - z0, z2 - z1) + group_reps(N) - 1) / group_reps(N);
+  const int chunks = (s + kChunk - 1) / kChunk;
+  const int fr = 16 * (warp & 3) + (lane >> 2);  // fragment rows fr, fr + 8
+  const uint32_t b_lo = desc_lo(sa, 16);
+
+  float acc[N / 2], carry[N / 2];
 #pragma unroll
-      for (int e = 0; e < fa.num_elements; ++e)  // bf16(a + bf16(i)), element by element
-        fa.x[e] = __float2bfloat16_rn(__fadd_rn(__bfloat162float(fa.x[e]), fi));
-      wmma::mma_sync(rep, fa, fb, rep);
+  for (int j = 0; j < N / 2; ++j) acc[j] = carry[j] = 0.f;
+  constexpr int G = group_reps(N);
+  uint32_t afr[16], x[G][16];
+
+  stage<N>(sm, sa, 0, a, b, k, s, d, row0, col0, 0, tid);
+  cp_async_commit();
+  if (chunks > 1) stage<N>(sm, sa, 1, a, b, k, s, d, row0, col0, kChunk, tid);
+  cp_async_commit();
+  int since = 0;
+  for (int c = 0; c < chunks; ++c) {
+    const int buf = c & 1;
+    cp_async_wait<1>();  // chunk c staged (chunk c + 1 may still be in flight)
+    __syncthreads();     // ... for every thread; no product reads the K-major tile
+    transpose_b<N>(sm, buf, warp, lane);
+    // the A fragment of each k-step j (PTX ISA, "Register Fragments"): rows fr
+    // and fr + 8, columns 16 j + 2 q (+1) and 16 j + 8 + 2 q (+1)
+    const unsigned char* arow = sm + L::kAOff + buf * L::kA + fr * kARow + 4 * q;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      afr[4 * j] = *reinterpret_cast<const uint32_t*>(arow + 32 * j);
+      afr[4 * j + 1] = *reinterpret_cast<const uint32_t*>(arow + 8 * kARow + 32 * j);
+      afr[4 * j + 2] = *reinterpret_cast<const uint32_t*>(arow + 32 * j + 16);
+      afr[4 * j + 3] = *reinterpret_cast<const uint32_t*>(arow + 8 * kARow + 32 * j + 16);
     }
+    fence_proxy_async();  // the K-major tile, visible to wgmma
+    __syncthreads();      // ... to every warp; stage buf is free again
+    if (c + 2 < chunks) stage<N>(sm, sa, buf, a, b, k, s, d, row0, col0, (c + 2) * kChunk, tid);
+    cp_async_commit();
+    for (int t = 0; t < groups; ++t) {
 #pragma unroll
-    for (int e = 0; e < carry.num_elements; ++e) carry.x[e] = __fadd_rn(carry.x[e], rep.x[e]);
+      for (int g = 0; g < G; ++g) add_rep(x[g], afr, i0 + G * t + g, i0 + G * t + g < i1);
+      reg_fence(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int g = 0; g < G; ++g) products<N>(acc, x[g], b_lo);
+      wgmma_commit();
+      wgmma_wait0();
+      reg_fence(acc);
+      since += G;
+      if (since >= kFlush) {
+        flush<N>(acc, carry);
+        since = 0;
+      }
+    }
   }
-  wmma::store_matrix_sync(out + static_cast<long long>(row0 + wr) * d + col0 + wc, carry, d,
-                          wmma::mem_row_major);
+  flush<N>(acc, carry);
+
+  // the accumulator fragment: rows fr, fr + 8; columns 8 j + 2 q (+1)
+  const int r = row0 + fr;
+  float* out = part + static_cast<long long>(range) * k * d + col0 + 2 * q;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    if (r < k)
+      *reinterpret_cast<float2*>(out + static_cast<long long>(r) * d + 8 * j) =
+          make_float2(carry[4 * j], carry[4 * j + 1]);
+    if (r + 8 < k)
+      *reinterpret_cast<float2*>(out + static_cast<long long>(r + 8) * d + 8 * j) =
+          make_float2(carry[4 * j + 2], carry[4 * j + 3]);
+  }
+}
+
+// out[e] = sum over j of part[j, e] in a fixed order: thread y of 8 sums
+// j = y, y + 8, ... in order, then the 8 sums are added in order.
+__global__ void mxu_reduce_kernel(const float* __restrict__ part, float* __restrict__ out, int n,
+                                  int ranges) {
+  __shared__ float sums[8][32];
+  const int e = blockIdx.x * 32 + threadIdx.x;
+  float acc = 0.f;
+  if (e < n)
+    for (int j = threadIdx.y; j < ranges; j += 8)
+      acc = __fadd_rn(acc, part[static_cast<long long>(j) * n + e]);
+  sums[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && e < n) {
+    float total = sums[0][threadIdx.x];
+#pragma unroll
+    for (int y = 1; y < 8; ++y) total = __fadd_rn(total, sums[y][threadIdx.x]);
+    out[e] = total;
+  }
+}
+
+template <int N>
+int launch_mxu(const __nv_bfloat16* a, const __nv_bfloat16* b, float* part, int k, int s, int d,
+               int reps, int splits, cudaStream_t st) {
+  const int smem = mxu::Layout<N>::kBytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(mxu_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((k + mxu::kRows - 1) / mxu::kRows, d / N, splits);
+  mxu_kernel<N><<<grid, mxu::kThreads, smem, st>>>(a, b, part, k, s, d, reps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // x, out [n_cells, 8, 128] f32: one block a cell, 256 threads x 4 floats.
@@ -181,16 +400,19 @@ extern "C" int probe_vpu(const void* x, const void* y, void* out, long long n, i
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int probe_mxu(const void* a, const void* b, void* out, int k, int s, int d,
-                         int reps, void* stream) {
-  const int smem = 2 * kMxuTile * (s + kMxuPad) * 2;
-  cudaError_t err =
-      cudaFuncSetAttribute(mxu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(d / kMxuTile, k / kMxuTile);
-  mxu_kernel<<<grid, 128, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
-      static_cast<float*>(out), k, s, d, reps);
+// part: [2 splits, k, d] f32 scratch. N = 128 where it divides d, else 32.
+extern "C" int probe_mxu(const void* a, const void* b, void* part, void* out, int k, int s, int d,
+                         int reps, int splits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* av = static_cast<const __nv_bfloat16*>(a);
+  const auto* bv = static_cast<const __nv_bfloat16*>(b);
+  float* pv = static_cast<float*>(part);
+  const int err = d % 128 == 0 ? launch_mxu<128>(av, bv, pv, k, s, d, reps, splits, st)
+                                : launch_mxu<32>(av, bv, pv, k, s, d, reps, splits, st);
+  if (err != 0) return err;
+  const int n = k * d;
+  mxu_reduce_kernel<<<blocks_for(n, 32), dim3(32, 8), 0, st>>>(pv, static_cast<float*>(out), n,
+                                                            2 * splits);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,7 +23,9 @@
 //                 sum, as the JAX kernel adds each level's dot. Bound: the f32
 //                 hat and basis arithmetic on the CUDA cores.
 //   probe_tile <- check_repeat_semantics :117: out[r, c] = x[r, c % w], the
-//                 column tiling that pltpu.repeat does. Bound: bytes.
+//                 column tiling that pltpu.repeat does; a thread a source
+//                 element, writing its `times` copies. Bound: bytes (at the
+//                 probe's 8 x 8 input, the launch itself).
 //
 // Plain C interface; each function returns cudaGetLastError() after its launch.
 
@@ -143,13 +145,18 @@ cell_kernel(const float* __restrict__ yr, const float* __restrict__ xr,
   }
 }
 
-__global__ void tile_kernel(const float* __restrict__ x, float* __restrict__ out, int rows,
-                            int w, int times) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int cols = w * times;
-  if (idx >= static_cast<long long>(rows) * cols) return;
-  const int r = static_cast<int>(idx / cols), c = static_cast<int>(idx % cols);
-  out[idx] = x[static_cast<long long>(r) * w + c % w];
+// One thread a source element x[r, c], which it writes to out[r, j w + c]
+// for j < times: no division or modulo. Threads of a warp take 32 columns;
+// the 8 rows of a block step over the rows by the grid's height.
+__global__ void __launch_bounds__(256)
+tile_kernel(const float* __restrict__ x, float* __restrict__ out, int rows, int w, int times) {
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  if (c >= w) return;
+  for (int r = blockIdx.y * 8 + threadIdx.y; r < rows; r += gridDim.y * 8) {
+    const float v = x[static_cast<long long>(r) * w + c];
+    float* o = out + static_cast<long long>(r) * w * times + c;
+    for (int j = 0; j < times; ++j) o[static_cast<long long>(j) * w] = v;
+  }
 }
 
 }  // namespace
@@ -188,9 +195,8 @@ extern "C" int probe_cell(const void* yr, const void* xr, const void* aw, const 
 }
 
 extern "C" int probe_tile(const void* x, void* out, int rows, int w, int times, void* stream) {
-  const long long n = static_cast<long long>(rows) * w * times;
-  tile_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
-                static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(x),
-                                                     static_cast<float*>(out), rows, w, times);
+  const dim3 grid((w + 31) / 32, (rows + 7) / 8 < 65535 ? (rows + 7) / 8 : 65535);
+  tile_kernel<<<grid, dim3(32, 8), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(out), rows, w, times);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,9 +10,10 @@ tensors and the plain PyTorch version beside it on CPU tensors:
    over ``reps`` passes of a [768, 1664] array, f32 and bf16 (acc in the input
    dtype), counted as 6 operations an element a pass;
 2. :func:`run_mxu` -- ``acc_f32 += bf16(a + i) @ b`` over ``reps`` passes at
-   the windowed contraction's narrow shapes, on the tensor cores; each warp
-   walks one chain of dependent products, so the time is this kernel's
-   latency, not the rate the tensor cores reach at these shapes;
+   the windowed contraction's narrow shapes, on the tensor cores: the passes
+   are split across blocks (``wgmma`` with ``a + i`` formed in registers, the
+   partials summed in a fixed order), so the TF/s it prints is the rate the
+   tensor cores reach at these shapes;
 3. :func:`run_grid_overhead` -- ``2 x`` with one block per [8, 128] cell; the
    time over the cell count is the memory time of an 8 KB block, not the
    cost of scheduling one;
@@ -26,6 +27,7 @@ call); times are CUDA events on the card (the host clock on the CPU).
 from __future__ import annotations
 
 import argparse
+from typing import Tuple
 
 import torch
 
@@ -76,6 +78,37 @@ def mxu_plain(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
     return acc
 
 
+MXU_ROWS = 64  # rows of a mxu_kernel block's tile: one m64 wgmma product
+
+
+def mxu_check(k: int, s: int, d: int) -> None:
+    """Raise unless mxu_kernel takes a [k, s] @ [s, d]: k >= 1, s a positive
+    multiple of 16 (the k-step), d a positive multiple of 32 (its column
+    tiles are 128 or 32 wide)."""
+    if k < 1 or s < 16 or s % 16 or d < 32 or d % 32:
+        raise ValueError(f"mxu: needs k >= 1, s a positive multiple of 16 and d a positive "
+                         f"multiple of 32, got {k}, {s}, {d}")
+
+
+def mxu_tile_n(d: int) -> int:
+    """mxu_kernel's column tile: 128 where it divides d, else 32."""
+    return 128 if d % 128 == 0 else 32
+
+
+def mxu_splits(k: int, d: int, reps: int, n_sm: int) -> int:
+    """R, the blocks along the reps: as many as fill ``n_sm`` SMs with one
+    block each beside the (row tile, column tile) pairs. Each block's two
+    warpgroups take two of the 2 R rep ranges."""
+    tiles = -(-k // MXU_ROWS) * (d // mxu_tile_n(d))
+    return max(1, min(-(-reps // 2), n_sm // tiles))
+
+
+def mxu_rep_range(j: int, ranges: int, reps: int) -> Tuple[int, int]:
+    """The reps [i0, i1) of rep range j of ``ranges`` (2 R): warpgroup g of
+    block z takes range 2 z + g."""
+    return reps * j // ranges, reps * (j + 1) // ranges
+
+
 def mxu(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
     """The MXU probe's function: a [k, s], b [s, d] bf16 -> f32 [k, d]."""
     if not on_card("mxu", a, b):
@@ -83,14 +116,15 @@ def mxu(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
     (k, s), d = a.shape, b.shape[1]
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or b.shape[0] != s:
         raise ValueError(f"mxu: needs bf16 a [k, s] and b [s, d], got {a.shape} {b.shape}")
-    if k % 32 or d % 32 or s % 16 or s > 1792:
-        raise ValueError(f"mxu: needs k and d multiples of 32 and s a multiple of 16 up "
-                         f"to 1792 (both operands staged in shared memory), got {k}, {s}, {d}")
+    mxu_check(k, s, d)
     a, b = a.contiguous(), b.contiguous()
+    n_sm = torch.cuda.get_device_properties(a.device).multi_processor_count
+    splits = mxu_splits(k, d, reps, n_sm)
+    part = torch.empty(2 * splits, k, d, dtype=torch.float32, device=a.device)
     out = torch.empty(k, d, dtype=torch.float32, device=a.device)
-    launch(_SRC, "probe_mxu", [PTR, PTR, PTR, I32, I32, I32, I32], a.device,
-           a.data_ptr(), b.data_ptr(), out.data_ptr(), k, s, d, reps)
-    mxu.launches += 1
+    launch(_SRC, "probe_mxu", [PTR, PTR, PTR, PTR, I32, I32, I32, I32, I32], a.device,
+           a.data_ptr(), b.data_ptr(), part.data_ptr(), out.data_ptr(), k, s, d, reps, splits)
+    mxu.launches += 1  # one call: mxu_kernel and the fixed-order sum of its partials
     return out
 
 

@@ -85,19 +85,29 @@ def fma_chunk_plain(hy: torch.Tensor, hx: torch.Tensor, p_pts: int) -> torch.Ten
     return out
 
 
+def fma_check(hy_shape, hx_shape, p_pts: int) -> None:
+    """Raise unless fma_kernel takes hy [T, M, WY, 4K] and hx [T, M, WXP, 4K]:
+    T·M, WY, WXP >= 1, K a positive multiple of 4 (16-byte rows), 1 <= P <= 4."""
+    ok = (len(hy_shape) == 4 and len(hx_shape) == 4 and tuple(hx_shape[:2]) == tuple(hy_shape[:2])
+          and hx_shape[3] == hy_shape[3] and hy_shape[3] % 16 == 0 and hy_shape[3] > 0
+          and hy_shape[0] * hy_shape[1] >= 1 and hy_shape[2] >= 1 and hx_shape[2] >= 1
+          and 1 <= p_pts <= 4)
+    if not ok:
+        raise ValueError(f"fma: needs hy [T, M, WY, 4K] and hx [T, M, WXP, 4K] with T·M, WY, "
+                         f"WXP >= 1, K a positive multiple of 4 and 1 <= P <= 4; got "
+                         f"{tuple(hy_shape)}, {tuple(hx_shape)}, P={p_pts}")
+
+
 def _fma_cuda(hy, hx, p_pts, two_acc, name):
+    if hy.dtype != torch.float32 or hx.dtype != torch.float32:
+        raise ValueError(f"{name}: needs f32 hy and hx, got {hy.dtype}, {hx.dtype}")
+    fma_check(hy.shape, hx.shape, p_pts)
     t, m, wy, k4 = hy.shape
     wxp, k = hx.shape[2], k4 // 4
-    if hy.dtype != torch.float32 or hx.dtype != torch.float32 or hx.shape[:2] != (t, m) \
-            or hx.shape[3] != k4 or k % 4 or not 1 <= p_pts <= 4:
-        raise ValueError(f"{name}: needs f32 hy [T, M, WY, 4K] and hx [T, M, WXP, 4K] with "
-                         f"K % 4 == 0 and 1 <= P <= 4; got {tuple(hy.shape)}, "
-                         f"{tuple(hx.shape)}, P={p_pts}")
     hy, hx = hy.contiguous(), hx.contiguous()
     out = hy.new_empty(t, m, wy, wxp, k)
-    launch(_SRC, "probe_fma", [PTR, PTR, PTR, I64, I32, I32, I32, I32, I32], hy.device,
-           hy.data_ptr(), hx.data_ptr(), out.data_ptr(), t * m * wy * wxp, wy, wxp, k, p_pts,
-           int(two_acc))
+    launch(_SRC, "probe_fma", [PTR, PTR, PTR, I32, I32, I32, I32, I32, I32], hy.device,
+           hy.data_ptr(), hx.data_ptr(), out.data_ptr(), t * m, wy, wxp, k, p_pts, int(two_acc))
     return out
 
 

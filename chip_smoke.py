@@ -9,8 +9,9 @@ Phases, each printed as it completes:
    ``richsem_tpu_torch/csrc`` (nine sources, one nvcc per source, all at once,
    sm_90a) with its register report (and any ptxas note that it serialised
    ``wgmma`` products); K1, K1-bwd, K2, K2-bwd, K3 and K3-bwd must spill
-   nothing, and so must ``mxu_kernel`` and ``fma_kernel``, checked by name
-   since their sources hold other kernels.
+   nothing, and so must the redesigned probe kernels (``mxu_kernel``,
+   ``vpu_bf16_kernel``, ``cell_kernel`` and its ``cell_reduce_kernel``,
+   ``fma_kernel``), checked by name since their sources hold other kernels.
 2. K1 (deformable attention) against its plain PyTorch version at the
    production encoder shapes (clamped offsets) and decoder shapes (1,100 box
    queries, unclamped), in bf16 and f32: max abs error and both times; one
@@ -67,8 +68,13 @@ Phases, each printed as it completes:
     the plain version's time, the device and event times of the one PyTorch
     call that computes the same function where there is one (``x * 2``,
     ``x.repeat``, ``x + x`` and ``x * 3`` for chain-1 and chain-2, a
-    broadcast product for fma-1, ``torch.einsum`` for fma-P), the bound and
-    the share by device time. ``run_mxu`` also gets ``gemm_ms``, the device
+    broadcast product for fma-1, ``torch.einsum`` for fma-P), the bound (its
+    CUDA-core operations at the issue rate, each rounded on its own, with the
+    same count at the published peaks beside it where that differs) and the
+    share by device time.
+    ``run_cell`` also gets a check that two calls agree bit for bit (its
+    pass ranges' partials are summed in a fixed order), with the device time
+    of both its kernels. ``run_mxu`` also gets ``gemm_ms``, the device
     time of one bf16 ``torch.matmul`` of the same tensor-core work on
     operands concatenated outside the call (a yardstick, another function),
     a check that two calls agree bit for bit, and an exact case that isolates
@@ -99,9 +105,11 @@ device time of the wrapper's zeroed f32 d_value and of its cast to bf16; and
 a SHA-256 prefix of the outputs of K1 (both cases), K3, K2 and K2-bwd. It
 then does the same for the probe kernels redesigned for Hopper,
 ``mxu_kernel`` at run_mxu's four shapes, ``fma_kernel`` at fma-1, 2, 4,
-4-2acc and 4-chunk (event and device time, the bound, an output hash) and
+4-2acc and 4-chunk (event and device time, the bound, an output hash),
 ``tile_kernel`` at check_repeat_semantics' [8, 8] (beside the device time of
-``x.repeat``).
+``x.repeat``), ``run_cell`` at phase 12's inputs (the device time of each of
+its kernels and their sum, the bound, the hash, and whether two calls agree)
+and ``run_vpu`` in bf16 at phase 12's inputs (device time, bound, hash).
 Compare two trees in one call on the card, in turns, each in a process of
 its own:
 
@@ -145,12 +153,20 @@ KERNELS = ("ms_deform_attn_fwd", "ms_deform_attn_bwd", "fused_encoder_tail_fwd",
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and f32 FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 BF16_VEC_FLOPS = 133.8e12  # bf16 outside the tensor cores (NVIDIA's H100 white paper, SXM5)
+# The CUDA cores' rates by instruction: the published figures count a fused
+# multiply-add as two operations, but the probe kernels round every operation
+# on its own (__fadd_rn / __fmul_rn, or one bf16 rounding after each, as their
+# JAX kernels do), so no FMA can do two of them: each costs one instruction,
+# 128 f32 or 256 packed bf16 results a clock an SM, half of each figure.
+F32_ISSUE_OPS, BF16_VEC_ISSUE_OPS = F32_FLOPS / 2, BF16_VEC_FLOPS / 2
 COS_MIN = 0.9  # least gradient cosine, kernels vs plain versions (phases 7, 10, 11)
 NO_SPILL = ("ms_deform_attn_fwd", "ms_deform_attn_bwd", "fused_encoder_tail_fwd",
             "fused_encoder_tail_bwd", "ms_deform_attn_sep_fwd",
             "ms_deform_attn_sep_bwd")  # ptxas must report 0 spill bytes
 # kernels that must spill nothing in sources that hold other kernels too
-NO_SPILL_KERNELS = {"probe_cal": "mxu_kernel", "probe_vpu_model": "fma_kernel"}
+NO_SPILL_KERNELS = {"probe_cal": ("mxu_kernel", "vpu_bf16_kernel"),
+                    "probe_cell": ("cell_kernel", "cell_reduce_kernel"),
+                    "probe_vpu_model": ("fma_kernel",)}
 VALID = (800, 1224)  # bench.py's valid extent inside CANVAS
 
 
@@ -247,14 +263,16 @@ def phase_build():
         spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", _build.build_log(name))
         if not spills or any(int(b) for b in spills):
             fail(f"{name}: ptxas reports spills (or no report): {spills}")
-    for name, kernel in NO_SPILL_KERNELS.items():
+    for name, kernels in NO_SPILL_KERNELS.items():
         props = re.findall(r"Function properties for (\S+)\n\s*\d+ bytes stack frame, (\d+) bytes "
                            r"spill stores, (\d+) bytes spill loads", _build.build_log(name))
-        mine = [(f, int(st) + int(ld)) for f, st, ld in props if kernel in f]
-        if not mine or any(b for _, b in mine):
-            fail(f"{name}.cu {kernel}: ptxas reports spills (or no report): {mine}")
+        for kernel in kernels:
+            mine = [(f, int(st) + int(ld)) for f, st, ld in props if kernel in f]
+            if not mine or any(b for _, b in mine):
+                fail(f"{name}.cu {kernel}: ptxas reports spills (or no report): {mine}")
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s; {', '.join(NO_SPILL)}, "
-          f"{', '.join(NO_SPILL_KERNELS.values())} spill nothing", flush=True)
+          f"{', '.join(k for ks in NO_SPILL_KERNELS.values() for k in ks)} spill nothing",
+          flush=True)
     return smi
 
 
@@ -1042,8 +1060,10 @@ def compare_exact(name, kernel_out, plain_out):
 
 def bound3(nbytes_: float, f32_ops: float = 0.0, bf16_ops: float = 0.0, bf16_mma: float = 0.0):
     """(bound_ms, bound_by) for work on the CUDA cores (f32 and bf16 elementwise
-    operations, each at its own peak) and on the tensor cores (bf16 products)."""
-    t_ops = max(f32_ops / F32_FLOPS + bf16_ops / BF16_VEC_FLOPS, bf16_mma / BF16_FLOPS) * 1e3
+    operations, each rounded on its own, at the issue rate of its type) and on
+    the tensor cores (bf16 products)."""
+    t_ops = max(f32_ops / F32_ISSUE_OPS + bf16_ops / BF16_VEC_ISSUE_OPS,
+                bf16_mma / BF16_FLOPS) * 1e3
     t_bytes = nbytes_ / HBM_BPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -1070,6 +1090,54 @@ def fma_cost(hy, hx, p):
     return {"nbytes_": nbytes(hy, hx) * p // 4 + 4 * elems, "f32_ops": (2 * p - 1) * elems}
 
 
+def uniform_draws(seed):
+    """-> rand(*shape, lo, hi, dtype): uniform draws on the card from one
+    generator seeded with ``seed`` (its ``generator`` attribute)."""
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def rand(*shape, lo=0.0, hi=1.0, dtype=torch.float32):
+        return (torch.rand(shape, generator=g, device=DEVICE) * (hi - lo) + lo).to(dtype)
+
+    rand.generator = g
+    return rand
+
+
+def vpu_inputs(rand, dt):
+    """run_vpu's comparison inputs of dtype ``dt`` at its [ROWS, S]: x around
+    the pass index, so the hat fires."""
+    from richsem_tpu_torch.tools import bench_cal
+
+    shape = (bench_cal.ROWS, bench_cal.S)
+    return rand(*shape, lo=0, hi=8, dtype=dt), rand(*shape, lo=-0.5, hi=1.5, dtype=dt)
+
+
+def vpu_cost(x, reps):
+    """bound3's arguments for ``bench_cal.vpu(x, y, reps)``: x and y read and
+    the output written once, 6 operations an element a pass in x's dtype."""
+    import torch
+
+    key = "f32_ops" if x.dtype == torch.float32 else "bf16_ops"
+    return {"nbytes_": 3 * nbytes(x), key: 6 * x.numel() * reps}
+
+
+def cell_cost(yr, xr, aw, wins, reps):
+    """bound3's arguments for ``bench_cell.cell``: the inputs read and the f32
+    output written once; a pass, a row and a level: y + it per point, 5
+    operations a point and y tap (sub, abs, mul, sub, max), the 4 products of
+    a basis entry and their 3 sums; hx, 4 operations a point and x tap, once a
+    row (it does not depend on the pass); the contraction on the tensor
+    cores."""
+    mk, p, d = yr.shape[0], yr.shape[1] // len(wins), wins[0].shape[1]
+    win = sum(w.shape[2] * w.shape[3] for w in wins)
+    hy_ops = sum(p * (1 + 5 * w.shape[2]) for w in wins)
+    hx_ops = sum(p * 4 * w.shape[3] for w in wins)
+    return {"nbytes_": nbytes(yr, xr, aw, *wins) + 4 * mk * d,
+            "f32_ops": reps * mk * (hy_ops + (2 * p - 1) * win) + mk * hx_ops,
+            "bf16_mma": reps * 2 * mk * d * win}
+
+
 def probe_case(call, replaces, launches, kern, plain, check, cost, kernels, library=None,
                iters=20, plain_iters=3):
     """One probe call: the kernel against its plain version (``check`` is
@@ -1079,7 +1147,9 @@ def probe_case(call, replaces, launches, kern, plain, check, cost, kernels, libr
     of every device operation of ``library``, each the mean of five profiled
     calls, and the bound from ``cost``, :func:`bound3`'s arguments for these
     inputs (bytes, f32 and bf16 elementwise operations, bf16 tensor-core
-    operations). -> the call's record."""
+    operations); where the CUDA-core operations set it, the line also prints
+    the same count at the published peaks, which count an FMA as two (half
+    the operations at the issue rate). -> the call's record."""
     import torch
 
     out, ref = kern(), plain()
@@ -1093,12 +1163,15 @@ def probe_case(call, replaces, launches, kern, plain, check, cost, kernels, libr
     dev = measured_sum(device_ms(kern, kernels))
     lib_dev = device_ms(library, [], also=ALL_OPS)["all"] if library is not None else None
     bms, by = bound3(**cost)
+    peak_ms = bound3(**{k: v / 2 if k in ("f32_ops", "bf16_ops") else v
+                        for k, v in cost.items()})[0]
+    peak = f"; {peak_ms:.4f} at the published peaks" if peak_ms != bms else ""
     lib = (f"; library {library_ms:.4f} ms by events, {_ms(lib_dev)} device"
            if library is not None else "")
     share = f"{bms / dev:.3f}" if dev else "not measured"
     print(f"  {call}: kernel {_ms(dev)} ms device, {ms:.4f} by events; plain {plain_ms:.4f}{lib}; "
-          f"bound {bms:.4f} ms ({by}), share {share} by device time; launches on the main path "
-          f"{launches}", flush=True)
+          f"bound {bms:.4f} ms ({by}, at the issue rate{peak}), "
+          f"share {share} by device time; launches on the main path {launches}", flush=True)
     return {"call": call, "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": library_ms, "library_device_ms": lib_dev}
@@ -1165,20 +1238,16 @@ def phase_probes():
     if n != want:
         fail("the probes' entry points did not launch their kernels as expected")
 
-    g = torch.Generator(device=DEVICE).manual_seed(12)
-
-    def rand(*shape, lo=0.0, hi=1.0, dtype=torch.float32):
-        return (torch.rand(shape, generator=g, device=DEVICE) * (hi - lo) + lo).to(dtype)
-
+    rand = uniform_draws(12)
+    g = rand.generator
     rows, s = bench_cal.ROWS, bench_cal.S
     cal = []
-    for dt in (torch.float32, torch.bfloat16):  # x around the pass index: the hat fires
-        x, y = rand(rows, s, lo=0, hi=8, dtype=dt), rand(rows, s, lo=-0.5, hi=1.5, dtype=dt)
+    for dt in (torch.float32, torch.bfloat16):
+        x, y = vpu_inputs(rand, dt)
         cal.append(probe_case(
             f"run_vpu({str(dt)[6:]}, reps=512)", "tools/bench_pallas_cal.py:55",
             n["vpu"] // 2, lambda: bench_cal.vpu(x, y, 512), lambda: bench_cal.vpu_plain(x, y, 512),
-            "exact", {"nbytes_": 3 * nbytes(x),
-                      ("f32_ops" if dt == torch.float32 else "bf16_ops"): 6 * x.numel() * 512},
+            "exact", vpu_cost(x, 512),
             ["vpu_f32_kernel" if dt == torch.float32 else "vpu_bf16_kernel"]))
     steps = torch.arange(512, device=DEVICE).to(torch.bfloat16)  # bf16(i), as _step
     for k, d in MXU_SHAPES:
@@ -1231,23 +1300,19 @@ def phase_probes():
             ["repeat_f32_kernel" if dt == torch.float32 else "repeat_bf16_kernel"]))
 
     (yr, xr, aw), wins = bench_cell.cell_inputs(DEVICE)
-    mk, win, p = yr.shape[0], sum(w.shape[2] * w.shape[3] for w in wins), bench_cell.P
-    d = wins[0].shape[1]
-    # a pass, a row and a level: y + it per point, 5 operations a point and y
-    # tap (sub, abs, mul, sub, max) and 4 a point and x tap, then the products
-    # and their sum over the points; the contraction on the tensor cores
-    hat_ops = sum(p * (1 + 5 * w.shape[2] + 4 * w.shape[3]) for w in wins)
-    cell_cost = {"nbytes_": nbytes(yr, xr, aw, *wins) + 4 * mk * d,
-                 "f32_ops": 64 * mk * (hat_ops + (2 * p - 1) * win),
-                 "bf16_mma": 64 * 2 * mk * d * win}
     cells = []
     for mode in ("2d", "flat"):  # one function, one kernel: both lines time it
-        # one bf16 rounding step (2^-8) of a basis entry whose f32 sums differ
+        # the kernel builds the plain version's bf16 basis bit for bit, so only
+        # the f32 order of the contraction's sums differs (6.0e-5 of 31.5 on
+        # the H100): a basis rounded otherwise is off by ~4e-3 and fails
         cells.append(probe_case(
             f"run_cell({mode!r}, reps=64)", "tools/bench_cell.py:102", n["cell"] // 2,
             lambda: bench_cell.cell(yr, xr, aw, wins, 64),
-            lambda: bench_cell.cell_plain(yr, xr, aw, wins, 64), 4e-3, cell_cost,
-            ["cell_kernel"], iters=10, plain_iters=1))
+            lambda: bench_cell.cell_plain(yr, xr, aw, wins, 64), 1e-5,
+            cell_cost(yr, xr, aw, wins, 64), CELL_KERNELS, iters=10, plain_iters=1))
+    if not torch.equal(bench_cell.cell(yr, xr, aw, wins, 64), bench_cell.cell(yr, xr, aw, wins, 64)):
+        fail("run_cell: two calls differ (the partials' sum must be in a fixed order)")
+    print("  run_cell: two calls agree bit for bit", flush=True)
     x = torch.arange(8, dtype=torch.float32, device=DEVICE)[None].repeat(8, 1)
     cells.append(probe_case(
         "check_repeat_semantics()", "tools/bench_cell.py:121", n["tile"],
@@ -1264,7 +1329,7 @@ def phase_probes():
     libs = {1: lambda: x + x, 2: lambda: x * 3}
     for n_ops in (1, 2, 4, 8):
         vm.append(probe_case(
-            f"chain-{n_ops}", "tools/bench_vpu_model.py:53", n["chain"] // 4,
+            f"chain-{n_ops}", "tools/bench_vpu_model.py:54", n["chain"] // 4,
             lambda: bench_vpu_model.chain(x, n_ops), lambda: bench_vpu_model.chain_plain(x, n_ops),
             "exact", {"nbytes_": 2 * nbytes(x), "f32_ops": n_ops * x.numel()}, ["chain_kernel"],
             library=libs.get(n_ops), iters=10, plain_iters=3))
@@ -1282,12 +1347,12 @@ def phase_probes():
 
     for label, p, two in FMA_CASES[:-1]:
         vm.append(probe_case(
-            label, "tools/bench_vpu_model.py:61", n["fma"] // 4,
+            label, "tools/bench_vpu_model.py:62", n["fma"] // 4,
             lambda: bench_vpu_model.fma(hy, hx, p, two),
             lambda: bench_vpu_model.fma_plain(hy, hx, p, two), "exact", fma_cost(hy, hx, p),
             ["fma_kernel"], library=library_fma(p), iters=10, plain_iters=3))
     vm.append(probe_case(
-        "fma-4-chunk", "tools/bench_vpu_model.py:75", n["fma_chunk"],
+        "fma-4-chunk", "tools/bench_vpu_model.py:77", n["fma_chunk"],
         lambda: bench_vpu_model.fma_chunk(hy, hx, 4),
         lambda: bench_vpu_model.fma_chunk_plain(hy, hx, 4), "exact", fma_cost(hy, hx, 4),
         ["fma_kernel"], library=library_fma(4), iters=10, plain_iters=3))
@@ -1435,8 +1500,9 @@ HAND_WRITTEN = ("msda_fwd_kernel", "msda_bwd_kernel", "encoder_tail_fwd_kernel",
                 "row_pass_kernel", "dw_gemm_kernel", "colsum_kernel", "msda_sep_fwd_kernel",
                 "msda_sep_bwd_kernel", "vpu_f32_kernel", "vpu_bf16_kernel", "mxu_kernel",
                 "mxu_reduce_kernel", "grid_kernel", "repeat_f32_kernel", "repeat_bf16_kernel",
-                "cell_kernel", "tile_kernel", "chain_kernel", "fma_kernel")
+                "cell_kernel", "cell_reduce_kernel", "tile_kernel", "chain_kernel", "fma_kernel")
 MXU_KERNELS = ("mxu_kernel", "mxu_reduce_kernel")
+CELL_KERNELS = ("cell_kernel", "cell_reduce_kernel")
 
 
 # the device operations of a backward wrapper around its kernel: the zeroed f32
@@ -1625,6 +1691,24 @@ def phase_ab(root: str) -> None:
     rec["tile_device_ms"] = measured_sum(device_ms(fn, ["tile_kernel"]))
     rec["tile_library_device_ms"] = device_ms(lambda: x.repeat(1, 2), [], also=ALL_OPS)["all"]
     rec["tile_sha"] = digest([fn()])
+    # cell at phase 12's inputs, vpu bf16 at its shapes (inputs from a seed of their own)
+    (yr, xr, aw), wins = bench_cell.cell_inputs(DEVICE)
+    fn = lambda: bench_cell.cell(yr, xr, aw, wins, 64)  # noqa: E731
+    rec["cell_ms"] = cuda_ms(fn, iters=10)
+    dev = device_ms(fn, CELL_KERNELS)
+    rec["cell_device_ms"] = measured_sum(dev)
+    rec.update({f"cell_{k}_device_ms": v for k, v in dev.items()})
+    rec["cell_bound_ms"] = bound3(**cell_cost(yr, xr, aw, wins, 64))[0]
+    out, again = fn(), fn()
+    rec["cell_sha"] = digest([out])
+    rec["cell_two_calls_equal"] = bool(torch.equal(out, again))
+    del yr, xr, aw, wins, out, again
+    x, y = vpu_inputs(uniform_draws(13), torch.bfloat16)
+    fn = lambda: bench_cal.vpu(x, y, 512)  # noqa: E731
+    rec["vpu_bf16_ms"] = cuda_ms(fn)
+    rec["vpu_bf16_device_ms"] = measured_sum(device_ms(fn, ["vpu_bf16_kernel"]))
+    rec["vpu_bf16_bound_ms"] = bound3(**vpu_cost(x, 512))[0]
+    rec["vpu_bf16_sha"] = digest([fn()])
     print(json.dumps(rec), flush=True)
 
 

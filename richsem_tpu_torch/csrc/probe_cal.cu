@@ -4,13 +4,14 @@
 // Replaces the four Pallas probes of tools/bench_pallas_cal.py (each computes
 // the function of the TPU kernel, not its block layout):
 //
-//   probe_vpu   <- run_vpu :52 (vpu_kernel :40)
+//   probe_vpu   <- run_vpu :52 (vpu_kernel :41)
 //                  acc = 0; for i < reps: acc += max(0, 1 - |x - (y + i)|) * y
 //                  in the input dtype, every op rounded (the f32 form uses
-//                  __fmul_rn/__fadd_rn so nvcc contracts nothing into an FMA;
-//                  the bf16 form rounds to bf16 after every op, i rounded as
-//                  JAX's i.astype(bf16)). One thread an element. Bound: 6 ops an
-//                  element-rep on the CUDA cores.
+//                  __fmul_rn/__fadd_rn so nvcc contracts nothing into an FMA,
+//                  one thread an element; the bf16 form works on packed bf16
+//                  pairs, each operation rounded once to bf16, i rounded as
+//                  JAX's i.astype(bf16): vpu_bf16_kernel below). Bound: 6 ops
+//                  an element-rep on the CUDA cores, at the issue rate.
 //   probe_mxu   <- run_mxu :67
 //                  acc_f32 = 0; for i < reps: acc += bf16(a + bf16(i)) @ b
 //                  a [k, s], b [s, d] bf16, f32 out [k, d]. The reps are
@@ -63,25 +64,98 @@ __global__ void vpu_f32_kernel(const float* __restrict__ x, const float* __restr
 // bf16 arithmetic rounded after every operation: each op in f32 (exact for a
 // product of two bf16 values, and for a sum a single rounding to 24 bits,
 // which then rounds to bf16 as the direct operation would: 24 >= 2 * 8 + 2),
-// then rounded to bf16. The __hadd/__hmul intrinsics would let the code
-// generator fuse a multiply and an add into one bf16 FMA.
+// then rounded to bf16 (repeat_bf16_kernel).
 __device__ __forceinline__ float bf(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__global__ void vpu_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                                const __nv_bfloat16* __restrict__ y,
-                                __nv_bfloat16* __restrict__ out, long long n, int reps) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const float xv = __bfloat162float(x[idx]), yv = __bfloat162float(y[idx]);
-  float acc = 0.f;
-  for (int i = 0; i < reps; ++i) {
-    const float d = bf(__fsub_rn(xv, bf(__fadd_rn(yv, bf(static_cast<float>(i))))));
-    const float h = fmaxf(0.f, bf(__fsub_rn(1.f, fabsf(d))));
-    acc = bf(__fadd_rn(acc, bf(__fmul_rn(h, yv))));
+// Packed bf16 pairs, each operation rounded once to nearest-even (the .rn
+// forms: plain __hadd2/__hmul2 would let the code generator fuse a multiply
+// and an add into one FMA). The same bits as the f32 operation rounded to
+// bf16 (above).
+__device__ __forceinline__ uint32_t bf2_add(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t bf2_sub(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t bf2_mul(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+// max(0, 1 - |d|): the sign bits cleared, then relu(|d| * -1 + 1), whose
+// product is exact, so 1 - |d| is rounded once; relu gives +0 where it is
+// negative, as max(0, .) does (1 - |d| is never -0).
+__device__ __forceinline__ uint32_t bf2_hat(uint32_t d) {
+  uint32_t h;
+  asm("{\n.reg .b32 t;\nand.b32 t, %1, 0x7FFF7FFF;\nfma.rn.relu.bf16x2 %0, t, %2, %3;\n}\n"
+      : "=r"(h)
+      : "r"(d), "r"(0xBF80BF80u), "r"(0x3F803F80u));
+  return h;
+}
+
+// A thread takes 16 consecutive elements as 8 bf16 pairs (two 16-byte loads
+// an operand; the last thread of a ragged n loads and stores element by
+// element, its missing elements zeros). Each pass forms bf16(i) once (one
+// packed convert, both halves) and runs the 6 packed operations on the 8
+// independent pairs: 5 on the FMA pipe and the sign mask, 3 instructions an
+// element against the bound's 6 operations at 2 a packed instruction.
+constexpr int kVpuPairs = 8;
+constexpr int kVpuThreads = 128;
+
+__global__ void __launch_bounds__(kVpuThreads)
+vpu_bf16_kernel(const unsigned short* __restrict__ x, const unsigned short* __restrict__ y,
+                unsigned short* __restrict__ out, long long n, int reps) {
+  const long long base =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * (2 * kVpuPairs);
+  if (base >= n) return;
+  const bool whole = base + 2 * kVpuPairs <= n;
+  uint32_t xv[kVpuPairs], yv[kVpuPairs], acc[kVpuPairs];
+  if (whole) {
+    const uint4* x4 = reinterpret_cast<const uint4*>(x + base);
+    const uint4* y4 = reinterpret_cast<const uint4*>(y + base);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint4 a = __ldg(x4 + h), b = __ldg(y4 + h);
+      xv[4 * h] = a.x, xv[4 * h + 1] = a.y, xv[4 * h + 2] = a.z, xv[4 * h + 3] = a.w;
+      yv[4 * h] = b.x, yv[4 * h + 1] = b.y, yv[4 * h + 2] = b.z, yv[4 * h + 3] = b.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kVpuPairs; ++q) {
+      const long long e = base + 2 * q;
+      xv[q] = (e < n ? x[e] : 0u) | ((e + 1 < n ? x[e + 1] : 0u) << 16);
+      yv[q] = (e < n ? y[e] : 0u) | ((e + 1 < n ? y[e + 1] : 0u) << 16);
+    }
   }
-  out[idx] = __float2bfloat16_rn(acc);
+#pragma unroll
+  for (int q = 0; q < kVpuPairs; ++q) acc[q] = 0u;
+#pragma unroll 4
+  for (int i = 0; i < reps; ++i) {
+    const float fi = static_cast<float>(i);
+    const __nv_bfloat162 step = __floats2bfloat162_rn(fi, fi);  // bf16(i), both halves
+    const uint32_t ii = *reinterpret_cast<const uint32_t*>(&step);
+#pragma unroll
+    for (int q = 0; q < kVpuPairs; ++q)
+      acc[q] = bf2_add(acc[q], bf2_mul(bf2_hat(bf2_sub(xv[q], bf2_add(yv[q], ii))), yv[q]));
+  }
+  if (whole) {
+    uint4* o4 = reinterpret_cast<uint4*>(out + base);
+    o4[0] = make_uint4(acc[0], acc[1], acc[2], acc[3]);
+    o4[1] = make_uint4(acc[4], acc[5], acc[6], acc[7]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < kVpuPairs; ++q) {
+      const long long e = base + 2 * q;
+      if (e < n) out[e] = static_cast<unsigned short>(acc[q] & 0xFFFFu);
+      if (e + 1 < n) out[e + 1] = static_cast<unsigned short>(acc[q] >> 16);
+    }
+  }
 }
 
 // ---- probe_mxu: the tensor-core rate --------------------------------------
@@ -389,10 +463,11 @@ unsigned blocks_for(long long n, int threads) {
 extern "C" int probe_vpu(const void* x, const void* y, void* out, long long n, int reps,
                          int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    vpu_bf16_kernel<<<blocks_for(n, 256), 256, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(y),
-        static_cast<__nv_bfloat16*>(out), n, reps);
+  if (is_bf16)  // x, y, out 16-byte aligned
+    vpu_bf16_kernel<<<blocks_for((n + 2 * kVpuPairs - 1) / (2 * kVpuPairs), kVpuThreads),
+                      kVpuThreads, 0, st>>>(static_cast<const unsigned short*>(x),
+                                            static_cast<const unsigned short*>(y),
+                                            static_cast<unsigned short*>(out), n, reps);
   else
     vpu_f32_kernel<<<blocks_for(n, 256), 256, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(y), static_cast<float*>(out),

@@ -3,8 +3,8 @@
 // Replaces the Pallas kernels of tools/bench_vpu_model.py, launched by its
 // run :90 over a grid of T cells:
 //
-//   probe_chain <- chain_kernel :53: acc = x; n times acc = acc + x.
-//   probe_fma   <- fma_kernel :61 and fma_chunk_kernel :75:
+//   probe_chain <- chain_kernel :54: acc = x; n times acc = acc + x.
+//   probe_fma   <- fma_kernel :62 and fma_chunk_kernel :77:
 //                  out[t, m, y, x, k] = sum_p hy[t, m, y, pK + k] * hx[t, m, x, pK + k]
 //                  for p < P, p in order; with two_acc the even p go to one
 //                  sum and the odd p to another, added at the end, as the JAX

@@ -27,6 +27,14 @@ def on_card(name: str, *tensors: torch.Tensor) -> bool:
     return True
 
 
+def aligned16(*tensors: torch.Tensor):
+    """The tensors, each contiguous and starting on a 16-byte boundary, as a
+    kernel that loads 16 bytes at a time needs them: one that is not is
+    copied into a fresh tensor."""
+    return [t if t.is_contiguous() and t.data_ptr() % 16 == 0
+            else t.clone(memory_format=torch.contiguous_format) for t in tensors]
+
+
 def launch(source: str, fn_name: str, argtypes: Sequence, device: torch.device, *args) -> None:
     """Call ``fn_name`` of ``csrc/<source>.cu`` on the current stream; raise on a
     CUDA error at launch."""

@@ -31,7 +31,8 @@ from typing import Tuple
 
 import torch
 
-from richsem_tpu_torch.tools._probe import I32, I64, PTR, device_name, launch, on_card, timeit
+from richsem_tpu_torch.tools._probe import (I32, I64, PTR, aligned16, device_name, launch, on_card,
+                                            timeit)
 
 ROWS, S = 768, 1664  # ~ (M*K, sum of windows) at tile (8, 8): 8*96 = 768, 1589 -> 1664
 _SRC = "probe_cal"
@@ -63,8 +64,8 @@ def vpu(x: torch.Tensor, y: torch.Tensor, reps: int) -> torch.Tensor:
         return vpu_plain(x, y, reps)
     if x.shape != y.shape or x.dtype != y.dtype:
         raise ValueError("vpu: x and y must share shape and dtype")
-    x, y = x.contiguous(), y.contiguous()
-    out = torch.empty_like(x)
+    x, y = aligned16(x, y)  # the bf16 kernel loads 16 bytes at a time
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     launch(_SRC, "probe_vpu", [PTR, PTR, PTR, I64, I32, I32], x.device,
            x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), reps, _bf16_flag(x))
     vpu.launches += 1

@@ -7,7 +7,9 @@ One cell of the windowed design, at level-0 shapes (tile 16, margin 6): for
 each of 4 levels, the hats ``hy [MK, P, wy]`` and ``hx [MK, P, wx]`` from the
 relative coordinates, the bf16 basis ``sum_p hy (x) hx`` and its contraction
 with the level's bf16 window into [M, K, D] f32, repeated ``reps`` times
-(:func:`run_cell`, kernel ``csrc/probe_cell.cu:cell_kernel``). The JAX probe's
+(:func:`run_cell`, kernel ``csrc/probe_cell.cu:cell_kernel``: a warp per 16
+rows of K and pass range, the passes split across blocks as :func:`cell_grid`
+says, the partials summed in a fixed order). The JAX probe's
 two modes, ``2d`` and ``flat``, are two Mosaic layouts of that one function;
 here one kernel serves both and ``mode`` only names the line.
 :func:`check_repeat_semantics` prints what ``pltpu.repeat`` does to a row: it
@@ -18,12 +20,13 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
-from richsem_tpu_torch.tools._probe import I32, PTR, device_name, launch, on_card, timeit
+from richsem_tpu_torch.tools._probe import (I32, PTR, aligned16, device_name, launch, on_card,
+                                            timeit)
 
 M, K, P, D = 8, 352, 4, 32
 MK = M * K
@@ -62,30 +65,63 @@ def cell_plain(yr, xr, aw, wins: Sequence[torch.Tensor], reps: int) -> torch.Ten
     return carry
 
 
+CELL_TILE, CELL_MAX_WARPS = 16, 12  # rows of K a warp (one m16 product tile); warps a block
+
+
+def cell_check(coords: Sequence[int], windows: Sequence[Sequence[int]]) -> None:
+    """Raise unless cell_kernel takes coordinates [M*K, 4 L] and L <= 4 windows
+    [M, 32, wy, wx] with M, K >= 1 and sides 1 .. 32."""
+    mk, lp = coords
+    m = windows[0][0] if windows else 0
+    if not (1 <= len(windows) <= 4 and m >= 1 and mk >= m and mk % m == 0
+            and lp == P * len(windows)
+            and all(len(w) == 4 and tuple(w[:2]) == (m, D) and 1 <= w[2] <= 32
+                    and 1 <= w[3] <= 32 for w in windows)):
+        raise ValueError(f"cell: needs coordinates [M*K, {P}*L] and 1-4 windows [M, {D}, wy, wx] "
+                         f"with sides 1-32; got coordinates {tuple(coords)}, windows "
+                         f"{[tuple(w) for w in windows]}")
+
+
+def cell_grid(m: int, k: int, reps: int, n_sm: int) -> Tuple[int, int, int]:
+    """-> (warps a block, blocks along K, R pass ranges) of cell_kernel: as few
+    blocks along K as hold its 16-row tiles at <= 12 warps each, the tiles
+    spread evenly over them; R as many as fill ``n_sm`` SMs with one block
+    each (M x blocks along K x R)."""
+    tiles = -(-k // CELL_TILE)
+    groups = -(-tiles // CELL_MAX_WARPS)
+    return -(-tiles // groups), groups, max(1, min(reps, n_sm // (m * groups)))
+
+
+def cell_pass_range(j: int, ranges: int, reps: int) -> Tuple[int, int]:
+    """The passes [i0, i1) of pass range j of ``ranges``."""
+    return reps * j // ranges, reps * (j + 1) // ranges
+
+
 def cell(yr, xr, aw, wins: Sequence[torch.Tensor], reps: int) -> torch.Tensor:
     """yr/xr/aw [M*K, L*P] f32, wins L x [M, D, wy, wx] bf16 -> [M, K, D] f32."""
     if not on_card("cell", yr, xr, aw, *wins):
         return cell_plain(yr, xr, aw, wins, reps)
-    m, d = wins[0].shape[:2]
-    mk, lp = yr.shape
-    if d != 32 or mk % m or lp != P * len(wins) or len(wins) > 4:
-        raise ValueError(f"cell: needs D == 32, [M*K, {P}*L] coordinates and L <= 4 windows; "
-                         f"got D={d}, coordinates {tuple(yr.shape)}, {len(wins)} windows")
-    if any(t.dtype != torch.float32 for t in (yr, xr, aw)) or any(
-            w.dtype != torch.bfloat16 or w.shape[:2] != (m, d) for w in wins):
-        raise ValueError("cell: f32 coordinates and bf16 [M, D, wy, wx] windows")
-    yr, xr, aw = yr.contiguous(), xr.contiguous(), aw.contiguous()
+    cell_check(tuple(yr.shape), [tuple(w.shape) for w in wins])
+    if any(t.dtype != torch.float32 or t.shape != yr.shape for t in (xr, aw)) or any(
+            w.dtype != torch.bfloat16 for w in wins):
+        raise ValueError("cell: f32 coordinates of one shape and bf16 windows")
+    yr, xr, aw = aligned16(yr, xr, aw)  # the kernel loads them as float4
     wins = [w.contiguous() for w in wins]
-    k = mk // m
+    m, d = wins[0].shape[:2]
+    k = yr.shape[0] // m
+    n_sm = torch.cuda.get_device_properties(yr.device).multi_processor_count
+    warps, groups, splits = cell_grid(m, k, reps, n_sm)
+    part = torch.empty(splits, m, k, d, dtype=torch.float32, device=yr.device)
     out = torch.empty(m, k, d, dtype=torch.float32, device=yr.device)
     n = len(wins)
     ptrs = (ctypes.c_void_p * n)(*[w.data_ptr() for w in wins])
     wy = (ctypes.c_int * n)(*[w.shape[2] for w in wins])
     wx = (ctypes.c_int * n)(*[w.shape[3] for w in wins])
-    launch(_SRC, "probe_cell", [PTR, PTR, PTR, PTR, PTR, PTR, I32, PTR, I32, I32, I32],
+    launch(_SRC, "probe_cell",
+           [PTR, PTR, PTR, PTR, PTR, PTR, I32, PTR, PTR, I32, I32, I32, I32, I32, I32],
            yr.device, yr.data_ptr(), xr.data_ptr(), aw.data_ptr(), ptrs, wy, wx, n,
-           out.data_ptr(), m, k, reps)
-    cell.launches += 1
+           part.data_ptr(), out.data_ptr(), m, k, reps, warps, groups, splits)
+    cell.launches += 1  # one call: cell_kernel and the fixed-order sum of its partials
     return out
 
 

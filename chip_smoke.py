@@ -34,8 +34,16 @@ Phases, each printed as it completes:
    random weights from a seeded generator, a 1204 x 1024 text bank) on 3
    batches of 2 images at 896 x 1344: outputs checked, K1/K2 launches counted
    (12 and 6 per forward), ms/batch, img/s and peak memory; then one batch
-   against the same model with the plain versions in place of the kernels,
-   and one profiled batch (device time by kernel).
+   against the same model with the plain versions in place of the kernels.
+   Then the CLIP-align head's bf16 tensor-core product (ROADMAP F-P7) against
+   the plain f32 product on the operands of its three sites (the encoder
+   output, the decoder stack, the selected queries), within 1e-5 of the
+   largest |logit|, and the forward's top-900 selection and top-300 result
+   against those with the plain head (at least 0.999 shared); last, one
+   profiled batch with the plain head and one with the tensor-core head, each
+   guarded by the launch counts (``bench.py:guarded_profile``), with their busy
+   time and GEMMs: the f32 CUDA-core GEMMs must fall by the head's three
+   products.
 7. The training step of ``configs/richsem/dino_4scale_lvis.py`` (bf16, bs2
    at 896 x 1344, the synthetic batch of ``bench.py``: 300 GT slots, 16
    valid): one warm-up and 5 steps, loss and grad norm per step, launches per
@@ -55,11 +63,13 @@ Phases, each printed as it completes:
     1204 x 1024 text bank as ``bench.py:114-126`` builds them, distillation
     at the first 100 valid GT boxes): the teacher's targets timed alone, then
     as phase 7 with ``loss_distill`` and ``loss_distill_dn`` per step, the
-    launches checked (K1 12, K1-bwd 12, K2 6, K2-bwd 6, K3 0, K3-bwd 0) and
-    the CLIP heads among the compared gradients.
+    launches checked (K1 12, K1-bwd 12, K2 6, K2-bwd 6, K3 0, K3-bwd 0), the
+    CLIP heads among the compared gradients, a profiled step, and the loss's
+    forward and backward (one set of weights, batch and draws, no update)
+    profiled with the plain head and with the tensor-core head, as in phase 6.
 11. The same step with ``dec_msda_impl="sep_pallas"``: 2 steps, launches
     checked (6 of each of the six kernels), the loss, the gradients against
-    the plain versions, and one profiled step.
+    the plain versions, and the profiles of phase 10.
 12. The calibration probes (``richsem_tpu_torch/tools``, the ports of the
     Pallas probes in ``tools/``): each module's ``main()`` at the JAX defaults
     with every probe kernel's launches counted and checked, then each probe
@@ -91,6 +101,15 @@ Phases, each printed as it completes:
     ``python -m richsem_tpu_torch.train.main --eval`` in a subprocess; finite
     loss and AP in [0, 1] checked; ms/step, the loader's wait, eval ms/batch,
     checkpoint save and restore s and peak memory printed.
+14. The port's benches, in this process: ``richsem_tpu_torch/bench.py`` (the
+    flagship train step: 3 warm-up and 20 timed steps, one profiled step
+    guarded by the launch counts), ``tools/bench_eval.py`` at its single point
+    (5 and 30 batches, one guarded profiled batch) and
+    ``tools/bench_input_pipeline.py`` at 100 images, with the train bench's
+    img/s as its chip rate. Each JSON line is printed; the value, the median,
+    min and max, the busy ms, the idle share in [0, 1], the card and the
+    launches a step (K1 12, K1-bwd 12, K2 6, K2-bwd 6; eval K1 12, K2 6) are
+    checked.
 
 ``python3 chip_smoke.py kernels`` stops after the kernel phases (1-5, 8, 9, 12).
 
@@ -238,12 +257,10 @@ def compare(name, kernel_out, plain_out, atol, rtol):
 def phase_build():
     import torch
 
+    from richsem_tpu_torch.bench import card
     from richsem_tpu_torch.ops import _build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card(torch.device("cuda"))
     print(smi, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
@@ -801,8 +818,151 @@ def phase_eval(k1_rec, k2_rec):
     if not (float(diff.mean()) < 1e-2 and overlap > 0.9):
         fail("the encoder with kernels departs from the one with plain versions")
 
-    profile_once(lambda: step(batches[1], text_embed))
+    del memory, out, ref
+    head_check(model, cfg, batch, text_embed)
+    head_profiles(lambda: step(batches[1], text_embed), "eval batch")
     print("phase 6: flagship eval step ok", flush=True)
+
+
+HEAD_SITES = ("encoder output", "decoder stack", "selected queries")  # _class_logits' calls
+# the most a top-300 score may move with the head's order of summation: a score
+# is a sigmoid, so it moves by at most a quarter of its logit's change, under
+# 1e-5 of the largest |logit| (~14)
+HEAD_TIE = 1e-4
+
+
+@contextlib.contextmanager
+def plain_head():
+    """The plain f32 product in place of the CLIP-align head's tensor-core one."""
+    from richsem_tpu_torch.models import dino
+
+    kept, dino.head_product = dino.head_product, dino.head_product_plain
+    try:
+        yield
+    finally:
+        dino.head_product = kept
+
+
+def head_check(model, cfg, batch, text_embed):
+    """F-P7: the CLIP-align head's bf16 tensor-core product against the plain f32
+    product, on the operands of each of its sites in one eval forward, within
+    1e-5 of the largest |logit| (products of bf16 values are exact in f32; only
+    the order of the sums differs). Then the selections against the plain
+    head's: the forward's top-900 as a set; the top-300 computed by both heads
+    from the same decoder state, equal but for entries that tie the 300th to
+    within HEAD_TIE; and the top-300 of a whole forward with each head, by
+    (token, class)."""
+    import torch
+
+    from richsem_tpu_torch.models import dino
+
+    calls, kept, state = [], dino.head_product, {}
+
+    def record(v, t):
+        calls.append((v, t))
+        return kept(v, t)
+
+    def forward():
+        with torch.inference_mode():
+            return model(batch["images"], batch["pad_mask"], text_embed=text_embed)
+
+    def top(logits, tokens=None):  # -> per image {(query or token, class): score}
+        k = cfg.num_select
+        out = []
+        for i, lg in enumerate(logits.float()):
+            score, idx = torch.topk(lg.sigmoid().flatten(), k)
+            q, c = (idx // lg.shape[-1]).tolist(), (idx % lg.shape[-1]).tolist()
+            if tokens is not None:
+                q = tokens[i][q].tolist()
+            out.append(dict(zip(zip(q, c), score.tolist())))
+        return out
+
+    def compare(a, b):  # -> (least overlap, largest score change, crossings past HEAD_TIE)
+        overlap, moved, far = 1.0, 0.0, 0
+        for x, y in zip(a, b):
+            both = x.keys() & y.keys()
+            overlap = min(overlap, len(both) / cfg.num_select)
+            moved = max([moved] + [abs(x[k] - y[k]) for k in both])
+            for got in (x, y):
+                far += sum(got[k] - min(got.values()) > HEAD_TIE for k in got.keys() - both)
+        return overlap, moved, far
+
+    hook = model.class_embed.register_forward_hook(lambda m, args, r: state.update(args=args))
+    dino.head_product = record
+    try:
+        out = forward()
+    finally:
+        dino.head_product = kept
+        hook.remove()
+    if len(calls) != len(HEAD_SITES) or calls[0][0].dtype != torch.bfloat16:
+        fail(f"F-P7: the eval forward reached the head {len(calls)} times "
+             f"(expect {len(HEAD_SITES)}, bf16 operands)")
+    for site, (v, t) in zip(HEAD_SITES, calls):
+        compare_rel(f"F-P7 head product at the {site} {tuple(v.shape)} x {tuple(t.shape)}",
+                    dino.head_product(v, t), dino.head_product_plain(v, t), 1e-5)
+    del calls
+    with torch.inference_mode():
+        same = model.class_embed(*state["args"])[-1]
+        with plain_head():
+            same_ref = model.class_embed(*state["args"])[-1]
+            ref = forward()
+    del state
+    sel = min(len(set(a.tolist()) & set(b.tolist())) / a.numel()
+              for a, b in zip(out["topk_idx"], ref["topk_idx"]))
+    head_overlap, head_moved, head_far = compare(top(same), top(same_ref))
+    run_overlap, run_moved, _ = compare(top(out["pred_logits"], out["topk_idx"]),
+                                        top(ref["pred_logits"], ref["topk_idx"]))
+    print(f"  F-P7: top-{cfg.num_queries} selection overlap {sel:.4f} (in order: "
+          f"{bool(torch.equal(out['topk_idx'], ref['topk_idx']))}); top-{cfg.num_select} from "
+          f"one decoder state: overlap {head_overlap:.4f}, scores within {head_moved:.3e}, "
+          f"{head_far} entries crossed the cut by more than {HEAD_TIE:g}", flush=True)
+    print(f"  F-P7: whole forwards: top-{cfg.num_select} (token, class) overlap "
+          f"{run_overlap:.4f}, shared scores within {run_moved:.3e} (the decoder runs the "
+          f"selected tokens in the order of their near-tied scores, and its bf16 sums round "
+          f"by that order)", flush=True)
+    if sel < 0.999 or head_overlap < 0.999 or head_moved > HEAD_TIE or head_far:
+        fail("F-P7: the tensor-core head changes the selections beyond ties")
+    # as the encoder check above bounds the kernels' bf16 departures
+    if run_overlap < 0.9 or run_moved > 1e-2:
+        fail("F-P7: the forward with the tensor-core head departs from the plain head's")
+
+
+def head_profiles(fn, what):
+    """F-P7 before and after: ``fn`` profiled with the plain head, then with the
+    tensor-core head, each guarded by the kernels' launch counts; prints the busy
+    time, the f32 CUDA-core GEMMs (``ffma`` or ``sgemm`` in the name; count and
+    device ms), the auction rounds a call and the busiest GEMMs. The f32
+    CUDA-core GEMMs must fall by one for each forward product of the head
+    (three a forward)."""
+    from richsem_tpu_torch.bench import guarded_profile
+    from richsem_tpu_torch.models import dino
+    from richsem_tpu_torch.ops import lap
+
+    ffma, heads = {}, 0
+    for label in ("plain head (before)", "tensor-core head (after)"):
+        with (plain_head() if label.startswith("plain") else contextlib.nullcontext()):
+            kept, calls = dino.head_product, []
+            dino.head_product = lambda v, t: calls.append(1) or kept(v, t)
+            rounds = lap.batched_min_cost_assignment.rounds
+            try:
+                prof, retakes = guarded_profile(fn)
+            finally:
+                dino.head_product = kept
+        rounds = (lap.batched_min_cost_assignment.rounds - rounds) / (retakes + 1)
+        f32 = [(n, ms) for key, n, ms in prof.ops if "gemm" in key.lower()
+               and ("ffma" in key or "sgemm" in key)]
+        ffma[label], heads = sum(n for n, _ in f32), len(calls) // (retakes + 1)
+        print(f"  F-P7 {what}, {label}: busy {prof.busy_ms:.2f} ms, {prof.n_ops} operations, "
+              f"idle share {prof.idle_share:.3f}, {retakes} retakes, auction rounds {rounds:g}, "
+              f"head forward products {heads}; f32 CUDA-core GEMMs "
+              f"{ffma[label]} launches, {sum(ms for _, ms in f32):.3f} ms; busiest GEMMs:")
+        for key, n, ms in sorted((o for o in prof.ops if "gemm" in o[0].lower()),
+                                 key=lambda o: -o[2])[:8]:
+            print(f"    {ms:9.3f} ms  x{n:<4d} {key[:100]}")
+    before, after = ffma.values()
+    if before - after != heads:
+        fail(f"F-P7: the {what}'s f32 CUDA-core GEMMs fell by {before - after}, not by the "
+             f"head's {heads} forward products")
 
 
 def train_batch(g):
@@ -844,14 +1004,10 @@ COUNTED = ("K1", "K1-bwd", "K2", "K2-bwd", "K3", "K3-bwd")
 
 def launch_counters():
     """The six kernels' counters, in the order of COUNTED and of the records."""
-    from richsem_tpu_torch.ops import fused_ffn as k2
-    from richsem_tpu_torch.ops import ms_deform_attn as k1
-    from richsem_tpu_torch.ops import ms_deform_attn_sep as k3
-    from richsem_tpu_torch.tools import bench_cal, bench_cell
-    from richsem_tpu_torch.tools import bench_vpu_model as vm
+    from richsem_tpu_torch.bench import launch_counters as by_name
 
-    return (k1.ms_deform_attn, k1.ms_deform_attn_backward, k2.encoder_tail,
-            k2.encoder_tail_backward, k3.ms_deform_attn_sep, k3.ms_deform_attn_sep_backward)
+    counters = by_name()
+    return tuple(counters[k] for k in COUNTED)
 
 
 @contextlib.contextmanager
@@ -976,6 +1132,13 @@ def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None):
         fail(f"a gradient with the kernels departs from the plain one (cosine < {COS_MIN})")
     del g_k, g_p
     profile_once(lambda: step(state, batches[1], text_embed))
+    if cfg.use_language:  # F-P7's before and after, on one set of weights and draws
+        def fwd_bwd():
+            model.zero_grad(set_to_none=True)
+            loss_fn(batches[0], draws, text_embed)[0].backward()
+            model.zero_grad(set_to_none=True)
+
+        head_profiles(fwd_bwd, "loss forward and backward")
     return launches
 
 
@@ -1494,13 +1657,51 @@ def phase_trainer(recs):
           "train/main.py", flush=True)
 
 
-# the __global__ functions of richsem_tpu_torch/csrc (K2-bwd is three of them;
-# the probes' after the model's)
-HAND_WRITTEN = ("msda_fwd_kernel", "msda_bwd_kernel", "encoder_tail_fwd_kernel",
-                "row_pass_kernel", "dw_gemm_kernel", "colsum_kernel", "msda_sep_fwd_kernel",
-                "msda_sep_bwd_kernel", "vpu_f32_kernel", "vpu_bf16_kernel", "mxu_kernel",
-                "mxu_reduce_kernel", "grid_kernel", "repeat_f32_kernel", "repeat_bf16_kernel",
-                "cell_kernel", "cell_reduce_kernel", "tile_kernel", "chain_kernel", "fma_kernel")
+BENCH_LAUNCHES = {  # the bench lines' launches a step or batch
+    "train": {"K1": 12, "K1-bwd": 12, "K2": 6, "K2-bwd": 6, "K3": 0, "K3-bwd": 0},
+    "eval": {"K1": 12, "K1-bwd": 0, "K2": 6, "K2-bwd": 0, "K3": 0, "K3-bwd": 0}}
+PIPELINE_IMAGES = 100  # the input-pipeline bench's corpus here
+
+
+def phase_bench():
+    """Phase 14: the port's three benches in this process, at their defaults: the
+    flagship train step (``richsem_tpu_torch/bench.py``), the eval step at its
+    single point (``tools/bench_eval.py``) and the host input pipeline at 100
+    images (``tools/bench_input_pipeline.py``, the train bench's img/s as its
+    chip rate). Each JSON line is printed and its fields checked."""
+    import torch
+
+    from richsem_tpu_torch import bench
+    from richsem_tpu_torch.tools import bench_eval, bench_input_pipeline
+
+    lines = {}
+    for name, run in (("train", lambda: bench.bench_line(env={})),
+                      ("eval", bench_eval.bench_line)):
+        t = time.perf_counter()
+        line = lines[name] = run()
+        print(json.dumps(line), flush=True)
+        unit = "step" if name == "train" else "batch"
+        times = [line[f"ms_per_{unit}_{k}"] for k in ("min", "median", "max")]
+        print(f"  {name} bench: {time.perf_counter() - t:.1f} s", flush=True)
+        if not (line["value"] > 0 and times == sorted(times) and line["card"]
+                and line["warmup"] >= (3 if name == "train" else 5)
+                and line["timed"] >= (20 if name == "train" else 30)
+                and 0.0 <= line["idle_share"] <= 1.0 and line["device_busy_ms"] > 0
+                and line["device_ops"] > 0 and line["peak_memory_gb"] > 0):
+            fail(f"the {name} bench line lacks a field or holds a value out of range")
+        if line[f"launches_per_{unit}"] != BENCH_LAUNCHES[name]:
+            fail(f"the {name} bench launched {line[f'launches_per_{unit}']}, not "
+                 f"{BENCH_LAUNCHES[name]}")
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    line = bench_input_pipeline.bench_line(PIPELINE_IMAGES, chip_rate=lines["train"]["value"])
+    print(json.dumps(line), flush=True)
+    print(f"  input pipeline bench: {time.perf_counter() - t:.1f} s", flush=True)
+    if not (line["value"] > 0 and line["images"] > 0 and line["ratio_to_chip"] > 0):
+        fail("the input-pipeline bench line holds a value out of range")
+    print("phase 14: the train, eval and input-pipeline benches ran", flush=True)
+
+
 MXU_KERNELS = ("mxu_kernel", "mxu_reduce_kernel")
 CELL_KERNELS = ("cell_kernel", "cell_reduce_kernel")
 
@@ -1511,48 +1712,26 @@ SCRATCH_OPS = {"zero": "FillFunctor", "cast": "copy_kernel"}
 
 
 def profile_once(fn, top: int = 12, also: dict = None, counts: dict = None) -> dict:
-    """Device time by kernel over one call of ``fn`` (torch.profiler / CUPTI):
-    the busiest ``top`` kernels, then every hand-written one. -> device ms of
-    each hand-written kernel that ran, and of the operations whose names hold
-    each substring in ``also`` under its key ({} when nothing was recorded);
-    ``counts``, if given, gets how many operations each of those sums. The
-    window opens with a short ``torch.cuda._sleep`` (``spin_kernel``), left
-    out of every sum: a profile can miss the first device operation after it
-    starts."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """Device time by kernel over one call of ``fn``, read by
+    ``utils/profiling.py:profile_call``: prints the busiest ``top`` kernels, then
+    every hand-written one. -> device ms of each hand-written kernel that ran,
+    and of the operations whose names hold each substring in ``also`` under its
+    key ({} when nothing was recorded); ``counts``, if given, gets how many
+    operations each of those sums."""
+    from richsem_tpu_torch.utils.profiling import profile_call
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    rows = [e for e in prof.key_averages() if getattr(e, "device_type", None) is not None
-            and str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
-            and "spin_kernel" not in e.key]
-    total_us = sum(e.self_device_time_total for e in rows)
-    if not rows:
+    prof = profile_call(fn)
+    if prof is None:
         print("  profile: no device time recorded (not measured)")
         return {}
-    print(f"  profile: device busy {total_us / 1e3:.2f} ms of a {wall_ms:.2f} ms call "
-          f"(idle share {max(0.0, 1 - total_us / 1e3 / wall_ms):.3f}), "
-          f"{sum(e.count for e in rows)} device operations; top kernels:")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
-        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
-    mine = [(k, e) for e in rows for k in HAND_WRITTEN if f"::{k}" in e.key]
-    if mine:
-        print("    hand-written: " + "; ".join(
-            f"{k} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for k, e in mine))
+    print("\n".join(prof.summary(top)))
     out, n = {}, {}
-    for k, e in mine:
-        out[k] = out.get(k, 0.0) + e.self_device_time_total / 1e3
-        n[k] = n.get(k, 0) + e.count
+    for k, (c, ms) in prof.kernels().items():
+        out[k], n[k] = ms, c
     for k, sub in (also or {}).items():
-        hits = [e for e in rows if sub in e.key]
-        if hits:
-            out[k] = sum(e.self_device_time_total for e in hits) / 1e3
-            n[k] = sum(e.count for e in hits)
+        hit = prof.matching(sub)
+        if hit:
+            n[k], out[k] = hit
     if counts is not None:
         counts.update(n)
     if also:
@@ -1750,6 +1929,8 @@ def main() -> None:
         phase_flagship(recs)
         torch.cuda.empty_cache()
         phase_trainer(recs)
+        torch.cuda.empty_cache()
+        phase_bench()
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": recs + probe_recs}))

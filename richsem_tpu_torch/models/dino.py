@@ -284,12 +284,63 @@ def _init_clip_proj(proj: nn.Module, ld: int, g: torch.Generator) -> None:
         nn.init.zeros_(last.bias)
 
 
+def head_product_plain(v: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``v [..., D] @ t [C, D]^T`` in f32: the plain version of :func:`head_product`."""
+    return v.float() @ t.float().t()
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [M, K] @ b [K, N]`` with an f32 result: on the card one product of the
+    operands' own dtype accumulated in f32 (``aten::mm.dtype``); on the CPU,
+    which has no kernel for it, the product of their f32 copies."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _HeadProduct(torch.autograd.Function):
+    """bf16 ``v @ t^T`` on the tensor cores with f32 accumulation and f32 output,
+    as JAX's ``dot_general(..., preferred_element_type=f32)``. ``aten::mm.dtype``
+    has no derivative, so the backward is written out as JAX's VJP of that dot
+    (``_dot_general_transpose_lhs``): the f32 cotangent times the other operand
+    in f32, rounded to the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, v, t):
+        ctx.save_for_backward(v, t)
+        out = _mm_f32(v.reshape(-1, v.shape[-1]), t.t())
+        return out.reshape(*v.shape[:-1], t.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        v, t = ctx.saved_tensors
+        g = g.reshape(-1, g.shape[-1])
+        dv = dt = None
+        if ctx.needs_input_grad[0]:
+            dv = (g @ t.float()).to(v.dtype).reshape(v.shape)
+        if ctx.needs_input_grad[1]:
+            dt = (g.t() @ v.reshape(-1, v.shape[-1]).float()).to(t.dtype)
+        return dv, dt
+
+
+def head_product(v: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The CLIP-align head's ``v [..., D] @ t [C, D]^T`` from operands in
+    ``compute_dtype``, accumulated in f32 and returned in f32. bf16 operands on
+    the card go to the tensor cores (:class:`_HeadProduct`); every other case
+    (CPU tensors, f32) runs :func:`head_product_plain`. The values agree: a
+    product of two bf16 values is exact in f32, only the order of the sums
+    differs."""
+    if v.is_cuda and v.dtype == torch.bfloat16:
+        return _HeadProduct.apply(v, t)
+    return head_product_plain(v, t)
+
+
 class ClipAlignHead(nn.Module):
     """Open-vocab classifier: CLIP text dot product (``CLIPAlign.forward_hs``).
 
     Projects queries into the CLIP joint space (``dino_visual_proj``), L2-normalizes
     both sides in f32, rounds both to ``compute_dtype`` and accumulates their
-    product in f32, then scales by exp(logit_scale).
+    product in f32 (:func:`head_product`), then scales by exp(logit_scale).
     """
 
     def __init__(self, c: DINOConfig, use_mlp: bool = False, device=None):
@@ -302,8 +353,7 @@ class ClipAlignHead(nn.Module):
         v = l2_normalize(self.dino_visual_proj(hs).float())
         t = l2_normalize(text_embed.float())
         cd = self.compute_dtype
-        logits = v.to(cd).float() @ t.to(cd).float().t()
-        return torch.exp(logit_scale) * logits
+        return torch.exp(logit_scale) * head_product(v.to(cd), t.to(cd))
 
     def init_weights(self, g: torch.Generator) -> None:
         _init_clip_proj(self.dino_visual_proj, self.embed_dim, g)

@@ -67,6 +67,10 @@ MODULES = [
     "richsem_tpu_torch.tools.bench_cal",
     "richsem_tpu_torch.tools.bench_cell",
     "richsem_tpu_torch.tools.bench_vpu_model",
+    "richsem_tpu_torch.utils.profiling",
+    "richsem_tpu_torch.bench",
+    "richsem_tpu_torch.tools.bench_eval",
+    "richsem_tpu_torch.tools.bench_input_pipeline",
 ]
 
 BLOCKED = ("jax", "flax", "richsem_tpu", "cv2")
@@ -186,6 +190,9 @@ assert result["state"].step == 1 and os.path.isfile(os.path.join(root, "out", "c
 out, _ = bench_cal.run_grid_overhead(4, device="cpu")
 assert torch.equal(out, torch.full((4, 8, 128), 2.0))
 assert bench_cell.check_repeat_semantics(device="cpu")[0].tolist() == list(range(8)) * 2
+from richsem_tpu_torch.tools import bench_input_pipeline
+line = bench_input_pipeline.bench_line(8, threads=2)
+assert line["value"] > 0 and "PNG corpus" in line["metric"]
 for fn in (bench_cal.vpu, bench_cal.mxu, bench_cal.grid_overhead, bench_cal.repeat,
            bench_cell.cell, bench_cell.tile, bench_vpu_model.chain, bench_vpu_model.fma,
            bench_vpu_model.fma_chunk):

@@ -6,10 +6,11 @@ Phases, each printed as it completes:
 
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the build of every hand-written kernel from
-   ``richsem_tpu_torch/csrc`` (nine sources, one nvcc per source, all at once,
+   ``richsem_tpu_torch/csrc`` (ten sources, one nvcc per source, all at once,
    sm_90a) with its register report (and any ptxas note that it serialised
-   ``wgmma`` products); K1, K1-bwd, K2, K2-bwd, K3 and K3-bwd must spill
-   nothing, and so must the redesigned probe kernels (``mxu_kernel``,
+   ``wgmma`` products); K1, K1-bwd, K2, K2-bwd, K3, K3-bwd and K4 (the
+   auction) must spill nothing, and so must the redesigned probe kernels
+   (``mxu_kernel``,
    ``vpu_bf16_kernel``, ``cell_kernel`` and its ``cell_reduce_kernel``,
    ``fma_kernel``), checked by name since their sources hold other kernels.
 2. K1 (deformable attention) against its plain PyTorch version at the
@@ -32,25 +33,35 @@ Phases, each printed as it completes:
    bit, and one profiled call (device time of each of its kernels).
 6. The flagship eval step (``configs/richsem/richsem_4scale_lvis.py``, bf16,
    random weights from a seeded generator, a 1204 x 1024 text bank) on 3
-   batches of 2 images at 896 x 1344: outputs checked, K1/K2 launches counted
-   (12 and 6 per forward), ms/batch, img/s and peak memory; then one batch
-   against the same model with the plain versions in place of the kernels.
+   batches of 2 images at 896 x 1344, each a replay of the step's CUDA graph
+   (``train/engine.py:EvalStep``): outputs checked, K1/K2 launches counted
+   (12 and 6 per forward), ms/batch, img/s and peak memory. The graph's
+   checks: the replay against the eager body (``eval_forward``) on the same
+   batch and weights, bit for bit, at two keys (bs2 896 x 1344 and
+   1344 x 896), with each key's warm-up and capture ms; one replay under
+   ``torch.cuda.set_sync_debug_mode("error")``; the shared pool's memory; the
+   guarded profile of a replay (busy ms, operations, idle share). Then one
+   batch against the same model with the plain versions in place of the
+   kernels.
    Then the CLIP-align head's bf16 tensor-core product (ROADMAP F-P7) against
    the plain f32 product on the operands of its three sites (the encoder
    output, the decoder stack, the selected queries), within 1e-5 of the
    largest |logit|, and the forward's top-900 selection and top-300 result
    against those with the plain head (at least 0.999 shared); last, one
-   profiled batch with the plain head and one with the tensor-core head, each
-   guarded by the launch counts (``bench.py:guarded_profile``), with their busy
-   time and GEMMs: the f32 CUDA-core GEMMs must fall by the head's three
-   products.
+   profiled eager batch (the body: a replay runs the head it captured) with
+   the plain head and one with the tensor-core head, each guarded by the
+   launch counts (``bench.py:guarded_profile``), with their busy time and
+   GEMMs: the f32 CUDA-core GEMMs must fall by the head's three products.
 7. The training step of ``configs/richsem/dino_4scale_lvis.py`` (bf16, bs2
    at 896 x 1344, the synthetic batch of ``bench.py``: 300 GT slots, 16
    valid): one warm-up and 5 steps, loss and grad norm per step, launches per
-   step (K1 12, K1-bwd 12, K2 6, K2-bwd 6, K3 0, K3-bwd 0), auction rounds,
-   ms/step, img/s and peak memory; then the gradients of a few named leaves
+   step (K1 12, K1-bwd 12, K2 6, K2-bwd 6, K3 0, K3-bwd 0, K4 7), auction
+   rounds read from K4's device counter, ms/step, img/s and peak memory; one
+   more step under ``torch.cuda.set_sync_debug_mode("error")`` (the step may
+   read nothing on the host); then the gradients of a few named leaves
    against those of the same step with the plain versions in place of every
-   kernel, and one profiled step.
+   kernel (the plain auction too), and one profiled step with its operations
+   and K4's device ms.
 8. K3 (the separable decoder sampler) against its plain dense version at the
    decoder's shapes (1,100 queries) and at odd row counts (B1, Q 37, M 1 and
    3), bf16 and f32; run right after phase 3, on its inputs; five profiled
@@ -63,13 +74,14 @@ Phases, each printed as it completes:
     1204 x 1024 text bank as ``bench.py:114-126`` builds them, distillation
     at the first 100 valid GT boxes): the teacher's targets timed alone, then
     as phase 7 with ``loss_distill`` and ``loss_distill_dn`` per step, the
-    launches checked (K1 12, K1-bwd 12, K2 6, K2-bwd 6, K3 0, K3-bwd 0), the
-    CLIP heads among the compared gradients, a profiled step, and the loss's
+    launches checked (K1 12, K1-bwd 12, K2 6, K2-bwd 6, K3 0, K3-bwd 0, K4 7;
+    the warm-up step's seven cost matrices kept for phase 15), the CLIP heads
+    among the compared gradients, a profiled step, and the loss's
     forward and backward (one set of weights, batch and draws, no update)
     profiled with the plain head and with the tensor-core head, as in phase 6.
 11. The same step with ``dec_msda_impl="sep_pallas"``: 2 steps, launches
-    checked (6 of each of the six kernels), the loss, the gradients against
-    the plain versions, and the profiles of phase 10.
+    checked (6 of each of the six model kernels, K4 7), the loss, the
+    gradients against the plain versions, and the profiles of phase 10.
 12. The calibration probes (``richsem_tpu_torch/tools``, the ports of the
     Pallas probes in ``tools/``): each module's ``main()`` at the JAX defaults
     with every probe kernel's launches counted and checked, then each probe
@@ -95,8 +107,9 @@ Phases, each printed as it completes:
     a synthetic LVIS-v1 directory (1203 categories, 16 train and 4 val PNGs of
     480-640 x 640-960 px, written with zlib), ``train_loop`` on
     ``dino_4scale_lvis.py`` at full width, bf16, bs2 for one epoch (its steps,
-    one eval, a checkpoint; launches checked: 12/12/6/6 a step, K1 12 and K2 6
-    an eval forward), again with ``epochs=2`` (auto-resume, one more epoch),
+    one eval, a checkpoint; launches checked: 12/12/6/6/7 a step, K1 12 and
+    K2 6 an eval forward, a replay a batch and a warm-up a graph), again with
+    ``epochs=2`` (auto-resume, one more epoch),
     the checkpoint restored into a fresh state and compared bit for bit, and
     ``python -m richsem_tpu_torch.train.main --eval`` in a subprocess; finite
     loss and AP in [0, 1] checked; ms/step, the loader's wait, eval ms/batch,
@@ -108,10 +121,22 @@ Phases, each printed as it completes:
     ``tools/bench_input_pipeline.py`` at 100 images, with the train bench's
     img/s as its chip rate. Each JSON line is printed; the value, the median,
     min and max, the busy ms, the idle share in [0, 1], the card and the
-    launches a step (K1 12, K1-bwd 12, K2 6, K2-bwd 6; eval K1 12, K2 6) are
-    checked.
+    launches a step (K1 12, K1-bwd 12, K2 6, K2-bwd 6, K4 7; eval K1 12, K2
+    6) are checked, and the train line's auction rounds and K4 device ms and
+    the eval line's graph, capture ms and pool are present.
+15. K4, the auction (run after phase 11, on phase 10's matrices), against the
+    plain ``_auction`` on the same CUDA tensors, exact (``torch.equal`` on the
+    assignment, each problem's rounds against the plain loop on that problem
+    alone): the seven matchings of one flagship step, random costs at P 300
+    with 16 and with 300 valid and O 900, the price-war tied rows of
+    ``tests/test_lap.py``, a cap of 3 that leaves the greedy fallback
+    collisions, and a problem with no valid person; then K4's device time
+    (five profiled calls) and CUDA-event time beside the plain loop's host
+    and device time on the first flagship matching, its rounds, bids, time a
+    round and bound.
 
-``python3 chip_smoke.py kernels`` stops after the kernel phases (1-5, 8, 9, 12).
+``python3 chip_smoke.py kernels`` stops after the kernel phases (1-5, 8, 9, 12,
+and 15 on its random cases).
 
 ``python3 chip_smoke.py ab [DIR]`` only times kernels of the port in DIR
 (default: this checkout), for A/B runs of two trees: it imports
@@ -134,9 +159,9 @@ its own:
 
     for t in build/parent . . build/parent; do python3 chip_smoke.py ab $t; done
 
-The kernels' JSON record lists nine sources: the six kernels of the model,
-each with ``launches`` from the flagship train step (phase 10, K3 and K3-bwd
-from phase 11) and ``trainer_launches`` from phase 13, and the three probe
+The kernels' JSON record lists ten sources: the six kernels of the model and
+K4, each with ``launches`` from the flagship train step (phase 10, K3 and
+K3-bwd from phase 11) and ``trainer_launches`` from phase 13, and the three probe
 sources, each with the numbers of one headline call at the top, every call
 under ``calls`` (each with ``device_ms`` beside the CUDA-event ``ms``, and
 ``library_device_ms``), and ``launches`` summed over its kernels in the
@@ -168,7 +193,7 @@ SHAPES = ((112, 168), (56, 84), (28, 42), (14, 21))  # the 896 x 1344 pyramid
 DEVICE = "cuda"
 KERNELS = ("ms_deform_attn_fwd", "ms_deform_attn_bwd", "fused_encoder_tail_fwd",
            "fused_encoder_tail_bwd", "ms_deform_attn_sep_fwd", "ms_deform_attn_sep_bwd",
-           "probe_cal", "probe_cell", "probe_vpu_model")
+           "auction", "probe_cal", "probe_cell", "probe_vpu_model")
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and f32 FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 BF16_VEC_FLOPS = 133.8e12  # bf16 outside the tensor cores (NVIDIA's H100 white paper, SXM5)
@@ -181,7 +206,7 @@ F32_ISSUE_OPS, BF16_VEC_ISSUE_OPS = F32_FLOPS / 2, BF16_VEC_FLOPS / 2
 COS_MIN = 0.9  # least gradient cosine, kernels vs plain versions (phases 7, 10, 11)
 NO_SPILL = ("ms_deform_attn_fwd", "ms_deform_attn_bwd", "fused_encoder_tail_fwd",
             "fused_encoder_tail_bwd", "ms_deform_attn_sep_fwd",
-            "ms_deform_attn_sep_bwd")  # ptxas must report 0 spill bytes
+            "ms_deform_attn_sep_bwd", "auction")  # ptxas must report 0 spill bytes
 # kernels that must spill nothing in sources that hold other kernels too
 NO_SPILL_KERNELS = {"probe_cal": ("mxu_kernel", "vpu_bf16_kernel"),
                     "probe_cell": ("cell_kernel", "cell_reduce_kernel"),
@@ -722,6 +747,87 @@ def phase_k2_bwd(args, dy):
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
+@contextlib.contextmanager
+def sync_debug():
+    """``torch.cuda.set_sync_debug_mode("error")`` around the block, after a
+    check that the mode is live (an ``.item()`` must raise under it, and
+    whether a blocking host-to-device copy does is printed). -> a list that
+    gets the error the block raised, if any."""
+    import torch
+
+    caught, probe = [], torch.zeros(1, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for what, fn in (("item", lambda: probe.item()),
+                         ("host-to-device copy", lambda: torch.tensor([1.0], device=DEVICE))):
+            try:
+                fn()
+                refused = False
+            except RuntimeError:
+                refused = True
+            if what == "item" and not refused:
+                fail("set_sync_debug_mode('error') let .item() through")
+            if what != "item":
+                print(f"  sync debug mode refuses a blocking {what}: {refused}", flush=True)
+        try:
+            yield caught
+        except RuntimeError as e:
+            caught.append(e)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def eval_batch(g, canvas):
+    """An eval batch of BATCH random images on ``canvas`` with bench.py's valid
+    extent (96 rows and 120 columns of padding)."""
+    import torch
+
+    h, w = canvas
+    pad = torch.ones(BATCH, h, w, dtype=torch.bool, device=DEVICE)
+    pad[:, : h - 96, : w - 120] = False
+    return {"images": torch.rand((BATCH, h, w, 3), generator=g, device=DEVICE) * 2 - 1,
+            "pad_mask": pad,
+            "orig_size": torch.tensor([[h - 96, w - 120]] * BATCH, device=DEVICE)}
+
+
+def graph_checks(model, cfg, step, batches, text_embed, g):
+    """The eval step's CUDA graphs: the replay against the eager body on the
+    same batch and weights, bit for bit (the same kernels in the same order,
+    and the forward has no atomics), at two keys, bs2 896 x 1344 and
+    1344 x 896; one replay under ``set_sync_debug_mode("error")``; the capture
+    ms of each key and the shared pool's memory; the guarded profile of a
+    replay (busy ms, operations, idle share)."""
+    import torch
+
+    from richsem_tpu_torch.bench import guarded_profile
+    from richsem_tpu_torch.train.engine import eval_forward, graph_key
+
+    for canvas, batch in ((CANVAS, batches[0]), (CANVAS[::-1], eval_batch(g, CANVAS[::-1]))):
+        graphed = step(batch, text_embed)
+        with torch.inference_mode():
+            eager = eval_forward(model, cfg, batch, text_embed)
+        torch.cuda.synchronize()
+        same = all(torch.equal(graphed[k], eager[k]) for k in ("scores", "labels", "boxes"))
+        cap = step.graphs[graph_key(batch, text_embed)].capture_ms
+        print(f"  graph bs{BATCH} {canvas[0]}x{canvas[1]}: replay equals the eager body bit for "
+              f"bit: {same}; warm-up + capture {cap:.1f} ms", flush=True)
+        if not same:
+            fail(f"the eval step's graph at {canvas} differs from its eager body")
+    torch.cuda.synchronize()
+    with sync_debug() as caught:
+        step(batches[1], text_embed)
+    if caught:
+        fail(f"a replay of the eval graph synchronises: {caught[0]}")
+    torch.cuda.synchronize()
+    print(f"  a replay under set_sync_debug_mode('error'): no synchronisation; {len(step.graphs)} "
+          f"graphs share one pool of {step.pool_bytes / 1e9:.3f} GB", flush=True)
+    prof, retakes = guarded_profile(lambda: step(batches[1], text_embed))
+    print(f"  replay profile: busy {prof.busy_ms:.2f} ms of {prof.wall_ms:.2f} ms, "
+          f"{prof.n_ops} device operations, idle share {prof.idle_share:.3f}, {retakes} retakes",
+          flush=True)
+
+
 def phase_eval(k1_rec, k2_rec):
     import torch
 
@@ -731,7 +837,7 @@ def phase_eval(k1_rec, k2_rec):
     from richsem_tpu_torch.models import dino, layers
     from richsem_tpu_torch.ops import fused_ffn as k2
     from richsem_tpu_torch.ops import ms_deform_attn as k1
-    from richsem_tpu_torch.train.engine import make_eval_step
+    from richsem_tpu_torch.train.engine import eval_forward, make_eval_step
 
     cfg = Config.fromfile(CONFIG)
     cfg.compute_dtype = "bfloat16"
@@ -739,18 +845,9 @@ def phase_eval(k1_rec, k2_rec):
     t0 = time.perf_counter()
     model, _, _ = build_model("richsem", cfg, device=DEVICE, generator=g)
     text_embed = torch.randn((cfg.num_classes, 1024), generator=g, device=DEVICE)
-    h, w = CANVAS
-    batches = []
-    for _ in range(N_BATCHES + 1):
-        pad = torch.ones(BATCH, h, w, dtype=torch.bool, device=DEVICE)
-        pad[:, : h - 96, : w - 120] = False  # bench.py's valid extent
-        batches.append({
-            "images": torch.rand((BATCH, h, w, 3), generator=g, device=DEVICE) * 2 - 1,
-            "pad_mask": pad,
-            "orig_size": torch.tensor([[h - 96, w - 120]] * BATCH, device=DEVICE),
-        })
+    batches = [eval_batch(g, CANVAS) for _ in range(N_BATCHES + 1)]
     step = make_eval_step(model, cfg)
-    step(batches[-1], text_embed)  # warm-up (cuDNN autotuning, allocator)
+    step(batches[-1], text_embed)  # warm-up and capture of the graph (cuDNN, allocator)
     torch.cuda.synchronize()
     print(f"  setup + warm-up {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -783,9 +880,10 @@ def phase_eval(k1_rec, k2_rec):
         fail("the eval path did not launch K1 12 and K2 6 times per forward")
     k1_rec["eval_launches"], k2_rec["eval_launches"] = n_k1, n_k2
     ms_batch = statistics.median(times)
-    print(f"  eval step: {', '.join(f'{t:.2f}' for t in times)} ms/batch; median "
-          f"{ms_batch:.2f} ms/batch = {BATCH * 1e3 / ms_batch:.3f} img/s; "
+    print(f"  eval step (CUDA graph replays): {', '.join(f'{t:.2f}' for t in times)} ms/batch; "
+          f"median {ms_batch:.2f} ms/batch = {BATCH * 1e3 / ms_batch:.3f} img/s; "
           f"peak memory {peak_gb:.2f} GB", flush=True)
+    graph_checks(model, cfg, step, batches, text_embed, g)
 
     # The same forward with the plain versions in place of K1 and K2, compared
     # at the encoder output. (Past it, the top-900 selection among 24,990
@@ -820,7 +918,12 @@ def phase_eval(k1_rec, k2_rec):
 
     del memory, out, ref
     head_check(model, cfg, batch, text_embed)
-    head_profiles(lambda: step(batches[1], text_embed), "eval batch")
+
+    def eager():  # the graph replays the head it captured: F-P7 compares eager bodies
+        with torch.inference_mode():
+            eval_forward(model, cfg, batches[1], text_embed)
+
+    head_profiles(eager, "eval batch (eager body)")
     print("phase 6: flagship eval step ok", flush=True)
 
 
@@ -934,21 +1037,25 @@ def head_profiles(fn, what):
     device ms), the auction rounds a call and the busiest GEMMs. The f32
     CUDA-core GEMMs must fall by one for each forward product of the head
     (three a forward)."""
+    import torch
+
     from richsem_tpu_torch.bench import guarded_profile
     from richsem_tpu_torch.models import dino
     from richsem_tpu_torch.ops import lap
 
     ffma, heads = {}, 0
+    counter = lap.device_rounds(DEVICE)
     for label in ("plain head (before)", "tensor-core head (after)"):
         with (plain_head() if label.startswith("plain") else contextlib.nullcontext()):
             kept, calls = dino.head_product, []
             dino.head_product = lambda v, t: calls.append(1) or kept(v, t)
-            rounds = lap.batched_min_cost_assignment.rounds
+            torch.cuda.synchronize()
+            counter.zero_()
             try:
                 prof, retakes = guarded_profile(fn)
             finally:
                 dino.head_product = kept
-        rounds = (lap.batched_min_cost_assignment.rounds - rounds) / (retakes + 1)
+        rounds = int(counter) / (retakes + 1)  # guarded_profile synchronised
         f32 = [(n, ms) for key, n, ms in prof.ops if "gemm" in key.lower()
                and ("ffma" in key or "sgemm" in key)]
         ffma[label], heads = sum(n for n, _ in f32), len(calls) // (retakes + 1)
@@ -998,12 +1105,12 @@ GRAD_LEAVES = ("encoder_layer0.ffn.linear1.weight", "encoder_layer5.ffn.linear2.
                "backbone.layer4_block2.conv3.weight")
 FLAGSHIP_LEAVES = GRAD_LEAVES[:5] + ("class_embed.dino_visual_proj.weight",
                                      "clip_visual_proj.weight", GRAD_LEAVES[6])
-# launches a train step of K1, K1-bwd, K2, K2-bwd, K3, K3-bwd
-COUNTED = ("K1", "K1-bwd", "K2", "K2-bwd", "K3", "K3-bwd")
+# launches a train step of K1, K1-bwd, K2, K2-bwd, K3, K3-bwd, K4
+COUNTED = ("K1", "K1-bwd", "K2", "K2-bwd", "K3", "K3-bwd", "K4")
 
 
 def launch_counters():
-    """The six kernels' counters, in the order of COUNTED and of the records."""
+    """The seven kernels' counters, in the order of COUNTED and of the records."""
     from richsem_tpu_torch.bench import launch_counters as by_name
 
     counters = by_name()
@@ -1013,33 +1120,39 @@ def launch_counters():
 @contextlib.contextmanager
 def plain_versions():
     """The plain versions in place of every kernel, at the modules' call sites."""
-    from richsem_tpu_torch.models import dino, layers
+    from richsem_tpu_torch.models import dino, layers, matcher
     from richsem_tpu_torch.ops import fused_ffn as k2
+    from richsem_tpu_torch.ops import lap
     from richsem_tpu_torch.ops import ms_deform_attn as k1
     from richsem_tpu_torch.ops import ms_deform_attn_sep as k3
-    from richsem_tpu_torch.tools import bench_cal, bench_cell
-    from richsem_tpu_torch.tools import bench_vpu_model as vm
 
     layers.ms_deform_attn, layers.ms_deform_attn_sep = (k1.ms_deform_attn_plain,
                                                         k3.ms_deform_attn_sep_plain)
     dino.encoder_tail = k2.encoder_tail_plain
+    matcher.batched_min_cost_assignment = (
+        lambda c, v, max_iters=3000, eps_rel=1e-4: lap._auction(-c, v, max_iters, eps_rel)[0])
     try:
         yield
     finally:
         layers.ms_deform_attn, layers.ms_deform_attn_sep = (k1.ms_deform_attn,
                                                             k3.ms_deform_attn_sep)
         dino.encoder_tail = k2.encoder_tail
+        matcher.batched_min_cost_assignment = lap.batched_min_cost_assignment
 
 
-def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None):
+def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None, costs=None):
     """Build the detector from seed 0, take one warm-up and ``n_steps`` train
-    steps (launches checked against ``want`` a step), compare the gradients of
-    ``leaves`` in one step against the same step with the plain versions, and
-    profile one step. -> the launches of the six kernels over the steps."""
+    steps (launches checked against ``want`` a step, the auction's rounds read
+    from K4's device counter), one more step under
+    ``set_sync_debug_mode("error")`` (nothing may be read on the host), compare
+    the gradients of ``leaves`` in one step against the same step with the
+    plain versions, and profile one step (its operations and K4's device ms).
+    ``costs``, if given, gets the cost matrices and masks of the warm-up step's
+    matchings. -> the launches of the seven kernels over the steps."""
     import torch
 
     import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
-    from richsem_tpu_torch.models import build_model
+    from richsem_tpu_torch.models import build_model, matcher
     from richsem_tpu_torch.ops import lap
     from richsem_tpu_torch.train.engine import (create_train_state, make_loss_fn,
                                                 make_train_step, step_draws)
@@ -1052,7 +1165,14 @@ def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None):
                                use_ema=cfg.use_ema)
     step = make_train_step(model, cfg, seed=0, device=DEVICE, clip_model=clip_model)
     batches = [train_batch(g) for _ in range(n_steps + 1)]
-    m = step(state, batches[-1], text_embed)  # warm-up (cuDNN autotuning, allocator)
+    solve = matcher.batched_min_cost_assignment
+    if costs is not None:
+        matcher.batched_min_cost_assignment = (
+            lambda c, v, **kw: costs.append((c.clone(), v.clone())) or solve(c, v, **kw))
+    try:
+        m = step(state, batches[-1], text_embed)  # warm-up (cuDNN autotuning, allocator)
+    finally:
+        matcher.batched_min_cost_assignment = solve
     torch.cuda.synchronize()
     print(f"  setup + warm-up step {time.perf_counter() - t0:.1f} s, loss {float(m['loss']):.4f}",
           flush=True)
@@ -1061,7 +1181,7 @@ def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None):
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
-    lap.batched_min_cost_assignment.rounds = 0
+    counter = lap.device_rounds(DEVICE).zero_()
     times, metrics = [], []
     for batch in batches[:n_steps]:
         t = time.perf_counter()
@@ -1069,7 +1189,7 @@ def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
     launches = [c.launches for c in counters]
-    rounds = lap.batched_min_cost_assignment.rounds
+    rounds = int(counter)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for i, m in enumerate(metrics):
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
@@ -1091,10 +1211,16 @@ def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None):
     print(f"  launches over {n_steps} steps: "
           + ", ".join(f"{k} {n}" for k, n in zip(COUNTED, launches))
           + f" (expect {want}); auction rounds {rounds} ({rounds / n_steps:.1f} a step, "
-          "7 matchings)")
+          "7 matchings; K4's device counter)")
     if launches != want:
         fail("the train step did not launch the kernels as expected: "
              + ", ".join(f"{k} {n} of {w}" for k, n, w in zip(COUNTED, launches, want)))
+    with sync_debug() as caught:
+        step(state, batches[0], text_embed)
+    if caught:
+        fail(f"the train step reads the card on the host: {caught[0]}")
+    torch.cuda.synchronize()
+    print("  one step under set_sync_debug_mode('error'): no synchronisation", flush=True)
     ms_step = statistics.median(times)
     print(f"  train step: {', '.join(f'{t:.2f}' for t in times)} ms/step; median "
           f"{ms_step:.2f} ms/step = {BATCH * 1e3 / ms_step:.3f} img/s; "
@@ -1131,7 +1257,10 @@ def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None):
     if worst < COS_MIN:
         fail(f"a gradient with the kernels departs from the plain one (cosine < {COS_MIN})")
     del g_k, g_p
-    profile_once(lambda: step(state, batches[1], text_embed))
+    n_ops = {}
+    dev = profile_once(lambda: step(state, batches[1], text_embed), also=ALL_OPS, counts=n_ops)
+    print(f"  the step's device operations: {n_ops.get('all')}; K4 {n_ops.get('auction_kernel')} "
+          f"launches, {dev.get('auction_kernel', float('nan')):.4f} ms", flush=True)
     if cfg.use_language:  # F-P7's before and after, on one set of weights and draws
         def fwd_bwd():
             model.zero_grad(set_to_none=True)
@@ -1147,7 +1276,7 @@ def phase_train(recs):
 
     cfg = Config.fromfile(TRAIN_CONFIG)
     cfg.compute_dtype = "bfloat16"
-    launches = run_train(cfg, (12, 12, 6, 6, 0, 0), N_STEPS, GRAD_LEAVES)
+    launches = run_train(cfg, (12, 12, 6, 6, 0, 0, 7), N_STEPS, GRAD_LEAVES)
     for rec, n in zip(recs, launches):
         rec["dino_train_launches"] = n
     print("phase 7: train step ok", flush=True)
@@ -1156,7 +1285,8 @@ def phase_train(recs):
 def phase_flagship(recs):
     """The flagship train step (richsem_4scale_lvis.py) with a random-weight bf16
     RN50 teacher and a random 1204 x 1024 text bank, as bench.py:114-126 builds
-    them; then the same step with the separable decoder sampler (K3)."""
+    them; then the same step with the separable decoder sampler (K3). -> the
+    cost matrices and masks of the first step's seven matchings."""
     import torch
 
     from richsem_tpu_torch.config import Config
@@ -1188,21 +1318,114 @@ def phase_flagship(recs):
     del emb, logits, cvalid
     profile_once(targets, top=6)
 
-    launches = run_train(cfg, (12, 12, 6, 6, 0, 0), N_STEPS, FLAGSHIP_LEAVES,
-                         clip_model=teacher, text_embed=text_embed)
-    for rec, n in zip(recs[:4], launches):
+    costs = []
+    launches = run_train(cfg, (12, 12, 6, 6, 0, 0, 7), N_STEPS, FLAGSHIP_LEAVES,
+                         clip_model=teacher, text_embed=text_embed, costs=costs)
+    for rec, n in zip(recs[:4] + recs[6:], launches[:4] + launches[6:]):
         rec["launches"] = n
     print("phase 10: flagship train step ok", flush=True)
     torch.cuda.empty_cache()
 
     cfg.dec_msda_impl = "sep_pallas"
-    launches = run_train(cfg, (6, 6, 6, 6, 6, 6), N_SEP_STEPS, FLAGSHIP_LEAVES,
+    launches = run_train(cfg, (6, 6, 6, 6, 6, 6, 7), N_SEP_STEPS, FLAGSHIP_LEAVES,
                          clip_model=teacher, text_embed=text_embed)
-    for rec, n in zip(recs[4:], launches[4:]):
+    for rec, n in zip(recs[4:6], launches[4:6]):
         rec["launches"] = n
     for rec, n in zip(recs, launches):
         rec["sep_pallas_launches"] = n
     print('phase 11: flagship train step with dec_msda_impl="sep_pallas" ok', flush=True)
+    return costs
+
+
+def auction_cases(costs):
+    """K4's cases: the flagship step's matchings (``costs``), random costs at
+    P 300 with 16 and with 300 valid and O 900, the price-war tied rows of
+    ``tests/test_lap.py``, a cap of 3 that leaves the greedy fallback work to
+    do, and a problem with no valid person. -> (name, cost, valid, max_iters)."""
+    import torch
+
+    cases = [(f"flagship matching {i} {tuple(c.shape)}", c, v, 3000)
+             for i, (c, v) in enumerate(costs)]
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    for n in (N_VALID, MAX_GT):
+        c = torch.randn((BATCH, MAX_GT, 900), generator=g, device=DEVICE)
+        v = (torch.arange(MAX_GT, device=DEVICE) < n)[None].repeat(BATCH, 1)
+        cases.append((f"random P {MAX_GT}, {n} valid, O 900", c, v, 3000))
+    base = torch.randn((1, 200), generator=g, device=DEVICE)
+    tied = base.repeat(40, 1) + 1e-5 * torch.randn((40, 200), generator=g, device=DEVICE)
+    cases.append(("price-war tied rows P 40, O 200", tied[None],
+                  torch.ones(1, 40, dtype=torch.bool, device=DEVICE), 3000))
+    capped = torch.zeros(1, 20, 60, device=DEVICE)
+    capped[:, :, 3::7] = -1.0
+    cases.append(("cap 3, greedy fallback", capped, torch.arange(20, device=DEVICE)[None] < 17, 3))
+    cases.append(("no valid person", torch.randn((1, 7, 30), generator=g, device=DEVICE),
+                  torch.zeros(1, 7, dtype=torch.bool, device=DEVICE), 3000))
+    return cases
+
+
+def phase_auction(rec, costs):
+    """K4 against the plain ``_auction`` on the same CUDA tensors, exact: the
+    assignment (``torch.equal``) and each problem's rounds (the plain loop run
+    on that problem alone), on :func:`auction_cases`; then K4's device time
+    (the mean of five profiled calls) and CUDA-event time beside the plain
+    loop's host and device time, on the first flagship matching (or the random
+    16-valid case), with the bound: the valid rows read once and the masks and
+    outputs once, against the rounds' f32 operations (each bid's row: a
+    subtraction, a comparison and a maximum an object; the scale's pass) at the
+    CUDA cores' issue rate; and the latency a round."""
+    import torch
+
+    from richsem_tpu_torch.ops import lap
+
+    t0 = time.perf_counter()
+    cases = auction_cases(costs)
+    for name, c, v, iters in cases:
+        obj, stats = lap._auction_cuda(c, v, True, iters, 1e-4)
+        ref, rounds = lap._auction(-c, v, iters, 1e-4)
+        alone = [lap._auction(-c[i:i + 1], v[i:i + 1], iters, 1e-4)[1] for i in range(len(c))]
+        torch.cuda.synchronize()
+        got = stats[:, 0].tolist()
+        same = torch.equal(obj, ref) and got == alone and max(got) == rounds
+        held = obj[v]
+        print(f"  K4 {name}: obj_of equal {torch.equal(obj, ref)}, rounds {got} (plain {alone}), "
+              f"bids {stats[:, 1].tolist()}; {held.numel()} valid, {held.unique().numel()} "
+              f"distinct objects", flush=True)
+        if not same:
+            fail(f"K4 differs from the plain auction on {name}")
+        if iters == 3 and held.unique().numel() == held.numel():
+            fail("the capped case left the greedy fallback no collision to make")
+    name, c, v, _ = cases[0]
+    obj, stats = lap._auction_cuda(c, v, True, 3000, 1e-4)
+    # the mean over the launches the profile recorded (one of five calls'
+    # kernels went unrecorded in each of three profiles in one run)
+    n = {}
+    dev = profile_once(lambda: [lap._auction_cuda(c, v, True, 3000, 1e-4) for _ in range(5)],
+                       top=3, also=ALL_OPS, counts=n)
+    kern = dev["auction_kernel"] / n["auction_kernel"] if "auction_kernel" in dev else None
+    ms = cuda_ms(lambda: lap._auction_cuda(c, v, True, 3000, 1e-4), iters=20)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(5):
+        lap._auction(-c, v, 3000, 1e-4)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3 / 5
+    plain_dev = device_ms(lambda: lap._auction(-c, v, 3000, 1e-4), [], iters=1,
+                          also=ALL_OPS)["all"]
+    rounds, bids = int(stats[:, 0].max()), int(stats[:, 1].sum())
+    n_valid, (b, p, o) = int(v.sum()), c.shape
+    read = n_valid * o * 4 + b * p + b * p * 8 + b * 2 * 4
+    bms, by = bound(read, bids * o * 3 + n_valid * o * 2, F32_ISSUE_OPS)
+    per_round = kern / rounds * 1e3 if kern is not None and rounds else None
+    print(f"  K4 on {name}: device {_ms(kern)} ms a launch ({n.get('auction_kernel')} of 5 "
+          f"recorded; the wrapper's {n.get('all')} operations {_ms(dev.get('all'))} ms), "
+          f"CUDA events {ms:.4f} ms; plain loop: host {plain_ms:.3f} ms, device "
+          f"{_ms(plain_dev)} ms; {rounds} rounds, {bids} bids; bound {bms:.6f} ms ({by}); "
+          f"{_ms(per_round)} us a round (the rounds run one after another)", flush=True)
+    rec.update({"max_abs_err": 0.0, "ms": ms, "device_ms": kern, "plain_ms": plain_ms,
+                "plain_device_ms": plain_dev, "bound_ms": bms, "bound_by": by,
+                "library_ms": None, "rounds": rounds, "bids": bids,
+                "us_per_round": per_round, "case": name})
+    print(f"phase 15: K4 equals the plain auction ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
 def compare_exact(name, kernel_out, plain_out):
@@ -1584,16 +1807,19 @@ def phase_trainer(recs):
         steps2 = runs[1]["state"].step - steps1
         if not runs[1]["ckpt_restore_s"] or [e["epoch"] for e in runs[1]["epochs"]] != [1]:
             fail("the second run did not auto-resume and take one more epoch")
-        want = [12 * (steps1 + eval_batches), 12 * steps1, 6 * (steps1 + eval_batches),
-                6 * steps1, 0, 0]
-        print(f"  first run: {steps1} steps and {eval_batches} eval batches; launches "
+        logs = [json.loads(line) for line in open(os.path.join(out, "log.txt"))]
+        # the eval's forwards: a replay a batch, and a warm-up before each capture
+        forwards = eval_batches + logs[0]["eval_graphs"]
+        want = [12 * (steps1 + forwards), 12 * steps1, 6 * (steps1 + forwards), 6 * steps1, 0, 0,
+                7 * steps1]
+        print(f"  first run: {steps1} steps and {eval_batches} eval batches in "
+              f"{logs[0]['eval_graphs']} graphs; launches "
               + ", ".join(f"{k} {n}" for k, n in zip(COUNTED, launches))
-              + f" (expect {want}: 12/12/6/6 a step, K1 12 and K2 6 an eval forward)")
+              + f" (expect {want}: 12/12/6/6/7 a step, K1 12 and K2 6 an eval forward)")
         if launches != want:
             fail("the trainer did not launch the kernels as expected")
         for rec, n in zip(recs, launches):
             rec["trainer_launches"] = n
-        logs = [json.loads(line) for line in open(os.path.join(out, "log.txt"))]
         for e in logs:
             print(f"  log.txt epoch {e['epoch']}: step {e['step']}, loss {e['loss']:.4f}, "
                   f"AP {e['AP']:.4f}, APr {e['APr']:.4f}, eval {e['eval_ms_per_batch']:.1f} "
@@ -1658,8 +1884,8 @@ def phase_trainer(recs):
 
 
 BENCH_LAUNCHES = {  # the bench lines' launches a step or batch
-    "train": {"K1": 12, "K1-bwd": 12, "K2": 6, "K2-bwd": 6, "K3": 0, "K3-bwd": 0},
-    "eval": {"K1": 12, "K1-bwd": 0, "K2": 6, "K2-bwd": 0, "K3": 0, "K3-bwd": 0}}
+    "train": {"K1": 12, "K1-bwd": 12, "K2": 6, "K2-bwd": 6, "K3": 0, "K3-bwd": 0, "K4": 7},
+    "eval": {"K1": 12, "K1-bwd": 0, "K2": 6, "K2-bwd": 0, "K3": 0, "K3-bwd": 0, "K4": 0}}
 PIPELINE_IMAGES = 100  # the input-pipeline bench's corpus here
 
 
@@ -1692,6 +1918,12 @@ def phase_bench():
         if line[f"launches_per_{unit}"] != BENCH_LAUNCHES[name]:
             fail(f"the {name} bench launched {line[f'launches_per_{unit}']}, not "
                  f"{BENCH_LAUNCHES[name]}")
+        if name == "train" and not (line["auction_rounds_per_step"] > 0
+                                    and line["auction_device_ms"] > 0):
+            fail("the train bench line lacks the auction's rounds or K4's device ms")
+        if name == "eval" and not (line["graph"] and line["capture_ms"] > 0
+                                   and line["pool_gb"] > 0):
+            fail("the eval bench line did not replay a captured graph")
         torch.cuda.empty_cache()
     t = time.perf_counter()
     line = bench_input_pipeline.bench_line(PIPELINE_IMAGES, chip_rate=lines["train"]["value"])
@@ -1919,14 +2151,23 @@ def main() -> None:
     k2b_rec = phase_k2_bwd(args, dy)
     del args, dy
     torch.cuda.empty_cache()
-    recs = [k1_rec, k1b_rec, k2_rec, k2b_rec, k3_rec, k3b_rec]
+    k4_rec = {"name": "K4 auction (auction_kernel)", "route": "cuda",
+              "source": "richsem_tpu_torch/csrc/auction.cu",
+              "replaces": "richsem_tpu/ops/lap.py:193 (the lax.while_loop of auction_assignment)",
+              "launches": None}
+    recs = [k1_rec, k1b_rec, k2_rec, k2b_rec, k3_rec, k3b_rec, k4_rec]
     probe_recs = phase_probes()
-    if sys.argv[1:] != ["kernels"]:
+    if sys.argv[1:] == ["kernels"]:
+        phase_auction(k4_rec, [])
+    else:
         phase_eval(k1_rec, k2_rec)
         torch.cuda.empty_cache()
         phase_train(recs)
         torch.cuda.empty_cache()
-        phase_flagship(recs)
+        costs = phase_flagship(recs)
+        torch.cuda.empty_cache()
+        phase_auction(k4_rec, costs)
+        del costs
         torch.cuda.empty_cache()
         phase_trainer(recs)
         torch.cuda.empty_cache()

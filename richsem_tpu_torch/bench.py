@@ -23,9 +23,13 @@ Timing: 3 warm-up steps, then 20 steps, each timed on the host and ended by
 One more step runs under ``torch.profiler`` for the card's busy time, its
 operations and its idle share. A profile can lose operations, so its count
 of each hand-written kernel must equal the launches its wrapper counted in
-that step (K1 12, K1-bwd 12, K2 6, K2-bwd 6; with ``BENCH_DEC_IMPL=sep_pallas``
-6 of each of the six); the profile is taken again up to 3 times, the retakes
-are reported, and the bench fails if the counts still differ.
+that step (K1 12, K1-bwd 12, K2 6, K2-bwd 6 and K4, the auction, 7: one a
+matching; with ``BENCH_DEC_IMPL=sep_pallas`` 6 of each of the six model
+kernels); the profile is taken again up to 3 times, the retakes are
+reported, and the bench fails if the counts still differ. The line also
+carries the auction's rounds a step, read from K4's device counter after the
+timed steps (``ops/lap.py:device_rounds``), and K4's device ms in the
+profiled step.
 
 ``vs_baseline`` is the multiple of 4.4 images/s: the commonly reported
 DINO-4scale R50 training rate on an NVIDIA A100 (about 55 min an epoch on
@@ -58,6 +62,8 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from richsem_tpu_torch.ops.lap import device_rounds
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(ROOT, "configs", "richsem", "richsem_4scale_lvis.py")
 A100_IMAGES_PER_SEC = 4.4
@@ -78,6 +84,7 @@ KERNELS = {
     "K2-bwd": ("fused_ffn", "encoder_tail_backward", "row_pass_kernel"),
     "K3": ("ms_deform_attn_sep", "ms_deform_attn_sep", "msda_sep_fwd_kernel"),
     "K3-bwd": ("ms_deform_attn_sep", "ms_deform_attn_sep_backward", "msda_sep_bwd_kernel"),
+    "K4": ("lap", "batched_min_cost_assignment", "auction_kernel"),
 }
 
 
@@ -86,7 +93,7 @@ class LaunchGuardError(RuntimeError):
 
 
 def launch_counters() -> Dict[str, Callable]:
-    """The six kernels' wrappers, by counter name; each has ``.launches``."""
+    """The hand-written kernels' wrappers, by counter name; each has ``.launches``."""
     import importlib
 
     return {name: getattr(importlib.import_module(f"richsem_tpu_torch.ops.{mod}"), fn)
@@ -232,12 +239,16 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def time_calls(fn: Callable[[], Any], device: torch.device, warmup: int,
-               n: int) -> Tuple[List[float], Dict[str, int]]:
+def time_calls(fn: Callable[[], Any], device: torch.device, warmup: int, n: int,
+               before_timed: Optional[Callable[[], Any]] = None
+               ) -> Tuple[List[float], Dict[str, int]]:
     """``warmup`` calls, then ``n`` calls each timed on the host and ended by a
-    synchronise. -> (ms of each timed call, launches of each kernel over them)."""
+    synchronise (``before_timed``, if given, is called between the two).
+    -> (ms of each timed call, launches of each kernel over them)."""
     for _ in range(warmup):
         fn()
+    if before_timed is not None:
+        before_timed()
     _sync(device)
     counters = launch_counters()
     before = {k: c.launches for k, c in counters.items()}
@@ -310,11 +321,14 @@ def bench_line(device="cuda", env=None, overrides=None, canvas=CANVAS, teacher=N
     state, step, teacher = build_train(cfg, dev, teacher)
     batch, text = to_device(batch_np, dev), torch.from_numpy(text_np).to(dev)
     del batch_np
-    if dev.type == "cuda":
+    on_card = dev.type == "cuda"
+    if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
-    times, launches = time_calls(lambda: step(state, batch, text), dev, warmup, steps)
-    prof, retakes = (guarded_profile(lambda: step(state, batch, text)) if dev.type == "cuda"
-                     else (None, None))
+    rounds = device_rounds(dev) if on_card else None
+    times, launches = time_calls(lambda: step(state, batch, text), dev, warmup, steps,
+                                 before_timed=rounds.zero_ if on_card else None)
+    rounds = int(rounds) / steps if on_card else None  # time_calls synchronised
+    prof, retakes = guarded_profile(lambda: step(state, batch, text)) if on_card else (None, None)
     ips = batch_size * 1e3 / statistics.median(times)
     h, w = canvas
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
@@ -327,6 +341,9 @@ def bench_line(device="cuda", env=None, overrides=None, canvas=CANVAS, teacher=N
         "vs_baseline": ips / A100_IMAGES_PER_SEC,
     }
     line.update(steadied(times, launches, steps, warmup, dev, prof, retakes))
+    line["auction_rounds_per_step"] = rounds
+    line["auction_device_ms"] = (prof.kernels().get(KERNELS["K4"][2], (0, 0.0))[1]
+                                 if on_card else None)
     return line
 
 

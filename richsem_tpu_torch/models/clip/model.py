@@ -22,6 +22,7 @@ Images are channel-last ``[B, H, W, 3]``, CLIP-normalized.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -273,10 +274,18 @@ class CLIP(nn.Module):
         return pooled @ self.text_projection
 
 
+@functools.lru_cache(maxsize=None)
+def _norm_constants(device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """The four normalisation vectors on ``device``, copied there once (outside
+    inference mode, for training after eval): a step that reads them makes
+    no host-to-device copy."""
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(a, device=device)
+                     for a in (IMAGENET_STD, IMAGENET_MEAN, CLIP_MEAN, CLIP_STD))
+
+
 def denorm_imagenet_to_clip(images: torch.Tensor) -> torch.Tensor:
     """ImageNet-normalized -> CLIP-normalized (``clip/model.py:338-343``)."""
-    def const(a):
-        return torch.as_tensor(a, device=images.device)
-
-    raw = images * const(IMAGENET_STD) + const(IMAGENET_MEAN)
-    return (raw - const(CLIP_MEAN)) / const(CLIP_STD)
+    std, mean, clip_mean, clip_std = _norm_constants(images.device)
+    raw = images * std + mean
+    return (raw - clip_mean) / clip_std

@@ -62,13 +62,15 @@ def fed_loss_classes(
     num_sample_cats = min(num_sample_cats, num_classes)
     width = min(num_classes, max(num_sample_cats, n))
     dev = matched_labels.device
-    appeared = torch.zeros(num_classes, dtype=torch.bool, device=dev)
-    appeared[matched_labels[matched_labels >= 0].long()] = True
+    # unmatched slots (-1) mark an extra entry, so that no mask selects on the host
+    slot = matched_labels.long().masked_fill(matched_labels < 0, num_classes)
+    appeared = torch.zeros(num_classes + 1, dtype=torch.bool, device=dev)
+    appeared = appeared.index_fill_(0, slot.reshape(-1), True)[:num_classes]
     gumbel = -torch.log(-torch.log(uniforms.float() + 1e-20) + 1e-20)
     if fed_weight is None:
         fed_weight = torch.ones(num_classes, dtype=torch.float32, device=dev)
     score = torch.log(fed_weight.float().clamp(min=1e-20)) + gumbel
-    score = torch.where(appeared, score.new_tensor(1e9), score)
+    score = torch.where(appeared, 1e9, score)
     ids = torch.sort(score, descending=True, stable=True).indices[:width]
     keep = torch.clamp(appeared.sum(), min=num_sample_cats)
     mask = torch.arange(width, device=dev) < keep

@@ -58,7 +58,10 @@ def xavier_uniform_(w: torch.Tensor, g: torch.Generator) -> None:
 def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``jnp.clip``: the same values as ``clamp``, and the same gradient, which
     is 1/2 at a value equal to a bound (``clamp`` gives 1 there)."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    def bound(v):  # filled on the device: no host-to-device copy
+        return torch.full((), v, dtype=x.dtype, device=x.device)
+
+    return torch.minimum(torch.maximum(x, bound(lo)), bound(hi))
 
 
 # ---------------------------------------------------------------------------

@@ -85,7 +85,7 @@ def gen_encoder_output_proposals(
     valid = in_range & ~mask_flat
     props_unsig = torch.log(props / (1.0 - props).clamp(min=1e-9))
     props_unsig = torch.where(
-        valid[..., None], props_unsig, props_unsig.new_tensor(_INVALID_LOGIT)
+        valid[..., None], props_unsig, _INVALID_LOGIT
     )
     out_memory = torch.where(valid[..., None], memory, memory.new_zeros(()))
     return out_memory, props_unsig, valid

@@ -25,6 +25,7 @@ L levels, P points): value ``[B,S,M,D]``, sampling_locations
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -51,6 +52,17 @@ def tiled_supported(
     return True
 
 
+@functools.lru_cache(maxsize=None)
+def _level_sizes(spatial_shapes: Tuple[Tuple[int, int], ...], dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """``[[W_l, H_l], ...]`` on ``device``, copied there once for each pyramid,
+    dtype and device, so that a forward (or a CUDA graph's capture of it)
+    makes no host-to-device copy. Made outside inference mode, so that a
+    training forward may use it after an eval one."""
+    with torch.inference_mode(False):
+        return torch.tensor([[w, h] for h, w in spatial_shapes], dtype=dtype, device=device)
+
+
 def compute_sampling_locations(
     reference_points: torch.Tensor,  # [B, Q, L, 2 or 4]
     sampling_offsets: torch.Tensor,  # [B, Q, M, L, P, 2]
@@ -60,10 +72,8 @@ def compute_sampling_locations(
     """2-d refs: offsets in level pixels, normalized by (W_l, H_l).
     4-d refs (cx, cy, w, h): offsets in units of half the box over the point count."""
     if reference_points.shape[-1] == 2:
-        normalizer = torch.tensor(
-            [[w, h] for h, w in spatial_shapes],
-            dtype=sampling_offsets.dtype, device=sampling_offsets.device,
-        )
+        normalizer = _level_sizes(tuple((int(h), int(w)) for h, w in spatial_shapes),
+                                  sampling_offsets.dtype, sampling_offsets.device)
         return (
             reference_points[:, :, None, :, None, :]
             + sampling_offsets / normalizer[None, None, None, :, None, :]

@@ -15,13 +15,21 @@ from ``numpy.random.default_rng(0)``, the valid extent 800 x 1224,
 
 Timing as ``richsem_tpu_torch/bench.py`` steadies it: 5 warm-up batches, then
 30 batches each timed on the host and ended by ``torch.cuda.synchronize()``;
-``value`` is the batch over the median. One more batch runs under
-``torch.profiler``, guarded by the wrappers' launch counts (K1 12 and K2 6 a
-batch), for the card's busy time and idle share.
+``value`` is the batch over the median. On the card the step is a CUDA graph
+per batch shape (``train/engine.py:EvalStep``): the first warm-up batch of a
+point captures it, and the timed batches are replays; the line says so
+(``graph``) and carries the warm-up and capture's host ms (``capture_ms``)
+and the device memory of the graphs' shared pool (``pool_gb``; across the
+points of a sweep, which share one step and one pool, the pool so far); on
+the CPU the step runs eagerly, ``graph`` is false and the other two null.
+One more batch runs under ``torch.profiler``, guarded by the wrappers'
+launch counts (K1 12 and K2 6 a batch), for the card's busy time and idle
+share.
 
 Prints ONE JSON line; ``--sweep`` prints one line per point instead: bs 1,
-2, 4 and 8 at 896 x 1344 and bs2 at 1344 x 896. A point that runs out of
-device memory is printed with its ``error``, and the sweep goes on.
+2, 4 and 8 at 896 x 1344 and bs2 at 1344 x 896, each with a graph of its own.
+A point that runs out of device memory is printed with its ``error``, and
+the sweep goes on.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import torch
 
 from richsem_tpu_torch.bench import (CANVAS, CONFIG, SHORT_DTYPE, check_device, guarded_profile,
                                      steadied, text_dim, time_calls, to_device)
+from richsem_tpu_torch.train.engine import graph_key
 
 WARMUP, BATCHES = 5, 30
 SWEEP = ((1, CANVAS), (2, CANVAS), (4, CANVAS), (8, CANVAS), (2, (1344, 896)))
@@ -95,6 +104,10 @@ def bench_point(batch_size: int, canvas, eval_step, text: torch.Tensor, device: 
              "images_per_sec": batch_size * 1e3 / med, "ms_per_image": med / batch_size,
              "ms_per_batch": med}
     point.update(steadied(times, launches, n, warmup, device, prof, retakes, unit="batch"))
+    graph = getattr(eval_step, "graphs", {}).get(graph_key(batch, text))
+    point.update(graph=graph is not None,
+                 capture_ms=graph.capture_ms if graph else None,
+                 pool_gb=eval_step.pool_bytes / 1e9 if graph else None)
     return point
 
 

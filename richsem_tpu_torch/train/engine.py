@@ -13,7 +13,9 @@
   the base seed and the step counter, so the stream advances with the step and
   a resumed run draws what the uninterrupted one would; a caller (a test) may
   pass the draws in instead.
-* :func:`make_eval_step` -- inference forward + PostProcess.
+* :func:`make_eval_step` -- inference forward + PostProcess
+  (:func:`eval_forward`), replayed as a CUDA graph per batch shape on the card
+  (:class:`EvalStep`), run as it is on the CPU.
 
 Batch layout: ``images [B,H,W,3]`` f32, ``pad_mask [B,H,W]`` bool (True on
 padding), ``labels [B,G]`` int, ``boxes [B,G,4]`` normalized cxcywh,
@@ -25,6 +27,7 @@ canvas, by which the normalized boxes are scaled for the RoI crops.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -225,27 +228,158 @@ def make_train_step(model, cfg, seed: int = 0, device="cuda", clip_model=None):
     return train_step
 
 
-def make_eval_step(model, cfg) -> Callable[..., Dict[str, torch.Tensor]]:
-    """Inference forward + PostProcess.
+def eval_forward(model, cfg, batch, text_embed=None) -> Dict[str, torch.Tensor]:
+    """The eval step's body: inference forward + PostProcess. It runs as it is
+    on the CPU; on the card a CUDA graph of it is replayed (:class:`EvalStep`)."""
+    outputs = model(batch["images"], batch["pad_mask"], text_embed=text_embed)
+    return postprocess(
+        outputs["pred_logits"], outputs["pred_boxes"], batch["orig_size"],
+        num_select=cfg.num_select, nms_iou_threshold=cfg.nms_iou_threshold,
+    )
+
+
+GRAPH_INPUTS = ("images", "pad_mask", "orig_size")  # the batch's fields the step reads
+
+
+def graph_key(batch, text_embed=None) -> tuple:
+    """What one CUDA graph of the eval step serves: the shapes and dtypes of
+    the batch's inputs (batch size and canvas) and of the text bank, or its
+    absence, and the device."""
+    return (str(batch["images"].device),
+            *((tuple(batch[k].shape), batch[k].dtype) for k in GRAPH_INPUTS),
+            None if text_embed is None else (tuple(text_embed.shape), text_embed.dtype))
+
+
+def captured_launches(counters: Dict[str, Any], capture: Callable[[], Any]) -> Dict[str, int]:
+    """Run ``capture()`` (a CUDA graph's capture) and return how much each
+    kernel wrapper's ``.launches`` rose meanwhile, with the counters put back:
+    a capture records launches, the card runs none of them."""
+    before = {k: c.launches for k, c in counters.items()}
+    try:
+        capture()
+    finally:
+        delta = {k: c.launches - before[k] for k, c in counters.items()}
+        for k, c in counters.items():
+            c.launches = before[k]
+    return delta
+
+
+def add_launches(counters: Dict[str, Any], delta: Dict[str, int]) -> None:
+    """Count a replay's launches: each wrapper's delta from its capture."""
+    for k, n in delta.items():
+        counters[k].launches += n
+
+
+@dataclasses.dataclass
+class _Graph:
+    """One captured eval step: its graph, static inputs and outputs, the
+    launches it holds, and the host ms of its warm-up and capture."""
+
+    graph: Any
+    inputs: Dict[str, torch.Tensor]
+    text: Optional[torch.Tensor]
+    outputs: Dict[str, torch.Tensor]
+    launches: Dict[str, int]
+    capture_ms: float
+
+
+class EvalStep:
+    """``eval_step(batch, text_embed=None)``: inference forward + PostProcess
+    (:func:`eval_forward`).
+
+    On the card it keeps one ``torch.cuda.CUDAGraph`` for each
+    :func:`graph_key`, as JAX compiles its jitted step once a shape. The first
+    call for a key runs the body on a side stream to warm up, then captures it
+    into static input buffers (all the step's graphs share one memory pool);
+    every call copies the batch's inputs and the text bank into those buffers,
+    replays, and returns clones of the outputs. A failed capture raises with
+    its key. The graphs read the parameters' storage, so updates that copy
+    into the parameters (the optimizer, the trainer's EMA swap, a checkpoint's
+    ``load_state_dict``) are seen; a caller that rebinds a parameter tensor
+    calls :meth:`reset`. The kernel wrappers count the launches a replay runs
+    (their deltas at capture). On the CPU the body runs as it is.
+    """
+
+    def __init__(self, model, cfg):
+        self.model, self.cfg = model, cfg
+        self.graphs: Dict[tuple, _Graph] = {}
+        self._pool = None
+
+    def reset(self) -> None:
+        """Drop every graph (and with the last one, the pool's memory)."""
+        self.graphs.clear()
+        self._pool = None
+
+    @property
+    def pool_bytes(self) -> int:
+        """Device memory held by the graphs' shared pool: the allocator's
+        segments of that pool (0 before the first capture)."""
+        if self._pool is None:
+            return 0
+        pool = tuple(self._pool)
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s.get("segment_pool_id", ())) == pool)
+
+    def __call__(self, batch, text_embed=None) -> Dict[str, torch.Tensor]:
+        with torch.inference_mode():
+            if batch["images"].device.type != "cuda":
+                return eval_forward(self.model, self.cfg, batch, text_embed)
+            key = graph_key(batch, text_embed)
+            g = self.graphs.get(key) or self._capture(key, batch, text_embed)
+            for k, buf in g.inputs.items():
+                buf.copy_(batch[k])
+            if g.text is not None:
+                g.text.copy_(text_embed)
+            g.graph.replay()
+            add_launches(_launch_counters(), g.launches)
+            return {k: v.clone() for k, v in g.outputs.items()}
+
+    def _capture(self, key, batch, text_embed) -> _Graph:
+        t0 = time.perf_counter()
+        inputs = {k: batch[k].clone() for k in GRAPH_INPUTS}
+        text = None if text_embed is None else text_embed.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm-up: libraries, cuDNN, the allocator
+            eval_forward(self.model, self.cfg, inputs, text)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph, out = torch.cuda.CUDAGraph(), {}
+
+        def capture():
+            with torch.cuda.graph(graph, pool=self._pool):
+                out.update(eval_forward(self.model, self.cfg, inputs, text))
+
+        try:
+            launches = captured_launches(_launch_counters(), capture)
+        except Exception as e:
+            raise RuntimeError(f"eval step: CUDA graph capture failed for key {key}") from e
+        torch.cuda.synchronize()
+        g = _Graph(graph, inputs, text, out, launches, (time.perf_counter() - t0) * 1e3)
+        self.graphs[key] = g
+        return g
+
+
+def _launch_counters() -> Dict[str, Any]:
+    from richsem_tpu_torch.bench import launch_counters
+
+    return launch_counters()
+
+
+def make_eval_step(model, cfg) -> EvalStep:
+    """Inference forward + PostProcess, a CUDA graph per shape on the card.
 
     The returned ``eval_step(batch, text_embed=None)`` takes ``batch`` with
     ``images [B,H,W,3]``, ``pad_mask [B,H,W]`` (True on padding) and
     ``orig_size [B,2]`` (h, w), and returns ``scores``, ``labels`` and
     ``boxes`` of ``[B, num_select]`` (boxes ``[B, num_select, 4]``, xyxy in
-    image coordinates).
+    image coordinates). See :class:`EvalStep`.
     """
     if getattr(cfg, "use_clip_visual_query", False):
         raise NotImplementedError(
             "use_clip_visual_query eval is not ported to richsem_tpu_torch yet "
             "(ROADMAP.md queue 1, item 11)"
         )
-
-    @torch.inference_mode()
-    def eval_step(batch, text_embed=None):
-        outputs = model(batch["images"], batch["pad_mask"], text_embed=text_embed)
-        return postprocess(
-            outputs["pred_logits"], outputs["pred_boxes"], batch["orig_size"],
-            num_select=cfg.num_select, nms_iou_threshold=cfg.nms_iou_threshold,
-        )
-
-    return eval_step
+    return EvalStep(model, cfg)

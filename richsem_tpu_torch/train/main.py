@@ -222,7 +222,9 @@ def _predictions(results, image_ids):
 def evaluate(cfg, model, val_loader, val_ds, text_embed=None, logger=None, device="cuda",
              save_results_dir: Optional[str] = None) -> Dict[str, float]:
     """Eval loop + AP summary (engine.py:149-330 equivalent) -> the evaluator's
-    metrics, and ``eval_ms_per_batch`` (host clock, loader included).
+    metrics, ``eval_ms_per_batch`` (host clock, loader included) and
+    ``eval_graphs``, the CUDA graphs the step captured (one a batch shape; 0
+    on the CPU). Each call builds its own step, so no graph outlives it.
 
     ``save_results_dir`` mirrors the reference's ``--save_results`` dump
     (engine.py:239-299): the {gt, prediction} arrays pickled to
@@ -266,7 +268,7 @@ def evaluate(cfg, model, val_loader, val_ds, text_embed=None, logger=None, devic
     stats = evaluator.summarize()
     if logger:
         logger.info(f"eval on {n} images ({n_batches} batches, {ms_batch:.1f} ms/batch): {stats}")
-    return dict(stats, eval_ms_per_batch=ms_batch)
+    return dict(stats, eval_ms_per_batch=ms_batch, eval_graphs=len(eval_step.graphs))
 
 
 def test_submission(cfg, model, val_loader, text_embed=None, device="cuda"):

@@ -97,9 +97,10 @@ def annotate(name: str) -> Iterator[None]:
 # (K2-bwd is three of them; the probes' after the model's).
 HAND_WRITTEN = ("msda_fwd_kernel", "msda_bwd_kernel", "encoder_tail_fwd_kernel",
                 "row_pass_kernel", "dw_gemm_kernel", "colsum_kernel", "msda_sep_fwd_kernel",
-                "msda_sep_bwd_kernel", "vpu_f32_kernel", "vpu_bf16_kernel", "mxu_kernel",
-                "mxu_reduce_kernel", "grid_kernel", "repeat_f32_kernel", "repeat_bf16_kernel",
-                "cell_kernel", "cell_reduce_kernel", "tile_kernel", "chain_kernel", "fma_kernel")
+                "msda_sep_bwd_kernel", "auction_kernel", "vpu_f32_kernel", "vpu_bf16_kernel",
+                "mxu_kernel", "mxu_reduce_kernel", "grid_kernel", "repeat_f32_kernel",
+                "repeat_bf16_kernel", "cell_kernel", "cell_reduce_kernel", "tile_kernel",
+                "chain_kernel", "fma_kernel")
 
 
 @dataclasses.dataclass

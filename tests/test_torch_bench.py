@@ -224,7 +224,9 @@ def test_train_bench_line_schema():
     line = bench.bench_line("cpu", env={}, overrides=dict(TINY_EVAL, distill_max_boxes=4),
                             canvas=CANVAS, teacher=_tiny_teacher(), warmup=1, steps=2)
     assert set(line) == {"metric", "value", "unit", "vs_baseline", "ms_per_step_median",
-                         "ms_per_step_min", "ms_per_step_max", "launches_per_step"} | STEADIED
+                         "ms_per_step_min", "ms_per_step_max", "launches_per_step",
+                         "auction_rounds_per_step", "auction_device_ms"} | STEADIED
+    assert line["auction_rounds_per_step"] is None and line["auction_device_ms"] is None
     assert line["metric"].startswith("train images/sec/chip") and line["metric"].endswith("cpu)")
     assert "f32" in line["metric"] and line["unit"] == "images/sec"
     assert line["value"] == pytest.approx(2e3 / line["ms_per_step_median"])
@@ -236,8 +238,10 @@ def test_train_bench_line_schema():
 def test_eval_bench_line_and_sweep_schema():
     line = bench_eval.bench_line("cpu", overrides=TINY_EVAL, canvas=CANVAS, warmup=1, n=2)
     point = {"batch", "canvas", "ms_per_image", "ms_per_batch", "ms_per_batch_median",
-             "ms_per_batch_min", "ms_per_batch_max", "launches_per_batch"} | STEADIED
+             "ms_per_batch_min", "ms_per_batch_max", "launches_per_batch", "graph",
+             "capture_ms", "pool_gb"} | STEADIED
     assert set(line) == {"metric", "value", "unit"} | point
+    assert (line["graph"], line["capture_ms"], line["pool_gb"]) == (False, None, None)
     assert line["metric"].startswith("eval images/sec/chip") and line["metric"].endswith("cpu)")
     assert (line["batch"], line["canvas"]) == (2, list(CANVAS))
     assert line["value"] == pytest.approx(2e3 / line["ms_per_batch"])

@@ -54,13 +54,23 @@ Phases, each printed as it completes:
    GEMMs: the f32 CUDA-core GEMMs must fall by the head's three products.
 7. The training step of ``configs/richsem/dino_4scale_lvis.py`` (bf16, bs2
    at 896 x 1344, the synthetic batch of ``bench.py``: 300 GT slots, 16
-   valid): one warm-up and 5 steps, loss and grad norm per step, launches per
-   step (K1 12, K1-bwd 12, K2 6, K2-bwd 6, K3 0, K3-bwd 0, K4 7), auction
-   rounds read from K4's device counter, ms/step, img/s and peak memory; one
-   more step under ``torch.cuda.set_sync_debug_mode("error")`` (the step may
-   read nothing on the host); then the gradients of a few named leaves
-   against those of the same step with the plain versions in place of every
-   kernel (the plain auction too), and one profiled step with its operations
+   valid): one warm-up step (eager; it captures the step's CUDA graph,
+   ``train/engine.py:TrainStep``: warm-up + capture ms and the pool's GB)
+   and 5 steps, each a replay, loss and grad norm per step, launches per
+   step (K1 12, K1-bwd 12, K2 6, K2-bwd 6, K3 0, K3-bwd 0, K4 7: a replay
+   counts the deltas its capture recorded), auction rounds read from K4's
+   device counter, ms/step, img/s, peak memory allocated and reserved; one
+   more replay under ``torch.cuda.set_sync_debug_mode("error")`` (a replay
+   may read nothing on the host); the replay against the eager body from one
+   state (``graph_vs_eager``: the state copied aside, three eager steps and
+   a replay on one batch and draws, the state put back before each; the loss
+   and every metric before the update bit for bit, ``grad_norm`` and the
+   parameters within the eager steps' spread, which K1-bwd's atomics open,
+   ROADMAP F-P6, and that spread printed); two runs of five replays from one
+   state and seed (``two_runs``, F-P6 over steps, printed); then the
+   gradients of a few named leaves against those of the same step with the
+   plain versions in place of every kernel (the plain auction too), and one
+   profiled replay with its operations, the hand-written kernels it shows
    and K4's device ms.
 8. K3 (the separable decoder sampler) against its plain dense version at the
    decoder's shapes (1,100 queries) and at odd row counts (B1, Q 37, M 1 and
@@ -80,8 +90,9 @@ Phases, each printed as it completes:
     forward and backward (one set of weights, batch and draws, no update)
     profiled with the plain head and with the tensor-core head, as in phase 6.
 11. The same step with ``dec_msda_impl="sep_pallas"``: 2 steps, launches
-    checked (6 of each of the six model kernels, K4 7), the loss, the
-    gradients against the plain versions, and the profiles of phase 10.
+    checked (6 of each of the six model kernels, K4 7), the graph's checks
+    of phase 7, the loss, the gradients against the plain versions, and the
+    profiles of phase 10.
 12. The calibration probes (``richsem_tpu_torch/tools``, the ports of the
     Pallas probes in ``tools/``): each module's ``main()`` at the JAX defaults
     with every probe kernel's launches counted and checked, then each probe
@@ -108,7 +119,11 @@ Phases, each printed as it completes:
     480-640 x 640-960 px, written with zlib), ``train_loop`` on
     ``dino_4scale_lvis.py`` at full width, bf16, bs2 for one epoch (its steps,
     one eval, a checkpoint; launches checked: 12/12/6/6/7 a step, K1 12 and
-    K2 6 an eval forward, a replay a batch and a warm-up a graph), again with
+    K2 6 an eval forward, a replay a batch and a warm-up a graph); the train
+    graphs it captured (one a canvas bucket: their number, each one's
+    warm-up + capture ms and the pool), and with them live one more step, the
+    checkpoint restored into that state in place and compared bit for bit,
+    and a replay against the eager body as in phase 7; again with
     ``epochs=2`` (auto-resume, one more epoch),
     the checkpoint restored into a fresh state and compared bit for bit, and
     ``python -m richsem_tpu_torch.train.main --eval`` in a subprocess; finite
@@ -123,7 +138,7 @@ Phases, each printed as it completes:
     min and max, the busy ms, the idle share in [0, 1], the card and the
     launches a step (K1 12, K1-bwd 12, K2 6, K2-bwd 6, K4 7; eval K1 12, K2
     6) are checked, and the train line's auction rounds and K4 device ms and
-    the eval line's graph, capture ms and pool are present.
+    both lines' graph, capture ms and pool are present (each step a replay).
 15. K4, the auction (run after phase 11, on phase 10's matrices), against the
     plain ``_auction`` on the same CUDA tensors, exact (``torch.equal`` on the
     assignment, each problem's rounds against the plain loop on that problem
@@ -1140,18 +1155,146 @@ def plain_versions():
         matcher.batched_min_cost_assignment = lap.batched_min_cost_assignment
 
 
+def state_copy(state) -> dict:
+    """A copy of what a train step changes: parameters, moments, EMA, counters."""
+    opt = state.optimizer
+    return {"params": {n: p.detach().clone() for n, p in state.model.named_parameters()},
+            "mu": [t.clone() for t in opt.mu], "nu": [t.clone() for t in opt.nu],
+            "ema": None if state.ema is None else {k: t.clone() for k, t in state.ema.items()},
+            "count": opt.count, "step": state.step}
+
+
+def state_put(state, saved: dict) -> None:
+    """Copy ``saved`` (``state_copy``) back into ``state`` in place, as the
+    graphs need: they read and write the tensors they captured."""
+    import torch
+
+    opt = state.optimizer
+    with torch.no_grad():
+        for n, p in state.model.named_parameters():
+            p.copy_(saved["params"][n])
+        for dst, src in ((opt.mu, saved["mu"]), (opt.nu, saved["nu"])):
+            for a, b in zip(dst, src):
+                a.copy_(b)
+        for k, t in (state.ema or {}).items():
+            t.copy_(saved["ema"][k])
+    opt.count, state.step = saved["count"], saved["step"]
+
+
+def ulp(x):
+    """One rounding step at the float32 value ``x`` (a 0-d tensor)."""
+    import torch
+
+    return float(torch.nextafter(x.float(), torch.tensor(math.inf, device=x.device)) - x.float())
+
+
+def param_spread(a: dict, b: dict):
+    """-> {leaf: max |a - b|} over the parameters of two ``state_copy``s."""
+    return {n: float((a["params"][n] - b["params"][n]).abs().max()) for n in a["params"]}
+
+
+def param_l2(a: dict, b: dict) -> float:
+    """The l2 distance of all the parameters of two ``state_copy``s."""
+    return math.sqrt(sum(float((a["params"][n].double() - b["params"][n].double()).square().sum())
+                         for n in a["params"]))
+
+
+def graph_vs_eager(step, state, batch, text_embed=None, what="train"):
+    """The replay against the eager body from one state: that state copied
+    aside, three eager steps (``TrainStep.eager``) and one replay on the same
+    batch and draws, the state put back before each. The loss and every
+    metric computed before the update must equal the first eager step's bit
+    for bit (the forward has no atomics). After the update the eager steps
+    differ among themselves where K1-bwd's and K3-bwd's atomic adds into
+    d_value land in another order (ROADMAP F-P6), so the replay is held to
+    their spread: its ``grad_norm`` within twice the eager values' range of
+    their nearest, each parameter within twice the eager steps' largest
+    difference of the first eager step's, and all of them together within
+    twice the eager steps' largest l2 distance (a range never below one
+    rounding step at the largest value). Prints the spread (F-P6's first
+    measurement) and the replay's distance, with the leaf where the replay's
+    largest difference is the largest share of the eager steps'. Leaves the
+    state as it found it."""
+    import torch
+
+    draws = step.draws(state, batch["labels"].shape[0])
+    saved = state_copy(state)
+    runs = []
+    for run in (step.eager, step.eager, step.eager, step):
+        metrics = run(state, batch, text_embed, draws=draws)
+        torch.cuda.synchronize()
+        runs.append((metrics, state_copy(state)))
+        state_put(state, saved)
+    (r, sr), eager = runs[-1], runs[:-1]
+    e1, s1 = eager[0]
+    pre = [k for k in e1 if k != "grad_norm"]
+    same = [k for k in pre if torch.equal(r[k], e1[k])]
+    eager_same = [k for k in pre if all(torch.equal(m[k], e1[k]) for m, _ in eager)]
+    gn = [float(m["grad_norm"]) for m, _ in eager]
+    gr = float(r["grad_norm"])
+    g_range = max(max(gn) - min(gn), ulp(e1["grad_norm"]))
+    pairs = [(a, b) for i, (_, a) in enumerate(eager) for _, b in eager[i + 1:]]
+    spreads = [param_spread(a, b) for a, b in pairs]
+    ee = {n: max(sp[n] for sp in spreads) for n in spreads[0]}
+    big = max(float(p.abs().max()) for p in s1["params"].values())
+    d_max = max(max(ee.values()), ulp(torch.tensor(big)))
+    d_l2 = max(max(param_l2(a, b) for a, b in pairs), d_max)
+    re_, r_l2 = param_spread(sr, s1), param_l2(sr, s1)
+    worst = max(ee, key=lambda n: re_[n] / max(ee[n], d_max * 1e-9))
+    print(f"  {what} graph vs eager body (one state, batch and draws): pre-update metrics "
+          f"bit for bit {len(same)}/{len(pre)} (three eager steps {len(eager_same)}/{len(pre)}); "
+          f"loss {float(r['loss']):.6f}", flush=True)
+    print(f"    three eager steps (F-P6): grad_norm {', '.join(f'{g:.9g}' for g in gn)}; "
+          f"{sum(v > 0 for v in ee.values())}/{len(ee)} leaves differ, largest difference "
+          f"{max(ee.values()):.3e}, l2 {max(param_l2(a, b) for a, b in pairs):.3e}", flush=True)
+    print(f"    replay vs first eager step: grad_norm {gr:.9g}; {sum(v > 0 for v in re_.values())}"
+          f"/{len(re_)} leaves differ, largest difference {max(re_.values()):.3e} (bound "
+          f"{2 * d_max:.3e}), l2 {r_l2:.3e} (bound {2 * d_l2:.3e}); leaf {worst}: "
+          f"{re_[worst]:.3e} against the eager steps' {ee[worst]:.3e}", flush=True)
+    if len(same) != len(pre):
+        fail(f"the {what} graph's pre-update metrics differ from the eager body's: "
+             f"{sorted(set(pre) - set(same))}")
+    if not min(gn) - 2 * g_range <= gr <= max(gn) + 2 * g_range:
+        fail(f"the {what} graph's grad_norm {gr} lies outside the eager steps' {gn}")
+    if max(re_.values()) > 2 * d_max or r_l2 > 2 * d_l2:
+        fail(f"the {what} graph's parameters lie outside the eager steps' spread")
+
+
+def two_runs(step, state, batches, text_embed=None, n=5):
+    """F-P6 over several steps: ``n`` replays from one state with one seed,
+    twice, the state put back between; prints how far the parameters and the
+    losses of the two runs lie apart. Leaves the state as it found it."""
+    import torch
+
+    saved = state_copy(state)
+    ends, losses = [], []
+    for _ in range(2):
+        losses.append([float(step(state, b, text_embed)["loss"]) for b in batches[:n]])
+        torch.cuda.synchronize()
+        ends.append(state_copy(state))
+        state_put(state, saved)
+    d = param_spread(*ends)
+    print(f"    {n} replays twice from one state and seed (F-P6): {sum(v > 0 for v in d.values())}"
+          f"/{len(d)} leaves differ, max {max(d.values()):.3e}; last loss "
+          f"{losses[0][-1]:.6f} vs {losses[1][-1]:.6f}", flush=True)
+
+
 def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None, costs=None):
-    """Build the detector from seed 0, take one warm-up and ``n_steps`` train
-    steps (launches checked against ``want`` a step, the auction's rounds read
-    from K4's device counter), one more step under
-    ``set_sync_debug_mode("error")`` (nothing may be read on the host), compare
-    the gradients of ``leaves`` in one step against the same step with the
-    plain versions, and profile one step (its operations and K4's device ms).
-    ``costs``, if given, gets the cost matrices and masks of the warm-up step's
-    matchings. -> the launches of the seven kernels over the steps."""
+    """Build the detector from seed 0, take one warm-up step (eager; it
+    captures the step's CUDA graph: capture ms and pool GB printed) and
+    ``n_steps`` train steps, each a replay (launches checked against ``want``
+    a step, the auction's rounds read from K4's device counter), one more
+    replay under ``set_sync_debug_mode("error")`` (nothing may be read on the
+    host), the replay against the eager body (``graph_vs_eager``) and two
+    runs of five replays (``two_runs``), compare the gradients of ``leaves``
+    in one step against the same step with the plain versions, and profile
+    one replay (its operations and K4's device ms). ``costs``, if given, gets
+    the cost matrices and masks of the warm-up step's matchings. -> the
+    launches of the seven kernels over the steps."""
     import torch
 
     import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
+    from richsem_tpu_torch.bench import KERNELS
     from richsem_tpu_torch.models import build_model, matcher
     from richsem_tpu_torch.ops import lap
     from richsem_tpu_torch.train.engine import (create_train_state, make_loss_fn,
@@ -1166,16 +1309,23 @@ def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None, cost
     step = make_train_step(model, cfg, seed=0, device=DEVICE, clip_model=clip_model)
     batches = [train_batch(g) for _ in range(n_steps + 1)]
     solve = matcher.batched_min_cost_assignment
+
+    def keep(c, v, **kw):  # the eager step's matrices; a capture's hold no values
+        if not torch.cuda.is_current_stream_capturing():
+            costs.append((c.clone(), v.clone()))
+        return solve(c, v, **kw)
+
     if costs is not None:
-        matcher.batched_min_cost_assignment = (
-            lambda c, v, **kw: costs.append((c.clone(), v.clone())) or solve(c, v, **kw))
+        matcher.batched_min_cost_assignment = keep
     try:
-        m = step(state, batches[-1], text_embed)  # warm-up (cuDNN autotuning, allocator)
+        m = step(state, batches[-1], text_embed)  # the eager step, then the graph's capture
     finally:
         matcher.batched_min_cost_assignment = solve
     torch.cuda.synchronize()
-    print(f"  setup + warm-up step {time.perf_counter() - t0:.1f} s, loss {float(m['loss']):.4f}",
-          flush=True)
+    (g_key, graph), = step.graphs.items()
+    print(f"  setup + warm-up step {time.perf_counter() - t0:.1f} s, loss {float(m['loss']):.4f}; "
+          f"the step's CUDA graph: warm-up + capture {graph.capture_ms:.1f} ms, pool "
+          f"{step.pool_bytes / 1e9:.3f} GB", flush=True)
 
     counters = launch_counters()
     torch.cuda.reset_peak_memory_stats()
@@ -1191,6 +1341,7 @@ def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None, cost
     launches = [c.launches for c in counters]
     rounds = int(counter)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reserved_gb = torch.cuda.memory_reserved() / 1e9
     for i, m in enumerate(metrics):
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         distill = ""
@@ -1218,13 +1369,19 @@ def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None, cost
     with sync_debug() as caught:
         step(state, batches[0], text_embed)
     if caught:
-        fail(f"the train step reads the card on the host: {caught[0]}")
+        fail(f"a replay of the train graph synchronises: {caught[0]}")
     torch.cuda.synchronize()
-    print("  one step under set_sync_debug_mode('error'): no synchronisation", flush=True)
+    print("  one replay under set_sync_debug_mode('error'): no synchronisation", flush=True)
     ms_step = statistics.median(times)
-    print(f"  train step: {', '.join(f'{t:.2f}' for t in times)} ms/step; median "
-          f"{ms_step:.2f} ms/step = {BATCH * 1e3 / ms_step:.3f} img/s; "
-          f"peak memory {peak_gb:.2f} GB", flush=True)
+    print(f"  train step (CUDA graph replays): {', '.join(f'{t:.2f}' for t in times)} ms/step; "
+          f"median {ms_step:.2f} ms/step = {BATCH * 1e3 / ms_step:.3f} img/s; "
+          f"peak memory {peak_gb:.2f} GB allocated (a replay allocates nothing; the pool "
+          f"{step.pool_bytes / 1e9:.3f} GB beside it), {reserved_gb:.2f} GB reserved",
+          flush=True)
+    graph_vs_eager(step, state, batches[0], text_embed)
+    two_runs(step, state, batches, text_embed)
+    if list(step.graphs) != [g_key]:
+        fail(f"the train step captured {len(step.graphs)} graphs for one batch shape")
 
     # The gradient of one step with the kernels against the same step with the
     # plain versions in place of all of them, same weights, batch and draws.
@@ -1259,8 +1416,9 @@ def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None, cost
     del g_k, g_p
     n_ops = {}
     dev = profile_once(lambda: step(state, batches[1], text_embed), also=ALL_OPS, counts=n_ops)
-    print(f"  the step's device operations: {n_ops.get('all')}; K4 {n_ops.get('auction_kernel')} "
-          f"launches, {dev.get('auction_kernel', float('nan')):.4f} ms", flush=True)
+    seen = {k: n_ops.get(KERNELS[k][2], 0) for k in COUNTED}
+    print(f"  the replay's device operations: {n_ops.get('all')}; the kernels in its profile "
+          f"{seen}; K4 {dev.get('auction_kernel', float('nan')):.4f} ms", flush=True)
     if cfg.use_language:  # F-P7's before and after, on one set of weights and draws
         def fwd_bwd():
             model.zero_grad(set_to_none=True)
@@ -1752,6 +1910,51 @@ def phase_probes():
             probe_record("probe_vpu_model", vm, "chain-1")]
 
 
+def same_state(a: dict, b: dict) -> bool:
+    """Two ``state_to_dict``s equal bit for bit, leaf for leaf."""
+    import torch
+
+    def leaves(d, prefix=""):
+        for k, v in (d or {}).items():
+            yield from (leaves(v, f"{prefix}{k}.") if isinstance(v, dict)
+                        else [(f"{prefix}{k}", v)])
+
+    a, b = dict(leaves(a)), dict(leaves(b))
+    return a.keys() == b.keys() and all(
+        torch.equal(a[k], b[k]) if torch.is_tensor(a[k]) else a[k] == b[k] for k in a)
+
+
+def trainer_graphs(run, cfg, ckpt_dir, saved):
+    """Phase 13's train graphs, after the first run: the keys the trainer
+    captured (one a canvas bucket) with each one's warm-up and capture ms and
+    the pool; then, with those graphs live, one more step moves the state,
+    the run's checkpoint restored into that state in place must equal the
+    saved state bit for bit, and a replay from it is held against the eager
+    body (``graph_vs_eager``)."""
+    from richsem_tpu_torch.train import main as trainer
+    from richsem_tpu_torch.utils.checkpoint import CheckpointManager, state_to_dict
+
+    step, state = run["train_step"], run["state"]
+    caps = [g.capture_ms for g in step.graphs.values()]
+    print(f"  the trainer's train graphs: {len(caps)} keys (canvas buckets), warm-up + capture "
+          f"{', '.join(f'{c:.1f}' for c in caps)} ms, pool {step.pool_bytes / 1e9:.3f} GB",
+          flush=True)
+    if not caps:
+        fail("the trainer captured no train graph")
+    batch = trainer.place_batch(next(iter(trainer.build_loaders(cfg)[0].epoch(0))), DEVICE)
+    fed_weight = next(iter(step.graphs.values())).inputs.get("fed_weight")
+    if fed_weight is not None:  # the trainer's, as it hands it to every step
+        batch["fed_weight"] = fed_weight.clone()
+    step(state, batch)  # past the checkpoint; a replay (the epoch's first bucket)
+    CheckpointManager(ckpt_dir).restore(state, step=saved["step"])
+    same = same_state(saved, state_to_dict(state))
+    print(f"  checkpoint restored in place with the graphs live equals the saved state bit for "
+          f"bit: {same}", flush=True)
+    if not same:
+        fail("the checkpoint restored under live graphs differs from the saved state")
+    graph_vs_eager(step, state, batch, what="trainer")
+
+
 def phase_trainer(recs):
     """Phase 13: ``dino_4scale_lvis.py`` trained through the port's entry point
     (``richsem_tpu_torch/train/main.py``) on a synthetic LVIS directory at full
@@ -1802,6 +2005,9 @@ def phase_trainer(recs):
             if epochs == 1:
                 launches = [c.launches for c in counters]
                 saved = state_to_dict(runs[0]["state"])
+                trainer_graphs(runs[0], cfg, os.path.join(out, "ckpt"), saved)
+                del runs[0]["train_step"]  # its graphs' pool
+                torch.cuda.empty_cache()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         steps1 = saved["step"]
         steps2 = runs[1]["state"].step - steps1
@@ -1835,19 +2041,11 @@ def phase_trainer(recs):
                                    use_ema=cfg.use_ema)
         CheckpointManager(os.path.join(out, "ckpt")).restore(fresh, step=steps1)
         back = state_to_dict(fresh)
-
-        def leaves(d, prefix=""):
-            for k, v in (d or {}).items():
-                yield from (leaves(v, f"{prefix}{k}.") if isinstance(v, dict)
-                            else [(f"{prefix}{k}", v)])
-
-        a, b = dict(leaves(saved)), dict(leaves(back))
-        same = a.keys() == b.keys() and all(
-            torch.equal(a[k], b[k]) if torch.is_tensor(a[k]) else a[k] == b[k] for k in a)
+        same = same_state(saved, back)
         print(f"  restored state equals the saved one bit for bit: {same}")
         if not same:
             fail("the restored state differs from the saved one")
-        del model, fresh, back, saved, a, b, runs[0]["state"]
+        del model, fresh, back, saved, runs[0]["state"]
 
         t = time.perf_counter()
         proc = subprocess.run(
@@ -1921,9 +2119,8 @@ def phase_bench():
         if name == "train" and not (line["auction_rounds_per_step"] > 0
                                     and line["auction_device_ms"] > 0):
             fail("the train bench line lacks the auction's rounds or K4's device ms")
-        if name == "eval" and not (line["graph"] and line["capture_ms"] > 0
-                                   and line["pool_gb"] > 0):
-            fail("the eval bench line did not replay a captured graph")
+        if not (line["graph"] and line["capture_ms"] > 0 and line["pool_gb"] > 0):
+            fail(f"the {name} bench line did not replay a captured graph")
         torch.cuda.empty_cache()
     t = time.perf_counter()
     line = bench_input_pipeline.bench_line(PIPELINE_IMAGES, chip_rate=lines["train"]["value"])

@@ -19,7 +19,12 @@ distillation, CDN, the auction matcher, every loss and AdamW, through
 are valid (LVIS has 11.2 instances an image).
 
 Timing: 3 warm-up steps, then 20 steps, each timed on the host and ended by
-``torch.cuda.synchronize()``; ``value`` is the batch over the median step.
+``torch.cuda.synchronize()``; ``value`` is the batch over the median step. On
+the card the step is a CUDA graph (``train/engine.py:TrainStep``): the first
+warm-up step runs eagerly and captures it, and every later step is a replay.
+The line says so (``graph``) and carries the warm-up and capture's host ms
+(``capture_ms``) and the device memory of the graphs' pool (``pool_gb``); on
+the CPU the step runs eagerly, ``graph`` is false and the other two null.
 One more step runs under ``torch.profiler`` for the card's busy time, its
 operations and its idle share. A profile can lose operations, so its count
 of each hand-written kernel must equal the launches its wrapper counted in
@@ -63,6 +68,7 @@ import numpy as np
 import torch
 
 from richsem_tpu_torch.ops.lap import device_rounds
+from richsem_tpu_torch.train.engine import train_graph_key
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(ROOT, "configs", "richsem", "richsem_4scale_lvis.py")
@@ -341,6 +347,9 @@ def bench_line(device="cuda", env=None, overrides=None, canvas=CANVAS, teacher=N
         "vs_baseline": ips / A100_IMAGES_PER_SEC,
     }
     line.update(steadied(times, launches, steps, warmup, dev, prof, retakes))
+    graph = getattr(step, "graphs", {}).get(train_graph_key(batch, text, state.ema is not None))
+    line.update(graph=graph is not None, capture_ms=graph.capture_ms if graph else None,
+                pool_gb=step.pool_bytes / 1e9 if graph else None)
     line["auction_rounds_per_step"] = rounds
     line["auction_device_ms"] = (prof.kernels().get(KERNELS["K4"][2], (0, 0.0))[1]
                                  if on_card else None)

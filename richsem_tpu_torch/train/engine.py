@@ -12,7 +12,9 @@
   noise, federated-loss uniforms) come from a ``torch.Generator`` seeded from
   the base seed and the step counter, so the stream advances with the step and
   a resumed run draws what the uninterrupted one would; a caller (a test) may
-  pass the draws in instead.
+  pass the draws in instead. On the card the step is replayed as a CUDA graph
+  per batch shape (:class:`TrainStep`), the counterpart of JAX's jitted and
+  donated step; on the CPU it runs as it is.
 * :func:`make_eval_step` -- inference forward + PostProcess
   (:func:`eval_forward`), replayed as a CUDA graph per batch shape on the card
   (:class:`EvalStep`), run as it is on the CPU.
@@ -192,42 +194,6 @@ def create_train_state(model, optimizer: AdamW, use_ema: bool = False) -> TrainS
     return TrainState(0, model, optimizer, ema_init(model) if use_ema else None)
 
 
-def make_train_step(model, cfg, seed: int = 0, device="cuda", clip_model=None):
-    """-> ``train_step(state, batch, text_embed=None, draws=None) -> metrics``.
-
-    Updates ``state`` in place (parameters, optimizer moments, EMA, step).
-    Without ``draws``, they come from a generator seeded with
-    ``(seed, state.step)``. ``clip_model`` is the frozen teacher of
-    ``use_visual_distill``; it is not trained."""
-    loss_fn = make_loss_fn(model, cfg, clip_model)
-    buffers = [b for _, b in frozen_leaves(model)]
-
-    def train_step(state: TrainState, batch, text_embed=None, draws=None):
-        if draws is None:
-            g = torch.Generator(device=device).manual_seed(seed * 1_000_003 + state.step)
-            draws = step_draws(cfg, batch["labels"].shape[0], g, device=device)
-        opt = state.optimizer
-        opt.zero_grad()
-        for b in buffers:  # gradients of the frozen tensors enter the global norm
-            b.requires_grad_(True)
-        try:
-            total, losses = loss_fn(batch, draws, text_embed)
-            total.backward()
-        finally:
-            for b in buffers:
-                b.requires_grad_(False)
-        gnorm = opt.step()
-        if state.ema is not None:
-            ema_update(state.ema, model, cfg.ema_decay)
-        state.step += 1
-        metrics = {"loss": total.detach(), "grad_norm": gnorm,
-                   "finite": torch.isfinite(total.detach())}
-        metrics.update({k: v.detach() for k, v in losses.items() if k in METRIC_KEYS})
-        return metrics
-
-    return train_step
-
-
 def eval_forward(model, cfg, batch, text_embed=None) -> Dict[str, torch.Tensor]:
     """The eval step's body: inference forward + PostProcess. It runs as it is
     on the CPU; on the card a CUDA graph of it is replayed (:class:`EvalStep`)."""
@@ -272,8 +238,9 @@ def add_launches(counters: Dict[str, Any], delta: Dict[str, int]) -> None:
 
 @dataclasses.dataclass
 class _Graph:
-    """One captured eval step: its graph, static inputs and outputs, the
-    launches it holds, and the host ms of its warm-up and capture."""
+    """One captured step: its graph, static inputs (the batch's fields, the
+    draws and the text bank) and outputs, the launches it holds, the host ms
+    of its warm-up and capture, and (train) the optimizer and EMA it updates."""
 
     graph: Any
     inputs: Dict[str, torch.Tensor]
@@ -281,27 +248,14 @@ class _Graph:
     outputs: Dict[str, torch.Tensor]
     launches: Dict[str, int]
     capture_ms: float
+    draws: Optional[Dict[str, Any]] = None
+    bound: Tuple[Any, ...] = ()
 
 
-class EvalStep:
-    """``eval_step(batch, text_embed=None)``: inference forward + PostProcess
-    (:func:`eval_forward`).
+class _Graphs:
+    """The CUDA graphs of one step function, by key, in one memory pool."""
 
-    On the card it keeps one ``torch.cuda.CUDAGraph`` for each
-    :func:`graph_key`, as JAX compiles its jitted step once a shape. The first
-    call for a key runs the body on a side stream to warm up, then captures it
-    into static input buffers (all the step's graphs share one memory pool);
-    every call copies the batch's inputs and the text bank into those buffers,
-    replays, and returns clones of the outputs. A failed capture raises with
-    its key. The graphs read the parameters' storage, so updates that copy
-    into the parameters (the optimizer, the trainer's EMA swap, a checkpoint's
-    ``load_state_dict``) are seen; a caller that rebinds a parameter tensor
-    calls :meth:`reset`. The kernel wrappers count the launches a replay runs
-    (their deltas at capture). On the CPU the body runs as it is.
-    """
-
-    def __init__(self, model, cfg):
-        self.model, self.cfg = model, cfg
+    def __init__(self):
         self.graphs: Dict[tuple, _Graph] = {}
         self._pool = None
 
@@ -320,9 +274,66 @@ class EvalStep:
         return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
                    if tuple(s.get("segment_pool_id", ())) == pool)
 
+    def _capture_into(self, key, what: str, body: Callable[[], Dict[str, torch.Tensor]]):
+        """Capture ``body()`` into a new graph of the shared pool -> (graph, its
+        outputs, the launches it holds); a failed capture raises with ``key``."""
+        try:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph, out = torch.cuda.CUDAGraph(), {}
+
+            def capture():
+                with torch.cuda.graph(graph, pool=self._pool):
+                    out.update(body())
+
+            launches = captured_launches(_launch_counters(), capture)
+        except Exception as e:
+            raise RuntimeError(f"{what}: CUDA graph capture failed for key {key}") from e
+        torch.cuda.synchronize()
+        return graph, out, launches
+
+
+def _on_card(batch) -> bool:
+    """Whether a step on ``batch`` replays graphs (on the card) or runs as it is."""
+    return batch["images"].device.type == "cuda"
+
+
+def _side_stream_run(fn: Callable[[], Any]) -> Any:
+    """``fn()`` on a side stream, waited for: a step's warm-up before its capture
+    (cuBLAS, cuDNN and the allocator)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    return out
+
+
+class EvalStep(_Graphs):
+    """``eval_step(batch, text_embed=None)``: inference forward + PostProcess
+    (:func:`eval_forward`).
+
+    On the card it keeps one ``torch.cuda.CUDAGraph`` for each
+    :func:`graph_key`, as JAX compiles its jitted step once a shape. The first
+    call for a key runs the body on a side stream to warm up, then captures it
+    into static input buffers (all the step's graphs share one memory pool);
+    every call copies the batch's inputs and the text bank into those buffers,
+    replays, and returns clones of the outputs. A failed capture raises with
+    its key. The graphs read the parameters' storage, so updates that copy
+    into the parameters (the optimizer, the trainer's EMA swap, a checkpoint's
+    ``load_state_dict``) are seen; a caller that rebinds a parameter tensor
+    calls :meth:`reset`. The kernel wrappers count the launches a replay runs
+    (their deltas at capture). On the CPU the body runs as it is.
+    """
+
+    def __init__(self, model, cfg):
+        super().__init__()
+        self.model, self.cfg = model, cfg
+
     def __call__(self, batch, text_embed=None) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
-            if batch["images"].device.type != "cuda":
+            if not _on_card(batch):
                 return eval_forward(self.model, self.cfg, batch, text_embed)
             key = graph_key(batch, text_embed)
             g = self.graphs.get(key) or self._capture(key, batch, text_embed)
@@ -338,28 +349,165 @@ class EvalStep:
         t0 = time.perf_counter()
         inputs = {k: batch[k].clone() for k in GRAPH_INPUTS}
         text = None if text_embed is None else text_embed.clone()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):  # warm-up: libraries, cuDNN, the allocator
-            eval_forward(self.model, self.cfg, inputs, text)
-        torch.cuda.current_stream().wait_stream(side)
-        torch.cuda.synchronize()
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        graph, out = torch.cuda.CUDAGraph(), {}
-
-        def capture():
-            with torch.cuda.graph(graph, pool=self._pool):
-                out.update(eval_forward(self.model, self.cfg, inputs, text))
-
-        try:
-            launches = captured_launches(_launch_counters(), capture)
-        except Exception as e:
-            raise RuntimeError(f"eval step: CUDA graph capture failed for key {key}") from e
-        torch.cuda.synchronize()
+        _side_stream_run(lambda: eval_forward(self.model, self.cfg, inputs, text))
+        graph, out, launches = self._capture_into(
+            key, "eval step", lambda: eval_forward(self.model, self.cfg, inputs, text))
         g = _Graph(graph, inputs, text, out, launches, (time.perf_counter() - t0) * 1e3)
         self.graphs[key] = g
         return g
+
+
+# the batch's fields the train step reads (loss_fn), where present
+TRAIN_INPUTS = ("images", "pad_mask", "labels", "boxes", "valid", "size", "is_extra",
+                "fed_weight")
+
+
+def train_graph_key(batch, text_embed=None, ema: bool = False) -> tuple:
+    """What one CUDA graph of the train step serves: the device, the shapes and
+    dtypes of the batch fields the step reads (an absent one as absent), the
+    text bank or its absence, and whether EMA is on."""
+    return (str(batch["images"].device),
+            *((k, None) if batch.get(k) is None else (k, tuple(batch[k].shape), batch[k].dtype)
+              for k in TRAIN_INPUTS),
+            None if text_embed is None else (tuple(text_embed.shape), text_embed.dtype),
+            bool(ema))
+
+
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _tree_copy_(dst, src) -> None:
+    for k, v in dst.items():
+        if isinstance(v, dict):
+            _tree_copy_(v, src[k])
+        else:
+            v.copy_(src[k])
+
+
+class TrainStep(_Graphs):
+    """``train_step(state, batch, text_embed=None, draws=None) -> metrics``;
+    updates ``state`` in place (parameters, optimizer moments, EMA, step).
+
+    A step is a host part and a device part, :meth:`body`. The host part
+    draws the step's random numbers (:meth:`draws`, from a generator seeded
+    with ``(seed, state.step)``, unless the caller passes them), writes the
+    optimizer's lr and bias corrections into its device tensor
+    (``AdamW.prepare``) and, after the body, advances the optimizer's count
+    and ``state.step``. The body reads nothing that changes from step to step
+    but tensors.
+
+    On the CPU the two parts run as they are (:meth:`eager`). On the card the
+    step keeps one ``torch.cuda.CUDAGraph`` of the body for each
+    :func:`train_graph_key`, as JAX compiles its jitted step once a shape. The
+    first call for a key is the step run eagerly on a side stream (the
+    warm-up: its update lands once); the body is then captured into static
+    buffers of the batch's fields, the draws and the text bank, which runs
+    nothing. Every later call copies its inputs into those buffers, fills the
+    optimizer's scalars, replays the graph, advances the counters and returns
+    clones of the metrics (a caller may read them after the next replay). A
+    failed capture raises with its key. All the graphs share one memory pool,
+    which holds their gradients: after a capture ``.grad`` is ``None``, and an
+    eager backward allocates its own. The graphs update the parameters,
+    moments and EMA in place and read their storage, so whatever copies into
+    them (a checkpoint's restore, the EMA swap) is seen; a caller that
+    rebinds them (a new EMA dict) calls :meth:`reset`, and a call with
+    another optimizer or EMA than the graph's raises. The kernel wrappers
+    count a replay's launches (their deltas at capture).
+    """
+
+    def __init__(self, model, cfg, seed: int = 0, device="cuda", clip_model=None):
+        super().__init__()
+        self.model, self.cfg, self.seed, self.device = model, cfg, seed, device
+        self.loss_fn = make_loss_fn(model, cfg, clip_model)
+        self.buffers = [b for _, b in frozen_leaves(model)]
+
+    def draws(self, state: TrainState, batch_size: int) -> Dict[str, Any]:
+        """The step's draws, from a generator seeded with ``(seed, state.step)``."""
+        g = torch.Generator(device=self.device).manual_seed(self.seed * 1_000_003 + state.step)
+        return step_draws(self.cfg, batch_size, g, device=self.device)
+
+    def body(self, state: TrainState, batch, draws, text_embed=None) -> Dict[str, torch.Tensor]:
+        """The device part: the loss and its backward (the FrozenBN tensors'
+        gradients too, for the global norm), the optimizer's update, EMA and
+        the metrics."""
+        opt = state.optimizer
+        opt.zero_grad()
+        for b in self.buffers:  # gradients of the frozen tensors enter the global norm
+            b.requires_grad_(True)
+        try:
+            total, losses = self.loss_fn(batch, draws, text_embed)
+            total.backward()
+        finally:
+            for b in self.buffers:
+                b.requires_grad_(False)
+        gnorm = opt.update()
+        if state.ema is not None:
+            ema_update(state.ema, self.model, self.cfg.ema_decay)
+        metrics = {"loss": total.detach(), "grad_norm": gnorm,
+                   "finite": torch.isfinite(total.detach())}
+        metrics.update({k: v.detach() for k, v in losses.items() if k in METRIC_KEYS})
+        return metrics
+
+    def eager(self, state: TrainState, batch, text_embed=None, draws=None):
+        """One step run as it is: the host part around :meth:`body`."""
+        if draws is None:
+            draws = self.draws(state, batch["labels"].shape[0])
+        state.optimizer.prepare()
+        metrics = self.body(state, batch, draws, text_embed)
+        state.optimizer.advance()
+        state.step += 1
+        return metrics
+
+    def __call__(self, state: TrainState, batch, text_embed=None, draws=None):
+        if not _on_card(batch):
+            return self.eager(state, batch, text_embed, draws)
+        if draws is None:
+            draws = self.draws(state, batch["labels"].shape[0])
+        key = train_graph_key(batch, text_embed, state.ema is not None)
+        g = self.graphs.get(key)
+        if g is None:
+            return self._warm_up_and_capture(key, state, batch, text_embed, draws)
+        if g.bound[0] is not state.optimizer or g.bound[1] is not state.ema:
+            raise RuntimeError("train step: the optimizer or EMA was rebound since its graph "
+                               "was captured; call reset() after rebinding them")
+        for k, buf in g.inputs.items():
+            buf.copy_(batch[k])
+        _tree_copy_(g.draws, draws)
+        if g.text is not None:
+            g.text.copy_(text_embed)
+        state.optimizer.prepare()
+        g.graph.replay()
+        add_launches(_launch_counters(), g.launches)
+        state.optimizer.advance()
+        state.step += 1
+        return {k: v.clone() for k, v in g.outputs.items()}
+
+    def _warm_up_and_capture(self, key, state, batch, text_embed, draws):
+        t0 = time.perf_counter()
+        inputs = {k: batch[k].clone() for k in TRAIN_INPUTS if batch.get(k) is not None}
+        text = None if text_embed is None else text_embed.clone()
+        static_draws = _tree_map(torch.clone, draws)
+        metrics = _side_stream_run(lambda: self.eager(state, inputs, text, static_draws))
+        try:
+            graph, out, launches = self._capture_into(
+                key, "train step", lambda: self.body(state, inputs, static_draws, text))
+        finally:
+            state.optimizer.zero_grad()  # the graph's gradients stay in its pool
+        self.graphs[key] = _Graph(graph, inputs, text, out, launches,
+                                  (time.perf_counter() - t0) * 1e3, static_draws,
+                                  (state.optimizer, state.ema))
+        return metrics
+
+
+def make_train_step(model, cfg, seed: int = 0, device="cuda", clip_model=None) -> TrainStep:
+    """-> ``train_step(state, batch, text_embed=None, draws=None) -> metrics``.
+
+    Updates ``state`` in place (parameters, optimizer moments, EMA, step).
+    Without ``draws``, they come from a generator seeded with
+    ``(seed, state.step)``. ``clip_model`` is the frozen teacher of
+    ``use_visual_distill``; it is not trained. See :class:`TrainStep`."""
+    return TrainStep(model, cfg, seed, device, clip_model)
 
 
 def _launch_counters() -> Dict[str, Any]:

@@ -328,9 +328,9 @@ def _resume_epoch(manager: CheckpointManager) -> int:
 
 def train_loop(cfg, device=None) -> Dict:
     """One run as the CLI describes it -> ``{"test": path}``, ``{"eval": stats}``
-    or ``{"best": ..., "state": the TrainState, "epochs": the epoch stats,
-    "step_s", "data_s": host seconds a step and waiting for its batch,
-    "ckpt_save_s", "ckpt_restore_s"}``."""
+    or ``{"best": ..., "state": the TrainState, "train_step": the step (its CUDA
+    graphs on the card), "epochs": the epoch stats, "step_s", "data_s": host
+    seconds a step and waiting for its batch, "ckpt_save_s", "ckpt_restore_s"}``."""
     if int(os.environ.get("WORLD_SIZE", "1")) > 1 or int(getattr(cfg, "world_size", 1)) > 1:
         raise NotImplementedError(_DDP)
     device = torch.device(device or getattr(cfg, "device", "cuda"))
@@ -423,6 +423,7 @@ def train_loop(cfg, device=None) -> Dict:
             # EMA starts tracking at ema_epoch (util/utils.py ModelEma +
             # main.py:337-342 rebuild semantics)
             state.ema = ema_init(model)
+            train_step.reset()  # a graph updates the EMA tensors it captured
         mlog = MetricLogger(logger=logger)
         t0 = time.time()
         # Per-step NaN abort, delayed by exactly one step (reference aborts on
@@ -479,7 +480,7 @@ def train_loop(cfg, device=None) -> Dict:
             with open(log_path, "a") as f:
                 f.write(json.dumps(epoch_stats, default=float) + "\n")
 
-    result.update(best=best.summary(), state=state)
+    result.update(best=best.summary(), state=state, train_step=train_step)
     return result
 
 

@@ -19,6 +19,11 @@ step size of every trainable leaf.
 
 Frozen leaves (group scale 0) get no update at all, which is what the chain
 gives them: a zero scale multiplies both the Adam term and the decay.
+
+The step's lr and bias corrections change with every step. They are computed
+on the host in float32, as the JAX chain computes them, and reach the update
+only through a small device tensor (:attr:`AdamW.hyper`), so that a CUDA
+graph of the update replays with each step's values.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict, List, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -82,7 +88,13 @@ def make_lr_schedule(cfg, steps_per_epoch: int) -> Callable[[int], float]:
 
 
 class AdamW:
-    """The JAX chain over named parameter groups; see the module docstring."""
+    """The JAX chain over named parameter groups; see the module docstring.
+
+    A step has three parts: :meth:`prepare` (host: the step's lr and bias
+    corrections written into :attr:`hyper`), :meth:`update` (device: the
+    norm, the clip and the update, which read ``hyper`` and no Python number
+    that changes from step to step, so that a CUDA graph can hold it) and
+    :meth:`advance` (host: the count). :meth:`step` runs the three."""
 
     def __init__(self, model: nn.Module, cfg, steps_per_epoch: int = 1,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
@@ -98,6 +110,25 @@ class AdamW:
         self.frozen += frozen_leaves(model)
         self.mu = [torch.zeros_like(p) for _, p in self.trainable]
         self.nu = [torch.zeros_like(p) for _, p in self.trainable]
+        # lr, 1 - b1^t and 1 - b2^t of the step in progress, on the parameters' device
+        self.hyper = torch.zeros(3, device=named[0][1].device if named else "cpu")
+
+    def scalars(self) -> Tuple[float, float, float]:
+        """lr, ``1 - b1^t`` and ``1 - b2^t`` of the next step (``t = count + 1``),
+        in float32 as the JAX chain computes them (``optax.scale_by_adam``'s
+        bias correction raises the float32 decay to the step)."""
+        t, one = np.float32(self.count + 1), np.float32(1.0)
+        return (float(np.float32(self.schedule(self.count))),
+                float(one - np.float32(self.b1) ** t), float(one - np.float32(self.b2) ** t))
+
+    def prepare(self) -> None:
+        """Write the next step's :meth:`scalars` into :attr:`hyper` (three fills,
+        no host-to-device copy)."""
+        for dst, value in zip(self.hyper.unbind(), self.scalars()):
+            dst.fill_(value)
+
+    def advance(self) -> None:
+        self.count += 1
 
     def grad_leaves(self) -> List[torch.Tensor]:
         """Every leaf's gradient (a missing one is zero, as in JAX's tree)."""
@@ -105,8 +136,9 @@ class AdamW:
                 for _, t in self.trainable + self.frozen]
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
-        """One update from the ``.grad`` of every leaf -> the pre-clip global norm."""
+    def update(self) -> torch.Tensor:
+        """The update from the ``.grad`` of every leaf and :attr:`hyper` -> the
+        pre-clip global norm."""
         grads = self.grad_leaves()
         # squares summed in float64: a float32 norm of a leaf of millions of
         # entries is off by ~1e-5, and the clip binds on every step
@@ -114,17 +146,24 @@ class AdamW:
         gnorm = sq.sum().sqrt().float()
         clip = torch.where(gnorm < self.clip_max_norm, gnorm.new_ones(()),
                            self.clip_max_norm / gnorm)
-        lr = self.schedule(self.count)
-        self.count += 1
-        c1 = 1.0 - self.b1 ** self.count
-        c2 = 1.0 - self.b2 ** self.count
+        lr, c1, c2 = self.hyper.unbind()
         g = torch._foreach_mul(grads[: len(self.trainable)], clip)
         torch._foreach_lerp_(self.mu, g, 1.0 - self.b1)
         torch._foreach_mul_(self.nu, self.b2)
         torch._foreach_addcmul_(self.nu, g, g, value=1.0 - self.b2)
         for (name, p), m, v in zip(self.trainable, self.mu, self.nu):
             u = (m / c1) / (torch.sqrt(v / c2) + self.eps) + self.weight_decay * p
-            p.add_(u * (-self.scales[name] * lr))
+            if self.scales[name] != 1.0:  # the group scale, then the lr, as the chain
+                u.mul_(self.scales[name])
+            p.sub_(u * lr)
+        return gnorm
+
+    def step(self) -> torch.Tensor:
+        """One whole update (:meth:`prepare`, :meth:`update`, :meth:`advance`)
+        -> the pre-clip global norm."""
+        self.prepare()
+        gnorm = self.update()
+        self.advance()
         return gnorm
 
     def zero_grad(self) -> None:

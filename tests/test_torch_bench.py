@@ -225,8 +225,10 @@ def test_train_bench_line_schema():
                             canvas=CANVAS, teacher=_tiny_teacher(), warmup=1, steps=2)
     assert set(line) == {"metric", "value", "unit", "vs_baseline", "ms_per_step_median",
                          "ms_per_step_min", "ms_per_step_max", "launches_per_step",
-                         "auction_rounds_per_step", "auction_device_ms"} | STEADIED
+                         "auction_rounds_per_step", "auction_device_ms", "graph",
+                         "capture_ms", "pool_gb"} | STEADIED
     assert line["auction_rounds_per_step"] is None and line["auction_device_ms"] is None
+    assert (line["graph"], line["capture_ms"], line["pool_gb"]) == (False, None, None)
     assert line["metric"].startswith("train images/sec/chip") and line["metric"].endswith("cpu)")
     assert "f32" in line["metric"] and line["unit"] == "images/sec"
     assert line["value"] == pytest.approx(2e3 / line["ms_per_step_median"])

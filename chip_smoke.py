@@ -6,11 +6,11 @@ Phases, each printed as it completes:
 
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the build of every hand-written kernel from
-   ``richsem_tpu_torch/csrc`` (ten sources, one nvcc per source, all at once,
-   sm_90a) with its register report (and any ptxas note that it serialised
-   ``wgmma`` products); K1, K1-bwd, K2, K2-bwd, K3, K3-bwd and K4 (the
-   auction) must spill nothing, and so must the redesigned probe kernels
-   (``mxu_kernel``,
+   ``richsem_tpu_torch/csrc`` (eleven sources, one nvcc per source, all at
+   once, sm_90a) with its register report (and any ptxas note that it
+   serialised ``wgmma`` products); K1, K1-bwd, K2, K2-bwd, K3, K3-bwd, K4 (the
+   auction) and ``adamw.cu`` (K5 and K6, the optimizer) must spill nothing,
+   and so must the redesigned probe kernels (``mxu_kernel``,
    ``vpu_bf16_kernel``, ``cell_kernel`` and its ``cell_reduce_kernel``,
    ``fma_kernel``), checked by name since their sources hold other kernels.
 2. K1 (deformable attention) against its plain PyTorch version at the
@@ -57,8 +57,8 @@ Phases, each printed as it completes:
    valid): one warm-up step (eager; it captures the step's CUDA graph,
    ``train/engine.py:TrainStep``: warm-up + capture ms and the pool's GB)
    and 5 steps, each a replay, loss and grad norm per step, launches per
-   step (K1 12, K1-bwd 12, K2 6, K2-bwd 6, K3 0, K3-bwd 0, K4 7: a replay
-   counts the deltas its capture recorded), auction rounds read from K4's
+   step (K1 12, K1-bwd 12, K2 6, K2-bwd 6, K3 0, K3-bwd 0, K4 7, K5 1, K6 1:
+   a replay counts the deltas its capture recorded), auction rounds read from K4's
    device counter, ms/step, img/s, peak memory allocated and reserved; one
    more replay under ``torch.cuda.set_sync_debug_mode("error")`` (a replay
    may read nothing on the host); the replay against the eager body from one
@@ -84,13 +84,15 @@ Phases, each printed as it completes:
     1204 x 1024 text bank as ``bench.py:114-126`` builds them, distillation
     at the first 100 valid GT boxes): the teacher's targets timed alone, then
     as phase 7 with ``loss_distill`` and ``loss_distill_dn`` per step, the
-    launches checked (K1 12, K1-bwd 12, K2 6, K2-bwd 6, K3 0, K3-bwd 0, K4 7;
+    launches checked (K1 12, K1-bwd 12, K2 6, K2-bwd 6, K3 0, K3-bwd 0, K4 7,
+    K5 1, K6 1;
     the warm-up step's seven cost matrices kept for phase 15), the CLIP heads
     among the compared gradients, a profiled step, and the loss's
     forward and backward (one set of weights, batch and draws, no update)
     profiled with the plain head and with the tensor-core head, as in phase 6.
 11. The same step with ``dec_msda_impl="sep_pallas"``: 2 steps, launches
-    checked (6 of each of the six model kernels, K4 7), the graph's checks
+    checked (6 of each of the six model kernels, K4 7, K5 1, K6 1), the
+    graph's checks
     of phase 7, the loss, the gradients against the plain versions, and the
     profiles of phase 10.
 12. The calibration probes (``richsem_tpu_torch/tools``, the ports of the
@@ -118,7 +120,7 @@ Phases, each printed as it completes:
     a synthetic LVIS-v1 directory (1203 categories, 16 train and 4 val PNGs of
     480-640 x 640-960 px, written with zlib), ``train_loop`` on
     ``dino_4scale_lvis.py`` at full width, bf16, bs2 for one epoch (its steps,
-    one eval, a checkpoint; launches checked: 12/12/6/6/7 a step, K1 12 and
+    one eval, a checkpoint; launches checked: 12/12/6/6/7/1/1 a step, K1 12 and
     K2 6 an eval forward, a replay a batch and a warm-up a graph); the train
     graphs it captured (one a canvas bucket: their number, each one's
     warm-up + capture ms and the pool), and with them live one more step, the
@@ -131,13 +133,14 @@ Phases, each printed as it completes:
     checkpoint save and restore s and peak memory printed.
 14. The port's benches, in this process: ``richsem_tpu_torch/bench.py`` (the
     flagship train step: 3 warm-up and 20 timed steps, one profiled step
-    guarded by the launch counts), ``tools/bench_eval.py`` at its single point
+    guarded by the launch counts; then again with ``BENCH_FUSED_OPT=1``, AdamW
+    in ``fused_adamw``'s order), ``tools/bench_eval.py`` at its single point
     (5 and 30 batches, one guarded profiled batch) and
     ``tools/bench_input_pipeline.py`` at 100 images, with the train bench's
     img/s as its chip rate. Each JSON line is printed; the value, the median,
     min and max, the busy ms, the idle share in [0, 1], the card and the
-    launches a step (K1 12, K1-bwd 12, K2 6, K2-bwd 6, K4 7; eval K1 12, K2
-    6) are checked, and the train line's auction rounds and K4 device ms and
+    launches a step (K1 12, K1-bwd 12, K2 6, K2-bwd 6, K4 7, K5 1, K6 1;
+    eval K1 12, K2 6) are checked, and the train line's auction rounds and K4 device ms and
     both lines' graph, capture ms and pool are present (each step a replay).
 15. K4, the auction (run after phase 11, on phase 10's matrices), against the
     plain ``_auction`` on the same CUDA tensors, exact (``torch.equal`` on the
@@ -149,9 +152,22 @@ Phases, each printed as it completes:
     (five profiled calls) and CUDA-event time beside the plain loop's host
     and device time on the first flagship matching, its rounds, bids, time a
     round and bound.
+16. K5 and K6, the optimizer's global norm and AdamW update
+    (``csrc/adamw.cu``, run after phase 15), on the flagship model's leaves
+    at their real shapes (338 trainable, 224 frozen with the FrozenBN
+    buffers, one trainable leaf without a gradient), with gradients from a
+    seeded generator: in both orders (the optax chain and ``fused_adamw``),
+    three steps from one state, the clip binding, binding and not binding,
+    against the plain versions (parameters, m and v to rtol 1e-6 and atol
+    1e-7, the norms within one f32 step, the launches 3 and 3); K5 twice and
+    K6 twice from one state, bit for bit; each kernel's device time (five
+    profiled calls) and CUDA-event time beside the plain version's, its bound
+    by bytes at 3.35 TB/s and the share; for K6 the CUDA-event time of
+    ``torch._fused_adamw_``, one call a lr group (a yardstick: it rounds its
+    decoupled decay otherwise).
 
 ``python3 chip_smoke.py kernels`` stops after the kernel phases (1-5, 8, 9, 12,
-and 15 on its random cases).
+15 on its random cases, and 16).
 
 ``python3 chip_smoke.py ab [DIR]`` only times kernels of the port in DIR
 (default: this checkout), for A/B runs of two trees: it imports
@@ -168,14 +184,16 @@ then does the same for the probe kernels redesigned for Hopper,
 ``tile_kernel`` at check_repeat_semantics' [8, 8] (beside the device time of
 ``x.repeat``), ``run_cell`` at phase 12's inputs (the device time of each of
 its kernels and their sum, the bound, the hash, and whether two calls agree)
-and ``run_vpu`` in bf16 at phase 12's inputs (device time, bound, hash).
-Compare two trees in one call on the card, in turns, each in a process of
+and ``run_vpu`` in bf16 at phase 12's inputs (device time, bound, hash), and
+K5 and K6 (both orders) at phase 16's inputs (event and device time, hashes
+of K5's state and of K6's parameters and moments after one call). Compare
+two trees in one call on the card, in turns, each in a process of
 its own:
 
     for t in build/parent . . build/parent; do python3 chip_smoke.py ab $t; done
 
-The kernels' JSON record lists ten sources: the six kernels of the model and
-K4, each with ``launches`` from the flagship train step (phase 10, K3 and
+The kernels' JSON record lists the six kernels of the model, K4, K5 and K6,
+each with ``launches`` from the flagship train step (phase 10, K3 and
 K3-bwd from phase 11) and ``trainer_launches`` from phase 13, and the three probe
 sources, each with the numbers of one headline call at the top, every call
 under ``calls`` (each with ``device_ms`` beside the CUDA-event ``ms``, and
@@ -208,7 +226,7 @@ SHAPES = ((112, 168), (56, 84), (28, 42), (14, 21))  # the 896 x 1344 pyramid
 DEVICE = "cuda"
 KERNELS = ("ms_deform_attn_fwd", "ms_deform_attn_bwd", "fused_encoder_tail_fwd",
            "fused_encoder_tail_bwd", "ms_deform_attn_sep_fwd", "ms_deform_attn_sep_bwd",
-           "auction", "probe_cal", "probe_cell", "probe_vpu_model")
+           "auction", "adamw", "probe_cal", "probe_cell", "probe_vpu_model")
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and f32 FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 BF16_VEC_FLOPS = 133.8e12  # bf16 outside the tensor cores (NVIDIA's H100 white paper, SXM5)
@@ -221,7 +239,7 @@ F32_ISSUE_OPS, BF16_VEC_ISSUE_OPS = F32_FLOPS / 2, BF16_VEC_FLOPS / 2
 COS_MIN = 0.9  # least gradient cosine, kernels vs plain versions (phases 7, 10, 11)
 NO_SPILL = ("ms_deform_attn_fwd", "ms_deform_attn_bwd", "fused_encoder_tail_fwd",
             "fused_encoder_tail_bwd", "ms_deform_attn_sep_fwd",
-            "ms_deform_attn_sep_bwd", "auction")  # ptxas must report 0 spill bytes
+            "ms_deform_attn_sep_bwd", "auction", "adamw")  # ptxas must report 0 spill bytes
 # kernels that must spill nothing in sources that hold other kernels too
 NO_SPILL_KERNELS = {"probe_cal": ("mxu_kernel", "vpu_bf16_kernel"),
                     "probe_cell": ("cell_kernel", "cell_reduce_kernel"),
@@ -1120,12 +1138,12 @@ GRAD_LEAVES = ("encoder_layer0.ffn.linear1.weight", "encoder_layer5.ffn.linear2.
                "backbone.layer4_block2.conv3.weight")
 FLAGSHIP_LEAVES = GRAD_LEAVES[:5] + ("class_embed.dino_visual_proj.weight",
                                      "clip_visual_proj.weight", GRAD_LEAVES[6])
-# launches a train step of K1, K1-bwd, K2, K2-bwd, K3, K3-bwd, K4
-COUNTED = ("K1", "K1-bwd", "K2", "K2-bwd", "K3", "K3-bwd", "K4")
+# launches a train step of K1, K1-bwd, K2, K2-bwd, K3, K3-bwd, K4, K5, K6
+COUNTED = ("K1", "K1-bwd", "K2", "K2-bwd", "K3", "K3-bwd", "K4", "K5", "K6")
 
 
 def launch_counters():
-    """The seven kernels' counters, in the order of COUNTED and of the records."""
+    """The nine kernels' counters, in the order of COUNTED and of the records."""
     from richsem_tpu_torch.bench import launch_counters as by_name
 
     counters = by_name()
@@ -1290,7 +1308,7 @@ def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None, cost
     in one step against the same step with the plain versions, and profile
     one replay (its operations and K4's device ms). ``costs``, if given, gets
     the cost matrices and masks of the warm-up step's matchings. -> the
-    launches of the seven kernels over the steps."""
+    launches of the nine kernels over the steps."""
     import torch
 
     import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
@@ -1426,6 +1444,26 @@ def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None, cost
             model.zero_grad(set_to_none=True)
 
         head_profiles(fwd_bwd, "loss forward and backward")
+
+        def fwd_bwd_frozen():  # as the step's body: the FrozenBN buffers' gradients too
+            for b in step.buffers:
+                b.requires_grad_(True)
+            try:
+                fwd_bwd()
+            finally:
+                for b in step.buffers:
+                    b.requires_grad_(False)
+                    b.grad = None
+
+        n_no, n_fb = {}, {}
+        no = profile_once(fwd_bwd, top=3, also=ALL_OPS, counts=n_no)
+        fb = profile_once(fwd_bwd_frozen, top=3, also=ALL_OPS, counts=n_fb)
+        if "all" in no and "all" in fb:
+            print(f"  the FrozenBN buffers' gradients, which the step's body takes for the norm: "
+                  f"{n_fb['all'] - n_no['all']} operations and {fb['all'] - no['all']:.2f} ms "
+                  f"of device time in an eager loss forward and backward ({n_fb['all']} "
+                  f"operations, {fb['all']:.2f} ms, against {n_no['all']}, {no['all']:.2f} ms "
+                  f"without them)", flush=True)
     return launches
 
 
@@ -1434,7 +1472,7 @@ def phase_train(recs):
 
     cfg = Config.fromfile(TRAIN_CONFIG)
     cfg.compute_dtype = "bfloat16"
-    launches = run_train(cfg, (12, 12, 6, 6, 0, 0, 7), N_STEPS, GRAD_LEAVES)
+    launches = run_train(cfg, (12, 12, 6, 6, 0, 0, 7, 1, 1), N_STEPS, GRAD_LEAVES)
     for rec, n in zip(recs, launches):
         rec["dino_train_launches"] = n
     print("phase 7: train step ok", flush=True)
@@ -1477,7 +1515,7 @@ def phase_flagship(recs):
     profile_once(targets, top=6)
 
     costs = []
-    launches = run_train(cfg, (12, 12, 6, 6, 0, 0, 7), N_STEPS, FLAGSHIP_LEAVES,
+    launches = run_train(cfg, (12, 12, 6, 6, 0, 0, 7, 1, 1), N_STEPS, FLAGSHIP_LEAVES,
                          clip_model=teacher, text_embed=text_embed, costs=costs)
     for rec, n in zip(recs[:4] + recs[6:], launches[:4] + launches[6:]):
         rec["launches"] = n
@@ -1485,7 +1523,7 @@ def phase_flagship(recs):
     torch.cuda.empty_cache()
 
     cfg.dec_msda_impl = "sep_pallas"
-    launches = run_train(cfg, (6, 6, 6, 6, 6, 6, 7), N_SEP_STEPS, FLAGSHIP_LEAVES,
+    launches = run_train(cfg, (6, 6, 6, 6, 6, 6, 7, 1, 1), N_SEP_STEPS, FLAGSHIP_LEAVES,
                          clip_model=teacher, text_embed=text_embed)
     for rec, n in zip(recs[4:6], launches[4:6]):
         rec["launches"] = n
@@ -1554,12 +1592,12 @@ def phase_auction(rec, costs):
             fail("the capped case left the greedy fallback no collision to make")
     name, c, v, _ = cases[0]
     obj, stats = lap._auction_cuda(c, v, True, 3000, 1e-4)
-    # the mean over the launches the profile recorded (one of five calls'
-    # kernels went unrecorded in each of three profiles in one run)
+    # a launch: one of five calls' kernels went unrecorded in each of three
+    # profiles in one run (device_ms takes the mean over those recorded)
     n = {}
-    dev = profile_once(lambda: [lap._auction_cuda(c, v, True, 3000, 1e-4) for _ in range(5)],
-                       top=3, also=ALL_OPS, counts=n)
-    kern = dev["auction_kernel"] / n["auction_kernel"] if "auction_kernel" in dev else None
+    dev = device_ms(lambda: lap._auction_cuda(c, v, True, 3000, 1e-4), ["auction_kernel"],
+                    also=ALL_OPS, counts=n)
+    kern = dev["auction_kernel"]
     ms = cuda_ms(lambda: lap._auction_cuda(c, v, True, 3000, 1e-4), iters=20)
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1575,7 +1613,8 @@ def phase_auction(rec, costs):
     bms, by = bound(read, bids * o * 3 + n_valid * o * 2, F32_ISSUE_OPS)
     per_round = kern / rounds * 1e3 if kern is not None and rounds else None
     print(f"  K4 on {name}: device {_ms(kern)} ms a launch ({n.get('auction_kernel')} of 5 "
-          f"recorded; the wrapper's {n.get('all')} operations {_ms(dev.get('all'))} ms), "
+          f"recorded; the wrapper's {n.get('all')} operations in 5 calls, {_ms(dev['all'])} ms "
+          f"a call), "
           f"CUDA events {ms:.4f} ms; plain loop: host {plain_ms:.3f} ms, device "
           f"{_ms(plain_dev)} ms; {rounds} rounds, {bids} bids; bound {bms:.6f} ms ({by}); "
           f"{_ms(per_round)} us a round (the rounds run one after another)", flush=True)
@@ -1584,6 +1623,253 @@ def phase_auction(rec, costs):
                 "library_ms": None, "rounds": rounds, "bids": bids,
                 "us_per_round": per_round, "case": name})
     print(f"phase 15: K4 equals the plain auction ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+ADAMW_SCALES = (1.0, 0.3, 1e-6)  # phase 16's gradient scales: the clip binds, binds, does not
+NO_GRAD = 1  # phase 16's leaf without a gradient, a trainable one (K6's null path)
+# f32 operations an element of K6 does, by order (the clip, the moments, the
+# Adam term, the decay and the step; the group scale's product left out)
+K6_OPS = {"chain": 18, "fused": 17}
+
+
+def adamw_case():
+    """Phase 16's inputs: the flagship model (``richsem_4scale_lvis.py``) from a
+    seeded generator, AdamW over its leaves at their real shapes (338
+    trainable; 224 frozen, the FrozenBN buffers among them, in the norm only),
+    and a gradient set for each of ADAMW_SCALES drawn on the card, leaf
+    NO_GRAD without one. -> (model, opt, leaves, gradient sets)."""
+    import torch
+
+    import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
+    from richsem_tpu_torch.config import Config
+    from richsem_tpu_torch.models import build_model
+    from richsem_tpu_torch.train.optim import AdamW
+
+    cfg = Config.fromfile(CONFIG)
+    cfg.compute_dtype = "bfloat16"
+    g = torch.Generator(device=DEVICE).manual_seed(16)
+    model, _, _ = build_model("richsem", cfg, device=DEVICE, generator=g)
+    opt = AdamW(model, cfg, steps_per_epoch=1000)
+    leaves = [t for _, t in opt.trainable + opt.frozen]
+    sets = [[None if i == NO_GRAD else torch.randn(t.shape, generator=g, device=DEVICE) * s
+             for i, t in enumerate(leaves)] for s in ADAMW_SCALES]
+    return model, opt, leaves, sets
+
+
+def opt_copy(opt):
+    """A copy of what an update changes: the trainable leaves, the moments, the count."""
+    return ([p.detach().clone() for _, p in opt.trainable], [t.clone() for t in opt.mu],
+            [t.clone() for t in opt.nu], opt.count)
+
+
+def opt_put(opt, saved) -> None:
+    import torch
+
+    with torch.no_grad():
+        for dst, src in zip(([p for _, p in opt.trainable], opt.mu, opt.nu), saved[:3]):
+            for a, b in zip(dst, src):
+                a.copy_(b)
+    opt.count = saved[3]
+
+
+def k6_call(opt, grads, clip_state, order, plain=False):
+    """-> a call of K6 (or its plain version) on ``opt``'s leaves and state."""
+    from richsem_tpu_torch.ops import adamw
+
+    fn = adamw.adamw_update_plain if plain else adamw.adamw_update
+    n = len(opt.trainable)
+    return lambda: fn([p for _, p in opt.trainable], grads[:n], opt.mu, opt.nu, opt.hyper,
+                      clip_state, [opt.scales[k] for k, _ in opt.trainable], b1=opt.b1,
+                      b2=opt.b2, eps=opt.eps, weight_decay=opt.weight_decay,
+                      max_norm=opt.clip_max_norm, order=order)
+
+
+@contextlib.contextmanager
+def plain_optimizer():
+    """The plain versions of K5 and K6 in place of the wrappers, where
+    ``AdamW.update`` calls them."""
+    from richsem_tpu_torch.ops import adamw
+    from richsem_tpu_torch.train import optim
+
+    optim.global_norm_clip, optim.adamw_update = (adamw.global_norm_clip_plain,
+                                                  adamw.adamw_update_plain)
+    try:
+        yield
+    finally:
+        optim.global_norm_clip, optim.adamw_update = adamw.global_norm_clip, adamw.adamw_update
+
+
+def adamw_steps(opt, leaves, sets):
+    """One ``AdamW.step`` a gradient set. -> (the norms, ``opt_copy`` after)."""
+    import torch
+
+    gnorms = []
+    for grads in sets:
+        for t, gr in zip(leaves, grads):
+            t.grad = gr
+        gnorms.append(opt.step())
+    torch.cuda.synchronize()
+    opt.zero_grad()
+    return [float(g) for g in gnorms], opt_copy(opt)
+
+
+def phase_adamw(k5_rec, k6_rec):
+    """Phase 16: K5 (the global norm) and K6 (the AdamW update) on the
+    flagship's leaves (``adamw_case``): in both orders, three steps from one
+    state (the clip binding, binding, not binding) against the plain
+    versions, the parameters and moments bit for bit and the norms within one
+    f32 step; K5 twice and K6 twice from one state, bit for bit; each
+    kernel's device time a launch (``ms``, five profiled calls) beside its
+    CUDA-event time a call (``event_ms``, the host's: each eager call builds
+    the tables), the plain version's device time, the bound (bytes at 3.35
+    TB/s: K5 reads every gradient, K6 reads g, m, v and p and writes m, v and
+    p) and the share; and the device time of one library call each, as a
+    scale of time, not a check: for K5 ``torch.nn.utils.get_total_norm`` over
+    the same gradients (it sums in f32 and leaves the clip factor out), for K6
+    ``torch._fused_adamw_``, one call a lr group (its decoupled decay rounds
+    otherwise)."""
+    import torch
+
+    from richsem_tpu_torch.ops import adamw
+
+    t0 = time.perf_counter()
+    model, opt, leaves, sets = adamw_case()
+    n_el = sum(t.numel() for t in leaves)
+    n_tr = sum(p.numel() for _, p in opt.trainable)
+    print(f"  the flagship's leaves: {len(opt.trainable)} trainable ({n_tr:,} elements), "
+          f"{len(opt.frozen)} frozen ({n_el - n_tr:,}); leaf {NO_GRAD} without a gradient; "
+          f"gradient scales {ADAMW_SCALES}", flush=True)
+    saved = opt_copy(opt)
+    counters = (adamw.global_norm_clip, adamw.adamw_update)
+    gn_err, errs = 0.0, []
+    for order in adamw.ORDERS:
+        opt.order = order
+        opt_put(opt, saved)
+        before = [c.launches for c in counters]
+        gk, sk = adamw_steps(opt, leaves, sets)
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        opt_put(opt, saved)
+        with plain_optimizer():
+            gp, sp = adamw_steps(opt, leaves, sets)
+        print(f"  {order}: norms K5 {', '.join(f'{g:.9g}' for g in gk)}, plain "
+              f"{', '.join(f'{g:.9g}' for g in gp)}; launches K5 {launched[0]}, K6 {launched[1]}",
+              flush=True)
+        if launched != [len(sets)] * 2:
+            fail(f"phase 16 launched K5 {launched[0]} and K6 {launched[1]} times in "
+                 f"{len(sets)} steps")
+        if not (gk[0] > opt.clip_max_norm > gk[-1]):
+            fail(f"phase 16's norms {gk} do not bind the clip first and release it last")
+        for a, b in zip(gk, gp):
+            gn_err = max(gn_err, abs(a - b))
+            if abs(a - b) > ulp(torch.tensor(b)):
+                fail(f"K5's norm {a!r} lies more than one f32 step from the plain {b!r}")
+        for what, i in (("parameters", 0), ("m", 1), ("v", 2)):
+            errs.append(compare_exact(f"K5 + K6 {order}, 3 steps: {what}",
+                                      torch.cat([t.flatten() for t in sk[i]]),
+                                      torch.cat([t.flatten() for t in sp[i]])))
+        if torch.equal(sk[0][0], saved[0][0]):
+            fail("phase 16's steps left the parameters where they were")
+        del sk, sp
+
+    grads = sets[0]
+    k5 = lambda: adamw.global_norm_clip(grads, opt.clip_max_norm)  # noqa: E731
+    a, b = k5()[1].clone(), k5()[1].clone()
+    torch.cuda.synchronize()
+    print(f"  K5 twice: bit for bit {torch.equal(a, b)} (gnorm {float(a[0]):.9g}, clip "
+          f"{float(a[1]):.9g})", flush=True)
+    if not torch.equal(a, b):
+        fail("two calls of K5 differ")
+    opt.prepare()
+    for order in adamw.ORDERS:
+        ends = []
+        for _ in range(2):
+            opt_put(opt, saved)
+            k6_call(opt, grads, a, order)()
+            ends.append(opt_copy(opt))
+        same = all(torch.equal(x, y) for i in range(3) for x, y in zip(ends[0][i], ends[1][i]))
+        print(f"  K6 {order} twice from one state: bit for bit {same}", flush=True)
+        if not same:
+            fail(f"two calls of K6 ({order}) from one state differ")
+        del ends
+
+    # times, at the first gradient set (the clip binds): device time a launch
+    # (device_ms), CUDA-event time a call, and the plain versions' and the
+    # library calls' device time a call
+    numels = [0 if g is None else g.numel() for g in grads]
+    chunks = adamw.total_chunks(adamw.plan(numels, adamw.NORM_LEAVES))
+    present = sum(numels)
+    ev = cuda_ms(k5)
+    dev = device_ms(k5, ["sumsq_kernel", "sumsq_finish_kernel"])
+    kern = total_ms(dev)
+    n_plain = {}
+    plain_dev = device_ms(lambda: adamw.global_norm_clip_plain(grads, opt.clip_max_norm), [],
+                          iters=2, also=ALL_OPS, counts=n_plain)["all"]
+    given = [g for g in grads if g is not None]
+    norm_library = lambda: torch.nn.utils.get_total_norm(given, 2.0, foreach=True)  # noqa: E731
+    lib_ev = cuda_ms(norm_library)
+    lib_dev = device_ms(norm_library, [], also=ALL_OPS)["all"]
+    lib_norm = float(norm_library())
+    # every gradient read once, the partials written and read, the state written;
+    # a product and a float64 add an element
+    bms, by = bound(4 * present + 16 * chunks + 8, 2 * present, F32_ISSUE_OPS)
+    print(f"  K5: {chunks} blocks; device {_ms(dev['sumsq_kernel'])} + finish "
+          f"{_ms(dev['sumsq_finish_kernel'])} ms a launch (CUDA events {ev:.4f} ms a call); "
+          f"plain: device {_ms(plain_dev)} ms a call ({n_plain.get('all')} operations in 2); "
+          f"bound {bms:.4f} ms ({by}), share {_ms(bms / kern if kern else None)}; "
+          f"get_total_norm (a yardstick, f32 sums): device {_ms(lib_dev)} ms a call, CUDA "
+          f"events {lib_ev:.4f} ms, norm {lib_norm:.9g} against K5's {float(a[0]):.9g}",
+          flush=True)
+    k5_rec.update({"max_abs_err": gn_err, "ms": kern, "event_ms": ev,
+                   "sumsq_ms": dev["sumsq_kernel"], "finish_ms": dev["sumsq_finish_kernel"],
+                   "plain_ms": plain_dev, "bound_ms": bms, "bound_by": by,
+                   "library_ms": lib_dev, "library_event_ms": lib_ev,
+                   "library": "torch.nn.utils.get_total_norm(foreach=True), f32 sums, "
+                              "device time", "blocks": chunks})
+
+    n = len(opt.trainable)
+    with_grad = sum(numels[:n])
+    k6_rec.update({"max_abs_err": max(errs)})
+    for order in adamw.ORDERS:
+        opt_put(opt, saved)
+        fn = k6_call(opt, grads, a, order)
+        ev = cuda_ms(fn)
+        dev = device_ms(fn, ["adamw_kernel"])["adamw_kernel"]
+        n_plain = {}
+        plain_dev = device_ms(k6_call(opt, grads, a, order, plain=True), [], iters=2,
+                              also=ALL_OPS, counts=n_plain)["all"]
+        bms, by = bound(4 * with_grad + 24 * n_tr + 20, K6_OPS[order] * n_tr, F32_ISSUE_OPS)
+        print(f"  K6 {order}: {adamw.total_chunks(adamw.plan(numels[:n], adamw.ADAMW_LEAVES))} "
+              f"blocks; device {_ms(dev)} ms a launch (CUDA events {ev:.4f} ms a call); plain: "
+              f"device {_ms(plain_dev)} ms a call ({n_plain.get('all')} operations in 2); bound "
+              f"{bms:.4f} ms ({by}), share {_ms(bms / dev if dev else None)}", flush=True)
+        key = "" if order == "chain" else "fused_"
+        k6_rec.update({f"{key}ms": dev, f"{key}event_ms": ev, f"{key}plain_ms": plain_dev,
+                       f"{key}bound_ms": bms, f"{key}bound_by": by})
+    # the yardstick: torch._fused_adamw_ a lr group, on copies
+    groups = {}
+    for (name, p), g in zip(opt.trainable, grads[:n]):
+        groups.setdefault(opt.scales[name], []).append(
+            (p.detach().clone(), torch.zeros_like(p) if g is None else g, torch.zeros_like(p),
+             torch.zeros_like(p), torch.zeros((), device=DEVICE)))
+
+    def library():
+        for s, items in groups.items():
+            ps, gs, ms_, vs, steps = (list(x) for x in zip(*items))
+            torch._fused_adamw_(ps, gs, ms_, vs, [], steps, lr=2e-4 * s, beta1=opt.b1,
+                                beta2=opt.b2, weight_decay=opt.weight_decay, eps=opt.eps,
+                                amsgrad=False, maximize=False)
+
+    ev = cuda_ms(library)
+    n_lib = {}
+    lib_dev = device_ms(library, [], also=ALL_OPS, counts=n_lib)["all"]
+    print(f"  torch._fused_adamw_, {len(groups)} lr groups (a yardstick): device "
+          f"{_ms(lib_dev)} ms a call ({n_lib.get('all')} operations in 5), CUDA events "
+          f"{ev:.4f} ms", flush=True)
+    k6_rec.update({"library_ms": lib_dev, "library_event_ms": ev,
+                   "library": "torch._fused_adamw_, one call a lr group, device time"})
+    del groups, model, opt, leaves, sets, saved
+    print(f"phase 16: K5 and K6 match their plain versions in both orders "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
 def compare_exact(name, kernel_out, plain_out):
@@ -2017,11 +2303,11 @@ def phase_trainer(recs):
         # the eval's forwards: a replay a batch, and a warm-up before each capture
         forwards = eval_batches + logs[0]["eval_graphs"]
         want = [12 * (steps1 + forwards), 12 * steps1, 6 * (steps1 + forwards), 6 * steps1, 0, 0,
-                7 * steps1]
+                7 * steps1, steps1, steps1]
         print(f"  first run: {steps1} steps and {eval_batches} eval batches in "
               f"{logs[0]['eval_graphs']} graphs; launches "
               + ", ".join(f"{k} {n}" for k, n in zip(COUNTED, launches))
-              + f" (expect {want}: 12/12/6/6/7 a step, K1 12 and K2 6 an eval forward)")
+              + f" (expect {want}: 12/12/6/6/7/1/1 a step, K1 12 and K2 6 an eval forward)")
         if launches != want:
             fail("the trainer did not launch the kernels as expected")
         for rec, n in zip(recs, launches):
@@ -2082,8 +2368,10 @@ def phase_trainer(recs):
 
 
 BENCH_LAUNCHES = {  # the bench lines' launches a step or batch
-    "train": {"K1": 12, "K1-bwd": 12, "K2": 6, "K2-bwd": 6, "K3": 0, "K3-bwd": 0, "K4": 7},
-    "eval": {"K1": 12, "K1-bwd": 0, "K2": 6, "K2-bwd": 0, "K3": 0, "K3-bwd": 0, "K4": 0}}
+    "train": {"K1": 12, "K1-bwd": 12, "K2": 6, "K2-bwd": 6, "K3": 0, "K3-bwd": 0, "K4": 7,
+              "K5": 1, "K6": 1},
+    "eval": {"K1": 12, "K1-bwd": 0, "K2": 6, "K2-bwd": 0, "K3": 0, "K3-bwd": 0, "K4": 0,
+             "K5": 0, "K6": 0}}
 PIPELINE_IMAGES = 100  # the input-pipeline bench's corpus here
 
 
@@ -2100,23 +2388,27 @@ def phase_bench():
 
     lines = {}
     for name, run in (("train", lambda: bench.bench_line(env={})),
+                      ("train fused", lambda: bench.bench_line(env={"BENCH_FUSED_OPT": "1"})),
                       ("eval", bench_eval.bench_line)):
         t = time.perf_counter()
         line = lines[name] = run()
         print(json.dumps(line), flush=True)
-        unit = "step" if name == "train" else "batch"
+        kind = name.split()[0]
+        unit = "step" if kind == "train" else "batch"
         times = [line[f"ms_per_{unit}_{k}"] for k in ("min", "median", "max")]
         print(f"  {name} bench: {time.perf_counter() - t:.1f} s", flush=True)
         if not (line["value"] > 0 and times == sorted(times) and line["card"]
-                and line["warmup"] >= (3 if name == "train" else 5)
-                and line["timed"] >= (20 if name == "train" else 30)
+                and line["warmup"] >= (3 if kind == "train" else 5)
+                and line["timed"] >= (20 if kind == "train" else 30)
                 and 0.0 <= line["idle_share"] <= 1.0 and line["device_busy_ms"] > 0
                 and line["device_ops"] > 0 and line["peak_memory_gb"] > 0):
             fail(f"the {name} bench line lacks a field or holds a value out of range")
-        if line[f"launches_per_{unit}"] != BENCH_LAUNCHES[name]:
+        if line[f"launches_per_{unit}"] != BENCH_LAUNCHES[kind]:
             fail(f"the {name} bench launched {line[f'launches_per_{unit}']}, not "
-                 f"{BENCH_LAUNCHES[name]}")
-        if name == "train" and not (line["auction_rounds_per_step"] > 0
+                 f"{BENCH_LAUNCHES[kind]}")
+        if kind == "train" and ("fused AdamW" in line["metric"]) != (name == "train fused"):
+            fail(f"the {name} bench line does not say which AdamW order it ran")
+        if kind == "train" and not (line["auction_rounds_per_step"] > 0
                                     and line["auction_device_ms"] > 0):
             fail("the train bench line lacks the auction's rounds or K4's device ms")
         if not (line["graph"] and line["capture_ms"] > 0 and line["pool_gb"] > 0):
@@ -2169,20 +2461,31 @@ def profile_once(fn, top: int = 12, also: dict = None, counts: dict = None) -> d
     return out
 
 
-def device_ms(fn, kernels, iters: int = 5, also: dict = None) -> dict:
-    """Device ms a call of ``fn``, the mean over ``iters`` profiled calls, of
-    each hand-written kernel in ``kernels`` and each key of ``also`` (see
-    ``profile_once``); None for one that the profile did not record (not
-    measured). A profile that recorded nothing, or a count of operations that
-    is not a multiple of ``iters`` (a call's lost), is taken again."""
+def device_ms(fn, kernels, iters: int = 5, also: dict = None, per_call: dict = None,
+              counts: dict = None) -> dict:
+    """Device ms of ``fn`` over ``iters`` profiled calls. For each hand-written
+    kernel in ``kernels``: the mean a launch over the launches the profile
+    recorded (a profile can miss some calls' kernels, PERF.md §7), times the
+    launches a call makes (``per_call``, by kernel, 1 by default). For each key
+    of ``also`` (see ``profile_once``): the mean a call. None for one that the
+    profile did not record (not measured). A profile that missed a kernel, or
+    whose count of an ``also`` key's operations is not a multiple of ``iters``
+    (a call's lost), is taken again, three tries in all. ``counts`` receives
+    the last profile's counts of operations."""
+    also, per_call = also or {}, per_call or {}
     for attempt in range(3):  # a profile now and then misses operations
-        counts = {}
+        n = {}
         dev = profile_once(lambda: [fn() for _ in range(iters)],
-                           top=len(kernels) + len(also or {}), also=also, counts=counts)
-        if dev and all(c % iters == 0 for c in counts.values()):
+                           top=len(kernels) + len(also), also=also, counts=n)
+        if (dev and all(n.get(k) for k in kernels)
+                and all(n[k] % iters == 0 for k in also if k in n)):
             break
         print(f"  profile: operations of some call not recorded (attempt {attempt + 1} of 3)")
-    return {k: dev[k] / iters if k in dev else None for k in [*kernels, *(also or {})]}
+    if counts is not None:
+        counts.update(n)
+    out = {k: dev[k] / n[k] * per_call.get(k, 1) if n.get(k) else None for k in kernels}
+    out.update({k: dev[k] / iters if k in dev else None for k in also})
+    return out
 
 
 def total_ms(dev: dict):
@@ -2266,7 +2569,8 @@ def phase_ab(root: str) -> None:
     fn = lambda: k2.encoder_tail_backward(*args, dy)  # noqa: E731
     rec["k2_bwd_ms"] = cuda_ms(fn, iters=10)
     rec["k2_bwd_device_ms"] = total_ms(device_ms(fn, ["row_pass_kernel", "dw_gemm_kernel",
-                                                      "colsum_kernel"]))
+                                                      "colsum_kernel"],
+                                                 per_call={"colsum_kernel": 4}))
     rec["k2_bwd_sha"] = digest(fn())
     del args, dy
     # the probe kernels redesigned in PR 8 at their main() shapes: mxu, fma, tile
@@ -2317,6 +2621,30 @@ def phase_ab(root: str) -> None:
     rec["vpu_bf16_device_ms"] = measured_sum(device_ms(fn, ["vpu_bf16_kernel"]))
     rec["vpu_bf16_bound_ms"] = bound3(**vpu_cost(x, 512))[0]
     rec["vpu_bf16_sha"] = digest([fn()])
+    del x, y
+    try:  # K5 and K6 at phase 16's inputs (a tree before them has neither)
+        from richsem_tpu_torch.ops import adamw
+    except ImportError:
+        adamw = None
+    if adamw is not None:
+        model, opt, leaves, sets = adamw_case()
+        grads, saved = sets[0], opt_copy(opt)
+        fn = lambda: adamw.global_norm_clip(grads, opt.clip_max_norm)  # noqa: E731
+        rec["k5_ms"] = cuda_ms(fn)
+        rec["k5_device_ms"] = measured_sum(device_ms(fn, ["sumsq_kernel",
+                                                          "sumsq_finish_kernel"]))
+        state = fn()[1]
+        rec["k5_sha"] = digest([state])
+        opt.prepare()
+        for order in adamw.ORDERS:
+            fn = k6_call(opt, grads, state, order)
+            rec[f"k6_{order}_ms"] = cuda_ms(fn)
+            rec[f"k6_{order}_device_ms"] = device_ms(fn, ["adamw_kernel"])["adamw_kernel"]
+            opt_put(opt, saved)
+            fn()
+            rec[f"k6_{order}_sha"] = digest([p for _, p in opt.trainable] + opt.mu + opt.nu)
+            opt_put(opt, saved)
+        del model, opt, leaves, sets, saved
     print(json.dumps(rec), flush=True)
 
 
@@ -2352,10 +2680,21 @@ def main() -> None:
               "source": "richsem_tpu_torch/csrc/auction.cu",
               "replaces": "richsem_tpu/ops/lap.py:193 (the lax.while_loop of auction_assignment)",
               "launches": None}
-    recs = [k1_rec, k1b_rec, k2_rec, k2b_rec, k3_rec, k3b_rec, k4_rec]
+    k5_rec = {"name": "K5 global norm (sumsq_kernel, sumsq_finish_kernel)", "route": "cuda",
+              "source": "richsem_tpu_torch/csrc/adamw.cu",
+              "replaces": "richsem_tpu/train/optim.py:124 (optax.global_norm in fused_adamw; "
+                          "clip_by_global_norm's in the chain, :179)",
+              "launches": None}
+    k6_rec = {"name": "K6 AdamW update (adamw_kernel<Order>)", "route": "cuda",
+              "source": "richsem_tpu_torch/csrc/adamw.cu",
+              "replaces": "richsem_tpu/train/optim.py:126-146 (fused_adamw's update) and "
+                          ":179-184 (the optax chain's clip, Adam, decay, group scale and lr)",
+              "launches": None}
+    recs = [k1_rec, k1b_rec, k2_rec, k2b_rec, k3_rec, k3b_rec, k4_rec, k5_rec, k6_rec]
     probe_recs = phase_probes()
     if sys.argv[1:] == ["kernels"]:
         phase_auction(k4_rec, [])
+        phase_adamw(k5_rec, k6_rec)
     else:
         phase_eval(k1_rec, k2_rec)
         torch.cuda.empty_cache()
@@ -2365,6 +2704,8 @@ def main() -> None:
         torch.cuda.empty_cache()
         phase_auction(k4_rec, costs)
         del costs
+        torch.cuda.empty_cache()
+        phase_adamw(k5_rec, k6_rec)
         torch.cuda.empty_cache()
         phase_trainer(recs)
         torch.cuda.empty_cache()

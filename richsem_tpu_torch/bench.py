@@ -28,10 +28,11 @@ the CPU the step runs eagerly, ``graph`` is false and the other two null.
 One more step runs under ``torch.profiler`` for the card's busy time, its
 operations and its idle share. A profile can lose operations, so its count
 of each hand-written kernel must equal the launches its wrapper counted in
-that step (K1 12, K1-bwd 12, K2 6, K2-bwd 6 and K4, the auction, 7: one a
-matching; with ``BENCH_DEC_IMPL=sep_pallas`` 6 of each of the six model
-kernels); the profile is taken again up to 3 times, the retakes are
-reported, and the bench fails if the counts still differ. The line also
+that step (K1 12, K1-bwd 12, K2 6, K2-bwd 6, K4, the auction, 7: one a
+matching, and K5 and K6, the optimizer's norm and update, 1 each; with
+``BENCH_DEC_IMPL=sep_pallas`` 6 of each of the six model kernels); the
+profile is taken again up to 3 times, the retakes are reported, and the
+bench fails if the counts still differ. The line also
 carries the auction's rounds a step, read from K4's device counter after the
 timed steps (``ops/lap.py:device_rounds``), and K4's device ms in the
 profiled step.
@@ -45,13 +46,14 @@ Settings from the environment, as the root bench reads them: ``BENCH_BATCH``
 (1 or 2), ``BENCH_VALID``, ``BENCH_DEC_IMPL`` (``sep``, whose decoder runs
 K1, or ``sep_pallas``, which runs K3 and K3-bwd), ``BENCH_NO_DN``,
 ``BENCH_NO_DISTILL``, ``BENCH_MATCHER``, ``BENCH_MONITOR``,
-``BENCH_ENC_LAYERS`` and ``BENCH_DEC_LAYERS``. Those the port does not
-implement raise ``NotImplementedError`` naming their ROADMAP item:
-``BENCH_IMPL`` other than the config's, ``BENCH_TILE`` and ``BENCH_MARGIN``
-(the TPU's windowed kernels, item 12), ``BENCH_FUSED_OPT=1`` (item 12), and
-``BENCH_REMAT=1``, ``BENCH_BB_REMAT=1``, ``BENCH_SEL_REMAT=1`` and
-``BENCH_BATCH`` of 3 or more, for which the root bench turns the remat knobs
-on (item 11).
+``BENCH_ENC_LAYERS``, ``BENCH_DEC_LAYERS`` and ``BENCH_FUSED_OPT`` (``1``
+sets ``cfg.fused_adamw``: AdamW in ``fused_adamw``'s order, on the same
+kernels K5 and K6). Those the port does not implement raise
+``NotImplementedError`` naming their ROADMAP item: ``BENCH_IMPL`` other than
+the config's, ``BENCH_TILE`` and ``BENCH_MARGIN`` (the TPU's windowed
+kernels, item 12), and ``BENCH_REMAT=1``, ``BENCH_BB_REMAT=1``,
+``BENCH_SEL_REMAT=1`` and ``BENCH_BATCH`` of 3 or more, for which the root
+bench turns the remat knobs on (item 11).
 """
 
 from __future__ import annotations
@@ -91,6 +93,8 @@ KERNELS = {
     "K3": ("ms_deform_attn_sep", "ms_deform_attn_sep", "msda_sep_fwd_kernel"),
     "K3-bwd": ("ms_deform_attn_sep", "ms_deform_attn_sep_backward", "msda_sep_bwd_kernel"),
     "K4": ("lap", "batched_min_cost_assignment", "auction_kernel"),
+    "K5": ("adamw", "global_norm_clip", "sumsq_kernel"),
+    "K6": ("adamw", "adamw_update", "adamw_kernel"),
 }
 
 
@@ -159,8 +163,6 @@ def bench_config(env: Optional[Mapping[str, str]] = None, overrides: Optional[di
                       ("BENCH_MARGIN", "the windowed kernels' margin")):
         if env.get(var):
             _refuse(f"{var} ({what})", "item 12")
-    if env.get("BENCH_FUSED_OPT") == "1":
-        _refuse("BENCH_FUSED_OPT=1 (the fused AdamW)", "item 12")
     for var in ("BENCH_REMAT", "BENCH_BB_REMAT", "BENCH_SEL_REMAT"):
         if env.get(var) == "1":
             _refuse(f"{var}=1 (remat)", "item 11")
@@ -173,6 +175,8 @@ def bench_config(env: Optional[Mapping[str, str]] = None, overrides: Optional[di
         cfg.use_clip_visual_query = False
     if env.get("BENCH_MATCHER"):
         cfg.matcher_type = env["BENCH_MATCHER"]
+    if env.get("BENCH_FUSED_OPT"):
+        cfg.fused_adamw = env["BENCH_FUSED_OPT"] == "1"
     if env.get("BENCH_DEC_IMPL"):
         if env["BENCH_DEC_IMPL"] not in ("sep", "sep_pallas"):
             _refuse(f"BENCH_DEC_IMPL={env['BENCH_DEC_IMPL']} (the decoder runs K1 for "
@@ -341,7 +345,8 @@ def bench_line(device="cuda", env=None, overrides=None, canvas=CANVAS, teacher=N
     line = {
         "metric": f"train images/sec/chip (RichSem-R50 4-scale LVIS flagship on the PyTorch "
                   f"port: CLIP teacher + distill, bs{batch_size}, {h}x{w}, "
-                  f"{SHORT_DTYPE[cfg.compute_dtype]}; {where})",
+                  f"{SHORT_DTYPE[cfg.compute_dtype]}"
+                  f"{', fused AdamW' if getattr(cfg, 'fused_adamw', False) else ''}; {where})",
         "value": ips,
         "unit": "images/sec/chip" if dev.type == "cuda" else "images/sec",
         "vs_baseline": ips / A100_IMAGES_PER_SEC,

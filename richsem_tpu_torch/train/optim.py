@@ -1,13 +1,32 @@
 """Optimizer: parameter groups, AdamW with a global-norm clip, LR schedules
 (counterpart of ``richsem_tpu/train/optim.py``).
 
-The JAX chain (``optim.py:178-184``) is, per step:
+The JAX package has two forms of the same AdamW, and so has the port
+(:class:`AdamW`'s ``order``); both run on the kernels of ``ops/adamw.py``
+on the card (K5, the norm; K6, the update) and on their plain versions on
+the CPU. Per step, with ``gnorm`` the global norm of every gradient:
 
-    g  = grads * min(1, clip_max_norm / global_norm(grads))
-    u  = adam(g)                    mu/(1-b1^t) / (sqrt(nu/(1-b2^t)) + eps)
-    u += weight_decay * p           trainable leaves only
-    u *= group scale                lr_backbone / lr, 1.0, or 0 when frozen
-    p -= lr(step) * u
+* ``"chain"`` (the default), the optax chain of ``optim.py:178-184``::
+
+      g  = g if gnorm < clip_max_norm else (g / gnorm) * clip_max_norm
+                                       clip_by_global_norm
+      m  = (1-b1) g + b1 m;  v = (1-b2) g^2 + b2 v       scale_by_adam
+      u  = (m / (1-b1^t)) / (sqrt(v / (1-b2^t)) + eps)
+      u += weight_decay * p            add_decayed_weights (trainable leaves)
+      u *= group scale                 lr_backbone / lr or 1 (where not 1)
+      p -= lr(step) * u                scale_by_learning_rate, apply_updates
+
+* ``"fused"``, ``fused_adamw`` (``optim.py:99-149``, ``cfg.fused_adamw``)::
+
+      clip = 1 if gnorm < clip_max_norm else clip_max_norm / gnorm     :126
+      g  = g * clip;  m and v as above                                :133-139
+      p += ((-s) * lr) * ((m / c1) / (sqrt(v / c2) + eps) + weight_decay * p)
+                                                                      :141-144
+
+The two compute the same function with other roundings. Each operation is
+rounded on its own in f32 as JAX rounds it (``ops/adamw.py``). The state is
+the same in both (``mu``, ``nu`` of the trainable leaves and ``count``), so a
+checkpoint of either order restores into the other.
 
 The global norm covers every leaf, frozen ones included: the stem, ``layer1``
 and every FrozenBN tensor. FrozenBN tensors are flax *params* in the JAX
@@ -15,7 +34,9 @@ package and *buffers* here, so :func:`frozen_leaves` lists them and the train
 step has autograd compute their gradients for the norm (and for the
 ``grad_norm`` metric); no state is kept for them and they never change. With
 ``clip_max_norm = 0.1`` the clip binds on every step, so this norm sets the
-step size of every trainable leaf.
+step size of every trainable leaf. The port sums the squares in float64 (JAX
+sums them in f32): a float32 norm of a leaf of millions of entries is off by
+~1e-5. A leaf without a gradient counts as zero, as in JAX's tree.
 
 Frozen leaves (group scale 0) get no update at all, which is what the chain
 gives them: a zero scale multiplies both the Adam term and the decay.
@@ -34,6 +55,8 @@ from typing import Callable, Dict, List, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from richsem_tpu_torch.ops.adamw import adamw_update, global_norm_clip
 
 
 def lr_scale(name: str, cfg) -> float:
@@ -88,7 +111,8 @@ def make_lr_schedule(cfg, steps_per_epoch: int) -> Callable[[int], float]:
 
 
 class AdamW:
-    """The JAX chain over named parameter groups; see the module docstring.
+    """AdamW over named parameter groups, in the chain's or ``fused_adamw``'s
+    ``order``; see the module docstring.
 
     A step has three parts: :meth:`prepare` (host: the step's lr and bias
     corrections written into :attr:`hyper`), :meth:`update` (device: the
@@ -97,7 +121,8 @@ class AdamW:
     :meth:`advance` (host: the count). :meth:`step` runs the three."""
 
     def __init__(self, model: nn.Module, cfg, steps_per_epoch: int = 1,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, order: str = "chain"):
+        self.order = order  # "chain" or "fused" (ops/adamw.py:ORDERS)
         self.schedule = make_lr_schedule(cfg, steps_per_epoch)
         self.clip_max_norm = cfg.clip_max_norm
         self.weight_decay = cfg.weight_decay
@@ -130,32 +155,17 @@ class AdamW:
     def advance(self) -> None:
         self.count += 1
 
-    def grad_leaves(self) -> List[torch.Tensor]:
-        """Every leaf's gradient (a missing one is zero, as in JAX's tree)."""
-        return [t.grad if t.grad is not None else torch.zeros_like(t)
-                for _, t in self.trainable + self.frozen]
-
     @torch.no_grad()
     def update(self) -> torch.Tensor:
-        """The update from the ``.grad`` of every leaf and :attr:`hyper` -> the
-        pre-clip global norm."""
-        grads = self.grad_leaves()
-        # squares summed in float64: a float32 norm of a leaf of millions of
-        # entries is off by ~1e-5, and the clip binds on every step
-        sq = torch.stack([torch.sum(g.float().square(), dtype=torch.float64) for g in grads])
-        gnorm = sq.sum().sqrt().float()
-        clip = torch.where(gnorm < self.clip_max_norm, gnorm.new_ones(()),
-                           self.clip_max_norm / gnorm)
-        lr, c1, c2 = self.hyper.unbind()
-        g = torch._foreach_mul(grads[: len(self.trainable)], clip)
-        torch._foreach_lerp_(self.mu, g, 1.0 - self.b1)
-        torch._foreach_mul_(self.nu, self.b2)
-        torch._foreach_addcmul_(self.nu, g, g, value=1.0 - self.b2)
-        for (name, p), m, v in zip(self.trainable, self.mu, self.nu):
-            u = (m / c1) / (torch.sqrt(v / c2) + self.eps) + self.weight_decay * p
-            if self.scales[name] != 1.0:  # the group scale, then the lr, as the chain
-                u.mul_(self.scales[name])
-            p.sub_(u * lr)
+        """The update from the ``.grad`` of every leaf and :attr:`hyper` (K5,
+        then K6 on the card) -> the pre-clip global norm."""
+        grads = [t.grad for _, t in self.trainable + self.frozen]
+        gnorm, clip_state = global_norm_clip(grads, self.clip_max_norm, self.hyper.device)
+        n = len(self.trainable)
+        adamw_update([p for _, p in self.trainable], grads[:n], self.mu, self.nu, self.hyper,
+                     clip_state, [self.scales[name] for name, _ in self.trainable],
+                     b1=self.b1, b2=self.b2, eps=self.eps, weight_decay=self.weight_decay,
+                     max_norm=self.clip_max_norm, order=self.order)
         return gnorm
 
     def step(self) -> torch.Tensor:
@@ -172,11 +182,10 @@ class AdamW:
 
 
 def build_optimizer(model: nn.Module, cfg, steps_per_epoch: int = 1) -> AdamW:
-    if getattr(cfg, "fused_adamw", False):
-        raise NotImplementedError(
-            "fused_adamw is a TPU formulation of the same chain; the port runs the "
-            "chain (ROADMAP.md queue 1, item 12)")
-    return AdamW(model, cfg, steps_per_epoch)
+    """The chain, or ``fused_adamw``'s order when ``cfg.fused_adamw`` is set
+    (``optim.py:152-184``)."""
+    order = "fused" if getattr(cfg, "fused_adamw", False) else "chain"
+    return AdamW(model, cfg, steps_per_epoch, order=order)
 
 
 def ema_update(ema: Dict[str, torch.Tensor], model: nn.Module, decay: float) -> None:

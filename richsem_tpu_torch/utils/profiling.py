@@ -94,10 +94,11 @@ def annotate(name: str) -> Iterator[None]:
 
 
 # The __global__ functions of richsem_tpu_torch/csrc, as a profile names them
-# (K2-bwd is three of them; the probes' after the model's).
+# (K2-bwd is three of them, K5 two; the probes' after the model's).
 HAND_WRITTEN = ("msda_fwd_kernel", "msda_bwd_kernel", "encoder_tail_fwd_kernel",
                 "row_pass_kernel", "dw_gemm_kernel", "colsum_kernel", "msda_sep_fwd_kernel",
-                "msda_sep_bwd_kernel", "auction_kernel", "vpu_f32_kernel", "vpu_bf16_kernel",
+                "msda_sep_bwd_kernel", "auction_kernel", "sumsq_kernel", "sumsq_finish_kernel",
+                "adamw_kernel", "vpu_f32_kernel", "vpu_bf16_kernel",
                 "mxu_kernel", "mxu_reduce_kernel", "grid_kernel", "repeat_f32_kernel",
                 "repeat_bf16_kernel", "cell_kernel", "cell_reduce_kernel", "tile_kernel",
                 "chain_kernel", "fma_kernel")
@@ -110,6 +111,7 @@ class DeviceProfile:
 
     wall_ms: float
     ops: List[Tuple[str, int, float]]
+    lead_missed: int = 0  # lead-in spins the profile did not record (profile_call)
 
     @property
     def busy_ms(self) -> float:
@@ -148,6 +150,9 @@ class DeviceProfile:
         lines = [f"  profile: device busy {self.busy_ms:.2f} ms of a {self.wall_ms:.2f} ms call "
                  f"(idle share {self.idle_share:.3f}), {self.n_ops} device operations; "
                  "top kernels:"]
+        if self.lead_missed:
+            lines[0] = lines[0].replace(
+                "; top", f", {self.lead_missed} of the {LEAD_SPINS} lead-in spins unrecorded; top")
         for key, n, ms in sorted(self.ops, key=lambda o: -o[2])[:top]:
             lines.append(f"    {ms:9.3f} ms  x{n:<4d} {key[:90]}")
         mine = self.kernels()
@@ -157,23 +162,30 @@ class DeviceProfile:
         return lines
 
 
+LEAD_SPINS = 16  # short spin kernels that open a profile's window
+
+
 def profile_call(fn: Callable[[], object]) -> Optional[DeviceProfile]:
     """Profile one call of ``fn`` on the card (``torch.profiler``, CUPTI) and
     synchronise at its end. -> its :class:`DeviceProfile`, or None when the
-    profile recorded no device time (not measured). The window opens with a
-    short ``torch.cuda._sleep`` (``spin_kernel``), left out of every sum: a
-    profile can miss the first device operation after it starts."""
+    profile recorded no device time (not measured). The window opens with
+    ``LEAD_SPINS`` short ``torch.cuda._sleep`` kernels (``spin_kernel``), left
+    out of every sum: a profile can miss the first few device operations after
+    it starts (four of them in some processes); ``lead_missed`` counts the
+    spins it missed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)
+        for _ in range(LEAD_SPINS):
+            torch.cuda._sleep(1000)
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    ops = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
-           if getattr(e, "device_type", None) is not None
-           and str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
-           and "spin_kernel" not in e.key]
-    return DeviceProfile(wall_ms, ops) if ops else None
+    device = [e for e in prof.key_averages() if getattr(e, "device_type", None) is not None
+              and str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+    ops = [(e.key, e.count, e.self_device_time_total / 1e3) for e in device
+           if "spin_kernel" not in e.key]
+    spins = sum(e.count for e in device if "spin_kernel" in e.key)
+    return DeviceProfile(wall_ms, ops, LEAD_SPINS - spins) if ops else None

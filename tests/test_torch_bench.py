@@ -269,7 +269,6 @@ def test_input_pipeline_bench_prints_its_keys(capsys):
     ({"BENCH_IMPL": "tiled"}, "item 12"),
     ({"BENCH_TILE": "8,8"}, "item 12"),
     ({"BENCH_MARGIN": "8"}, "item 12"),
-    ({"BENCH_FUSED_OPT": "1"}, "item 12"),
     ({"BENCH_DEC_IMPL": "gather"}, "item 12"),
     ({"BENCH_REMAT": "1"}, "item 11"),
     ({"BENCH_BB_REMAT": "1"}, "item 11"),
@@ -288,6 +287,9 @@ def test_implemented_knobs_set_the_config():
            "BENCH_IMPL": "pallas2", "BENCH_REMAT": "0", "BENCH_FUSED_OPT": "0"}
     cfg, batch_size, n_valid = bench.bench_config(env=env)
     assert (batch_size, n_valid) == (1, 8)
+    assert cfg.fused_adamw is False
+    fused, _, _ = bench.bench_config(env={"BENCH_FUSED_OPT": "1"})
+    assert fused.fused_adamw is True
     assert (cfg.dec_msda_impl, cfg.use_dn, cfg.use_visual_distill, cfg.use_clip_visual_query,
             cfg.matcher_type, cfg.monitor_msda_offsets, cfg.enc_layers, cfg.dec_layers,
             cfg.compute_dtype) == ("sep_pallas", False, False, False, "HungarianMatcher",
@@ -296,6 +298,22 @@ def test_implemented_knobs_set_the_config():
     assert (getattr(default, "dec_msda_impl", "sep"), default.use_dn,
             default.use_visual_distill, default.monitor_msda_offsets,
             default.enc_layers) == ("sep", True, True, True, 6)
+
+
+def test_the_launch_guard_names_the_optimizer_kernels():
+    """The optimizer's kernels are counted like the model's: K5 (the norm,
+    ``sumsq_kernel`` and its finish) and K6 (the update, ``adamw_kernel``)
+    each have a wrapper with ``.launches`` and a ``__global__`` name that the
+    profile reader knows, so ``guarded_profile`` holds their counts too."""
+    from richsem_tpu_torch.ops import adamw
+    from richsem_tpu_torch.utils.profiling import HAND_WRITTEN
+
+    assert bench.KERNELS["K5"] == ("adamw", "global_norm_clip", "sumsq_kernel")
+    assert bench.KERNELS["K6"] == ("adamw", "adamw_update", "adamw_kernel")
+    counters = bench.launch_counters()
+    assert counters["K5"] is adamw.global_norm_clip and counters["K6"] is adamw.adamw_update
+    assert {"sumsq_kernel", "sumsq_finish_kernel", "adamw_kernel"} <= set(HAND_WRITTEN)
+    assert all(name in HAND_WRITTEN for _, _, name in bench.KERNELS.values())
 
 
 def test_benches_need_the_card_unless_asked_for_the_cpu(monkeypatch):

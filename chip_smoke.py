@@ -11,8 +11,9 @@ Phases, each printed as it completes:
    serialised ``wgmma`` products); K1, K1-bwd, K2, K2-bwd, K3, K3-bwd, K4 (the
    auction) and ``adamw.cu`` (K5 and K6, the optimizer) must spill nothing,
    and so must the redesigned probe kernels (``mxu_kernel``,
-   ``vpu_bf16_kernel``, ``cell_kernel`` and its ``cell_reduce_kernel``,
-   ``fma_kernel``), checked by name since their sources hold other kernels.
+   ``vpu_bf16_kernel``, ``repeat_f32_kernel`` and ``repeat_bf16_kernel``,
+   ``cell_kernel`` and its ``cell_reduce_kernel``, ``fma_kernel``), checked
+   by name since their sources hold other kernels.
 2. K1 (deformable attention) against its plain PyTorch version at the
    production encoder shapes (clamped offsets) and decoder shapes (1,100 box
    queries, unclamped), in bf16 and f32: max abs error and both times; one
@@ -145,13 +146,15 @@ Phases, each printed as it completes:
 15. K4, the auction (run after phase 11, on phase 10's matrices), against the
     plain ``_auction`` on the same CUDA tensors, exact (``torch.equal`` on the
     assignment, each problem's rounds against the plain loop on that problem
-    alone): the seven matchings of one flagship step, random costs at P 300
-    with 16 and with 300 valid and O 900, the price-war tied rows of
+    alone): the seven matchings of one flagship step, correlated rows (one
+    random row plus noise) at P 300 with 16 valid and O 900, random costs at
+    P 300 with 16 and with 300 valid and O 900, the price-war tied rows of
     ``tests/test_lap.py``, a cap of 3 that leaves the greedy fallback
-    collisions, and a problem with no valid person; then K4's device time
-    (five profiled calls) and CUDA-event time beside the plain loop's host
-    and device time on the first flagship matching, its rounds, bids, time a
-    round and bound.
+    collisions, a problem with no valid person, and P 20 with 17 valid at
+    O 30 (rows of 120 bytes, no float4); each with its device time a round;
+    then K4's device time (five profiled calls) and CUDA-event time beside
+    the plain loop's host and device time on the first flagship matching,
+    its rounds, bids, time a round and bound.
 16. K5 and K6, the optimizer's global norm and AdamW update
     (``csrc/adamw.cu``, run after phase 15), on the flagship model's leaves
     at their real shapes (338 trainable, 224 frozen with the FrozenBN
@@ -184,9 +187,13 @@ then does the same for the probe kernels redesigned for Hopper,
 ``tile_kernel`` at check_repeat_semantics' [8, 8] (beside the device time of
 ``x.repeat``), ``run_cell`` at phase 12's inputs (the device time of each of
 its kernels and their sum, the bound, the hash, and whether two calls agree)
-and ``run_vpu`` in bf16 at phase 12's inputs (device time, bound, hash), and
-K5 and K6 (both orders) at phase 16's inputs (event and device time, hashes
-of K5's state and of K6's parameters and moments after one call). Compare
+and ``run_vpu`` in bf16 at phase 12's inputs (device time, bound, hash),
+``run_repeat`` in f32 and bf16 at phase 12's shapes (event and device time,
+the bound, the hash), K4 on phase 15's correlated case (B 2, P 300 with 16
+valid, O 900: event and device time, rounds, device time a round, a hash of the
+assignment and the stats), and K5 and K6 (both
+orders) at phase 16's inputs (event and device time, hashes of K5's state
+and of K6's parameters and moments after one call). Compare
 two trees in one call on the card, in turns, each in a process of
 its own:
 
@@ -241,7 +248,8 @@ NO_SPILL = ("ms_deform_attn_fwd", "ms_deform_attn_bwd", "fused_encoder_tail_fwd"
             "fused_encoder_tail_bwd", "ms_deform_attn_sep_fwd",
             "ms_deform_attn_sep_bwd", "auction", "adamw")  # ptxas must report 0 spill bytes
 # kernels that must spill nothing in sources that hold other kernels too
-NO_SPILL_KERNELS = {"probe_cal": ("mxu_kernel", "vpu_bf16_kernel"),
+NO_SPILL_KERNELS = {"probe_cal": ("mxu_kernel", "vpu_bf16_kernel", "repeat_f32_kernel",
+                                  "repeat_bf16_kernel"),
                     "probe_cell": ("cell_kernel", "cell_reduce_kernel"),
                     "probe_vpu_model": ("fma_kernel",)}
 VALID = (800, 1224)  # bench.py's valid extent inside CANVAS
@@ -1533,20 +1541,42 @@ def phase_flagship(recs):
     return costs
 
 
+def auction_random(g, n_valid, spread=None):
+    """K4's random case: B 2, P 300 GT slots with ``n_valid`` valid, O 900,
+    costs from the generator ``g``; with ``spread``, each problem's rows are
+    one random row plus ``spread`` times noise, so the valid persons want the
+    same queries and evict each other for tens of rounds, a few bidders a
+    round, as in a flagship matching."""
+    import torch
+
+    if spread is None:
+        c = torch.randn((BATCH, MAX_GT, 900), generator=g, device=DEVICE)
+    else:
+        c = torch.randn((BATCH, 1, 900), generator=g, device=DEVICE)
+        c = c + spread * torch.randn((BATCH, MAX_GT, 900), generator=g, device=DEVICE)
+    v = (torch.arange(MAX_GT, device=DEVICE) < n_valid)[None].repeat(BATCH, 1)
+    return c, v
+
+
+AUCTION_SPREAD = 0.1  # the correlated case's noise: ~50 rounds at 16 valid
+
+
 def auction_cases(costs):
-    """K4's cases: the flagship step's matchings (``costs``), random costs at
-    P 300 with 16 and with 300 valid and O 900, the price-war tied rows of
+    """K4's cases: the flagship step's matchings (``costs``), the correlated
+    rows of ``auction_random`` at P 300 with 16 valid and O 900, random costs
+    at P 300 with 16 and with 300 valid and O 900, P 20 with 17 valid at O 30
+    (rows of 120 bytes, read without float4s), the price-war tied rows of
     ``tests/test_lap.py``, a cap of 3 that leaves the greedy fallback work to
     do, and a problem with no valid person. -> (name, cost, valid, max_iters)."""
     import torch
 
     cases = [(f"flagship matching {i} {tuple(c.shape)}", c, v, 3000)
              for i, (c, v) in enumerate(costs)]
+    c, v = auction_random(torch.Generator(device=DEVICE).manual_seed(11), N_VALID, AUCTION_SPREAD)
+    cases.append((f"correlated rows P {MAX_GT}, {N_VALID} valid, O 900", c, v, 3000))
     g = torch.Generator(device=DEVICE).manual_seed(11)
     for n in (N_VALID, MAX_GT):
-        c = torch.randn((BATCH, MAX_GT, 900), generator=g, device=DEVICE)
-        v = (torch.arange(MAX_GT, device=DEVICE) < n)[None].repeat(BATCH, 1)
-        cases.append((f"random P {MAX_GT}, {n} valid, O 900", c, v, 3000))
+        cases.append((f"random P {MAX_GT}, {n} valid, O 900", *auction_random(g, n), 3000))
     base = torch.randn((1, 200), generator=g, device=DEVICE)
     tied = base.repeat(40, 1) + 1e-5 * torch.randn((40, 200), generator=g, device=DEVICE)
     cases.append(("price-war tied rows P 40, O 200", tied[None],
@@ -1556,19 +1586,22 @@ def auction_cases(costs):
     cases.append(("cap 3, greedy fallback", capped, torch.arange(20, device=DEVICE)[None] < 17, 3))
     cases.append(("no valid person", torch.randn((1, 7, 30), generator=g, device=DEVICE),
                   torch.zeros(1, 7, dtype=torch.bool, device=DEVICE), 3000))
+    cases.append(("P 20, 17 valid, O 30", torch.randn((1, 20, 30), generator=g, device=DEVICE),
+                  torch.arange(20, device=DEVICE)[None] < 17, 3000))
     return cases
 
 
 def phase_auction(rec, costs):
     """K4 against the plain ``_auction`` on the same CUDA tensors, exact: the
     assignment (``torch.equal``) and each problem's rounds (the plain loop run
-    on that problem alone), on :func:`auction_cases`; then K4's device time
-    (the mean of five profiled calls) and CUDA-event time beside the plain
-    loop's host and device time, on the first flagship matching (or the random
-    16-valid case), with the bound: the valid rows read once and the masks and
-    outputs once, against the rounds' f32 operations (each bid's row: a
-    subtraction, a comparison and a maximum an object; the scale's pass) at the
-    CUDA cores' issue rate; and the latency a round."""
+    on that problem alone), on :func:`auction_cases`, with its device time a
+    round (three profiled calls); then K4's device time (the mean of five profiled calls)
+    and CUDA-event time beside the plain loop's host and device time, on the
+    first flagship matching (or the correlated case), with the bound:
+    the valid rows read once and the masks and outputs once, against the
+    rounds' f32 operations (each bid's row: a subtraction, a comparison and a
+    maximum an object; the scale's pass) at the CUDA cores' issue rate; and
+    the latency a round."""
     import torch
 
     from richsem_tpu_torch.ops import lap
@@ -1576,16 +1609,20 @@ def phase_auction(rec, costs):
     t0 = time.perf_counter()
     cases = auction_cases(costs)
     for name, c, v, iters in cases:
-        obj, stats = lap._auction_cuda(c, v, True, iters, 1e-4)
+        fn = lambda: lap._auction_cuda(c, v, True, iters, 1e-4)  # noqa: E731
+        obj, stats = fn()
         ref, rounds = lap._auction(-c, v, iters, 1e-4)
         alone = [lap._auction(-c[i:i + 1], v[i:i + 1], iters, 1e-4)[1] for i in range(len(c))]
         torch.cuda.synchronize()
         got = stats[:, 0].tolist()
         same = torch.equal(obj, ref) and got == alone and max(got) == rounds
         held = obj[v]
+        kern = device_ms(fn, ["auction_kernel"], iters=3)["auction_kernel"] if max(got) else None
+        per_round = kern / max(got) * 1e3 if kern is not None and max(got) else None
         print(f"  K4 {name}: obj_of equal {torch.equal(obj, ref)}, rounds {got} (plain {alone}), "
               f"bids {stats[:, 1].tolist()}; {held.numel()} valid, {held.unique().numel()} "
-              f"distinct objects", flush=True)
+              f"distinct objects; device {_ms(kern)} ms, {_ms(per_round)} us a round",
+              flush=True)
         if not same:
             fail(f"K4 differs from the plain auction on {name}")
         if iters == 3 and held.unique().numel() == held.numel():
@@ -1952,6 +1989,16 @@ def vpu_cost(x, reps):
     return {"nbytes_": 3 * nbytes(x), key: 6 * x.numel() * reps}
 
 
+def repeat_cost(x, wx=52, reps=256):
+    """bound3's arguments for ``bench_cal.repeat(x, wx, reps)``: x read and
+    the output written once; x + i once a source element and the
+    accumulation once an output element, each pass, in x's dtype."""
+    import torch
+
+    key = "f32_ops" if x.dtype == torch.float32 else "bf16_ops"
+    return {"nbytes_": nbytes(x) * (1 + wx), key: reps * x.numel() * (1 + wx)}
+
+
 def cell_cost(yr, xr, aw, wins, reps):
     """bound3's arguments for ``bench_cell.cell``: the inputs read and the f32
     output written once; a pass, a row and a level: y + it per point, 5
@@ -2125,9 +2172,7 @@ def phase_probes():
         cal.append(probe_case(
             f"run_repeat({str(dt)[6:]})", "tools/bench_pallas_cal.py:117", n["repeat"] // 2,
             lambda: bench_cal.repeat(x, 52, 256), lambda: bench_cal.repeat_plain(x, 52, 256),
-            "exact", {"nbytes_": nbytes(x) * 53,
-                      ("f32_ops" if dt == torch.float32 else "bf16_ops"): 256 * x.numel() * 53},
-            ["repeat_f32_kernel" if dt == torch.float32 else "repeat_bf16_kernel"]))
+            "exact", repeat_cost(x), [REPEAT_KERNELS[str(dt)[6:]]]))
 
     (yr, xr, aw), wins = bench_cell.cell_inputs(DEVICE)
     cells = []
@@ -2425,6 +2470,7 @@ def phase_bench():
 
 MXU_KERNELS = ("mxu_kernel", "mxu_reduce_kernel")
 CELL_KERNELS = ("cell_kernel", "cell_reduce_kernel")
+REPEAT_KERNELS = {"float32": "repeat_f32_kernel", "bfloat16": "repeat_bf16_kernel"}
 
 
 # the device operations of a backward wrapper around its kernel: the zeroed f32
@@ -2622,6 +2668,32 @@ def phase_ab(root: str) -> None:
     rec["vpu_bf16_bound_ms"] = bound3(**vpu_cost(x, 512))[0]
     rec["vpu_bf16_sha"] = digest([fn()])
     del x, y
+    # run_repeat at phase 12's shapes, both dtypes (inputs from a seed of their own)
+    rand = uniform_draws(14)
+    for dt in (torch.float32, torch.bfloat16):
+        x = rand(bench_cal.ROWS, 32, lo=-2, hi=2, dtype=dt)
+        fn = lambda: bench_cal.repeat(x, 52, 256)  # noqa: E731
+        key = f"repeat_{str(dt)[6:]}"
+        rec[f"{key}_ms"] = cuda_ms(fn)
+        rec[f"{key}_device_ms"] = measured_sum(device_ms(fn, [REPEAT_KERNELS[str(dt)[6:]]]))
+        rec[f"{key}_bound_ms"] = bound3(**repeat_cost(x))[0]
+        rec[f"{key}_sha"] = digest([fn()])
+    # K4 on phase 15's correlated case (B 2, P 300, 16 valid, O 900; the same
+    # draws)
+    from richsem_tpu_torch.ops import lap
+
+    c, v = auction_random(torch.Generator(device=DEVICE).manual_seed(11), N_VALID,
+                          AUCTION_SPREAD)
+    fn = lambda: lap._auction_cuda(c, v, True, 3000, 1e-4)  # noqa: E731
+    obj, stats = fn()
+    rounds = int(stats[:, 0].max())
+    rec["k4_ms"] = cuda_ms(fn)
+    rec["k4_device_ms"] = device_ms(fn, ["auction_kernel"])["auction_kernel"]
+    rec["k4_rounds"] = rounds
+    rec["k4_us_per_round"] = (rec["k4_device_ms"] / rounds * 1e3
+                              if rec["k4_device_ms"] and rounds else None)
+    rec["k4_sha"] = digest([obj, stats])
+    del c, v
     try:  # K5 and K6 at phase 16's inputs (a tree before them has neither)
         from richsem_tpu_torch.ops import adamw
     except ImportError:

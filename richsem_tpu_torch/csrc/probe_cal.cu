@@ -33,7 +33,9 @@
 //   probe_repeat <- run_repeat :108
 //                  acc = 0; for i < reps: acc += tile(x + i, wx, axis 1)
 //                  x [rows, wy] -> [rows, wy * wx], out[r, c] sums x[r, c % wy]
-//                  (pltpu.repeat tiles). One thread an output element.
+//                  (pltpu.repeat tiles), each output its own chain of rounded
+//                  adds. A thread V consecutive outputs of one source group
+//                  (repeat_body below: 4 f32, 8 bf16 as packed pairs).
 //
 // Plain C interface; each function returns cudaGetLastError() after its launch.
 // Needs sm_90a (wgmma).
@@ -61,18 +63,12 @@ __global__ void vpu_f32_kernel(const float* __restrict__ x, const float* __restr
   out[idx] = acc;
 }
 
-// bf16 arithmetic rounded after every operation: each op in f32 (exact for a
-// product of two bf16 values, and for a sum a single rounding to 24 bits,
-// which then rounds to bf16 as the direct operation would: 24 >= 2 * 8 + 2),
-// then rounded to bf16 (repeat_bf16_kernel).
-__device__ __forceinline__ float bf(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // Packed bf16 pairs, each operation rounded once to nearest-even (the .rn
 // forms: plain __hadd2/__hmul2 would let the code generator fuse a multiply
-// and an add into one FMA). The same bits as the f32 operation rounded to
-// bf16 (above).
+// and an add into one FMA). The same bits as the plain version's bf16
+// operation, which is the f32 operation rounded to bf16: exact for a product
+// of two bf16 values, and for a sum a single rounding to 24 bits, which then
+// rounds to bf16 as the direct operation would (24 >= 2 * 8 + 2).
 __device__ __forceinline__ uint32_t bf2_add(uint32_t a, uint32_t b) {
   uint32_t d;
   asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
@@ -428,30 +424,105 @@ grid_kernel(const float* __restrict__ x, float* __restrict__ out) {
       make_float4(2.f * v.x, 2.f * v.y, 2.f * v.z, 2.f * v.w);
 }
 
-__global__ void repeat_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
-                                  int rows, int wy, int wx, int reps) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int cols = wy * wx;
-  if (idx >= static_cast<long long>(rows) * cols) return;
-  const int r = static_cast<int>(idx / cols), c = static_cast<int>(idx % cols);
-  const float xv = x[static_cast<long long>(r) * wy + c % wy];
-  float acc = 0.f;
-  for (int i = 0; i < reps; ++i) acc = __fadd_rn(acc, __fadd_rn(xv, static_cast<float>(i)));
-  out[idx] = acc;
+// ---- probe_repeat: out[r, c] = sum over i < reps of (x[r, c mod wy] + i) ----
+// Every output keeps its own chain, acc = acc + (x + i), each add rounded
+// (f32 __fadd_rn; bf16 add.rn.bf16x2 on packed pairs, both adds, the bits of
+// the plain version's bf16 adds). A thread takes V consecutive outputs of one
+// wy-wide source group (4 f32, a float4; 8 bf16, four packed pairs, 16 B),
+// so its V chains read V different sources and no two are one computation.
+// Block (wy / V, by, bz): x the vector in the group, y the copy, z the row,
+// so thread (g, k, z) of block (bx, by) writes row bx * bz + z, columns
+// (by * blockDim.y + k) * wy + g * V ... + V - 1 (no division), a warp 32
+// consecutive vectors. The pass values i (bf16(i), both halves, for bf16)
+// are staged in shared memory, kSteps a chunk, read 4 at a time. Each output
+// costs two adds a pass against the bound's one (x + i is counted once a
+// source), so about half the bound's issue rate is the ceiling.
+constexpr int kSteps = 256;
+
+struct RepeatF32 {
+  static constexpr int kV = 4;
+  using Elem = float;
+  using Step = float;
+  using Vec = float4;
+  struct Acc {
+    float v[4];
+  };
+  __device__ static Step step(int i) { return static_cast<float>(i); }
+  __device__ static Acc split(const Vec& x) { return {{x.x, x.y, x.z, x.w}}; }
+  __device__ static Vec join(const Acc& a) { return make_float4(a.v[0], a.v[1], a.v[2], a.v[3]); }
+  __device__ static void add(Acc& acc, const Acc& x, Step s) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc.v[q] = __fadd_rn(acc.v[q], __fadd_rn(x.v[q], s));
+  }
+};
+
+struct RepeatBf16 {
+  static constexpr int kV = 8;
+  using Elem = __nv_bfloat16;
+  using Step = uint32_t;  // bf16(i) in both halves
+  using Vec = uint4;
+  struct Acc {
+    uint32_t v[4];
+  };
+  __device__ static Step step(int i) {
+    const float fi = static_cast<float>(i);
+    const __nv_bfloat162 s = __floats2bfloat162_rn(fi, fi);
+    return *reinterpret_cast<const uint32_t*>(&s);
+  }
+  __device__ static Acc split(const Vec& x) { return {{x.x, x.y, x.z, x.w}}; }
+  __device__ static Vec join(const Acc& a) { return make_uint4(a.v[0], a.v[1], a.v[2], a.v[3]); }
+  __device__ static void add(Acc& acc, const Acc& x, Step s) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc.v[q] = bf2_add(acc.v[q], bf2_add(x.v[q], s));
+  }
+};
+
+template <class R>
+__device__ __forceinline__ void repeat_body(const typename R::Elem* __restrict__ x,
+                                            typename R::Elem* __restrict__ out, int rows, int wy,
+                                            int wx, int reps) {
+  __shared__ __align__(16) typename R::Step steps[kSteps];
+  const int tid = (threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x;
+  const int threads = blockDim.x * blockDim.y * blockDim.z;
+  const int r = blockIdx.x * blockDim.z + threadIdx.z;
+  const int copy = blockIdx.y * blockDim.y + threadIdx.y;
+  const int src = threadIdx.x * R::kV;  // column in the source group
+  const bool live = r < rows && copy < wx;
+  typename R::Acc xv = {}, acc = {};
+  if (live)
+    xv = R::split(*reinterpret_cast<const typename R::Vec*>(x + static_cast<long long>(r) * wy +
+                                                             src));
+  for (int i0 = 0; i0 < reps; i0 += kSteps) {
+    const int n = min(kSteps, reps - i0);
+    __syncthreads();  // the last chunk's reads are done
+    for (int t = tid; t < n; t += threads) steps[t] = R::step(i0 + t);
+    __syncthreads();
+    if (!live) continue;
+    int t = 0;
+    for (; t + 4 <= n; t += 4) {
+      typename R::Step s4[4];
+      *reinterpret_cast<uint4*>(s4) = *reinterpret_cast<const uint4*>(steps + t);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) R::add(acc, xv, s4[u]);
+    }
+    for (; t < n; ++t) R::add(acc, xv, steps[t]);
+  }
+  if (live)
+    *reinterpret_cast<typename R::Vec*>(out + static_cast<long long>(r) * wy * wx +
+                                        copy * wy + src) = R::join(acc);
 }
 
-__global__ void repeat_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                                   __nv_bfloat16* __restrict__ out, int rows, int wy, int wx,
-                                   int reps) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int cols = wy * wx;
-  if (idx >= static_cast<long long>(rows) * cols) return;
-  const int r = static_cast<int>(idx / cols), c = static_cast<int>(idx % cols);
-  const float xv = __bfloat162float(x[static_cast<long long>(r) * wy + c % wy]);
-  float acc = 0.f;
-  for (int i = 0; i < reps; ++i)
-    acc = bf(__fadd_rn(acc, bf(__fadd_rn(xv, bf(static_cast<float>(i))))));
-  out[idx] = __float2bfloat16_rn(acc);
+// One kernel body (repeat_body), an entry a dtype: the profile names them.
+__global__ void __launch_bounds__(512)
+repeat_f32_kernel(const float* __restrict__ x, float* __restrict__ out, int rows, int wy, int wx,
+                  int reps) {
+  repeat_body<RepeatF32>(x, out, rows, wy, wx, reps);
+}
+
+__global__ void __launch_bounds__(512)
+repeat_bf16_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
+                   int rows, int wy, int wx, int reps) {
+  repeat_body<RepeatBf16>(x, out, rows, wy, wx, reps);
 }
 
 unsigned blocks_for(long long n, int threads) {
@@ -497,16 +568,20 @@ extern "C" int probe_grid(const void* x, void* out, int n_cells, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// x [rows, wy] 16-byte aligned, wy a multiple of V (4 f32, 8 bf16); the block
+// (wy / V, by, bz) from tools/bench_cal.py:repeat_block, the grid
+// (ceil(rows / bz), ceil(wx / by)).
 extern "C" int probe_repeat(const void* x, void* out, int rows, int wy, int wx, int reps,
-                            int is_bf16, void* stream) {
+                            int is_bf16, int by, int bz, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long n = static_cast<long long>(rows) * wy * wx;
+  const int v = is_bf16 ? RepeatBf16::kV : RepeatF32::kV;
+  const dim3 block(wy / v, by, bz), grid((rows + bz - 1) / bz, (wx + by - 1) / by);
   if (is_bf16)
-    repeat_bf16_kernel<<<blocks_for(n, 256), 256, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), rows, wy, wx,
-        reps);
+    repeat_bf16_kernel<<<grid, block, 0, st>>>(static_cast<const __nv_bfloat16*>(x),
+                                               static_cast<__nv_bfloat16*>(out), rows, wy, wx,
+                                               reps);
   else
-    repeat_f32_kernel<<<blocks_for(n, 256), 256, 0, st>>>(
-        static_cast<const float*>(x), static_cast<float*>(out), rows, wy, wx, reps);
+    repeat_f32_kernel<<<grid, block, 0, st>>>(static_cast<const float*>(x),
+                                              static_cast<float*>(out), rows, wy, wx, reps);
   return static_cast<int>(cudaGetLastError());
 }

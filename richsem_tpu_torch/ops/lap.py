@@ -134,13 +134,15 @@ def _auction(benefit: torch.Tensor, person_valid: torch.Tensor, max_iters: int,
 
 _K4 = "auction"
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
+_WARPS = 16  # K4's block: 512 threads
 
 
 def smem_bytes(p: int, o: int) -> int:
-    """K4's shared memory for ``p`` persons and ``o`` objects: the keys and
-    prices of the objects, six words and a flag a person (``auction.cu``'s
-    ``smem_bytes``, checked here before any build or launch)."""
-    return o * 12 + p * 25
+    """K4's shared memory for ``p`` persons and ``o`` objects: two keys, a
+    price and a holder an object, seven words a person, a warp's top-2 and the
+    block's counters (``auction.cu``'s ``smem_bytes``, checked here before any
+    build or launch)."""
+    return o * 24 + p * 28 + (3 * _WARPS + 2) * 4
 
 
 _DEVICE_ROUNDS: Dict[torch.device, torch.Tensor] = {}

@@ -154,15 +154,44 @@ def repeat_plain(x: torch.Tensor, wx: int, reps: int) -> torch.Tensor:
     return acc
 
 
+REPEAT_VEC = {torch.float32: 4, torch.bfloat16: 8}  # outputs a thread of the repeat kernel
+REPEAT_THREADS = 512  # most threads a block
+
+
+def repeat_block(wy: int, wx: int, dtype: torch.dtype) -> Tuple[int, int, int]:
+    """The repeat kernel's block (wy / V, by, bz): x the V-wide vector in the
+    source group, y the copy, z the row; as many copies and rows as fill
+    ``REPEAT_THREADS``. The grid is (ceil(rows / bz), ceil(wx / by))."""
+    bx = wy // REPEAT_VEC[dtype]
+    by = min(wx, max(1, REPEAT_THREADS // bx))
+    return bx, by, max(1, REPEAT_THREADS // (bx * by))
+
+
+def repeat_check(wy: int, dtype: torch.dtype) -> None:
+    """Raise unless the repeat kernel takes a source group of ``wy``: a
+    positive multiple of its vector width, at most a block wide."""
+    v = REPEAT_VEC[dtype]
+    if wy < v or wy % v or wy // v > REPEAT_THREADS:
+        raise ValueError(f"repeat: {dtype} needs wy a positive multiple of {v} up to "
+                         f"{v * REPEAT_THREADS}, got {wy}")
+
+
 def repeat(x: torch.Tensor, wx: int, reps: int) -> torch.Tensor:
     """``acc += tile(x + i, wx, axis=1)`` over ``reps`` passes; x [rows, wy]."""
     if not on_card("repeat", x):
         return repeat_plain(x, wx, reps)
+    is_bf16 = _bf16_flag(x)
+    if x.dim() != 2 or wx < 1:
+        raise ValueError(f"repeat: needs x [rows, wy] and wx >= 1, got {tuple(x.shape)}, {wx}")
     rows, wy = x.shape
-    x = x.contiguous()
-    out = torch.empty(rows, wy * wx, dtype=x.dtype, device=x.device)
-    launch(_SRC, "probe_repeat", [PTR, PTR, I32, I32, I32, I32, I32], x.device,
-           x.data_ptr(), out.data_ptr(), rows, wy, wx, reps, _bf16_flag(x))
+    repeat_check(wy, x.dtype)
+    (x,) = aligned16(x)  # the kernel loads V elements, 16 bytes, at a time
+    out = x.new_empty((rows, wy * wx))
+    if out.numel() == 0:
+        return out
+    _, by, bz = repeat_block(wy, wx, x.dtype)
+    launch(_SRC, "probe_repeat", [PTR, PTR, I32, I32, I32, I32, I32, I32, I32], x.device,
+           x.data_ptr(), out.data_ptr(), rows, wy, wx, reps, is_bf16, by, bz)
     repeat.launches += 1
     return out
 

@@ -3,23 +3,39 @@ on the CPU and held to the JAX ``auction_assignment`` (jitted on the CPU) and
 to the port's plain ``_auction``, bit for bit on the assignment and with the
 same rounds.
 
-The emulation does what one thread block does for one problem: only the
-valid bidders' rows are read; a bidder's row is cut into 32 lanes (lane l
-takes objects l, l+32, ...), each lane keeps its largest value with its first
-index and the largest of the rest (-1e30 when there is none), and the lanes
-merge in the kernel's xor-shuffle tree, so that the first maximum wins and a
-tie elsewhere gives v2 = v1; the bid is (price + (v1 - v2)) + eps in float32;
-each bid becomes a 64-bit key (the float's bits mapped to an order-preserving
-word, negative floats too, over ~person) applied by max in a shuffled order;
-a person per thread resolves; the greedy fallback lets two persons take the
-same object. Lists of valid persons and bidders are shuffled, as the kernel's
-atomics leave their order open.
+The emulation does what one thread block does for one problem. The valid
+persons are numbered j in person order, and the rounds read their rows from
+the cost. A bidder's row is cut among 32 lanes: where O % 4 == 0 (and the
+cost is 16-byte aligned) lane l reads float4s t = l, l + 32, ... and keeps
+four running (v1, first index, v2), one a component, merged in the lane;
+otherwise lane l takes objects l, l + 32, ...
+Both run without a branch: v1 and v2 as maxima (v2 takes min(v, v1)), the
+index moving only on a strictly larger v; a merge takes the larger v1 and, on
+a tie, the lower index, and v2 the largest of both v2 and the smaller v1.
+The lanes merge by the kernel's three reductions over order-mapped words
+(the largest v1 with -0 as +0, the lowest index that holds it, the largest of
+the rest). The bid is (price + (v1 - v2)) + eps in float32; each bid becomes a
+64-bit key (the float's bits mapped to an order-preserving word, negative
+floats too, over ~j) applied by max in a shuffled order. Resolution runs a
+thread a bidder: the key's person takes its object and evicts the holder of
+``holder[obj]``; losers and the evicted form the next list, each pushed by one
+atomicAdd, in a shuffled order. The keys, the bidders' objects and the
+next list's counter are double-buffered by round parity: the last round's
+keys are cleared in this round's bid pass, and the emulation checks that
+this round's keys are all clear before its bids. A round of one bidder
+writes no key: the block's 512 threads scan its row (float4s t = l, l + 512,
+..., four runs each), each warp reduces its lanes, warp 0 reduces the 16
+warps' results, and the bidder takes its object at once when its bid is
+valid. The greedy fallback reads
+the holders and lets two persons take one object.
 
 Cases: ``tests/test_torch_lap.py``'s, P 300 with 16 valid and every row valid
-at O 900, a negative bid reached through negative prices on a hand-built
-state (one round against the plain version's round), and a problem with no
-valid person. Last, the CUDA wrapper's refusals, reached on a meta tensor that
-reports a CUDA device, before any launch.
+at O 900, a row of O 30 (120 bytes, no float4), a misaligned cost, a single
+object and odd widths, a negative bid reached through negative prices on a
+hand-built state (one round against the plain version's round), signed zeros
+tied across lanes, and a problem with no valid person. Last, the CUDA
+wrapper's refusals, reached on a meta tensor that reports a CUDA device,
+before any launch.
 """
 
 import jax.numpy as jnp
@@ -34,87 +50,196 @@ from richsem_tpu_torch.ops import lap
 NEG = np.float32(-1e30)
 THETA = np.float32(64.0)
 INT_MAX = 2**31 - 1
+UINT_MAX = 2**32 - 1
 LANES = 32
 
 
-def order_key(bid: np.float32, person: int) -> int:
-    """The kernel's 64-bit key: the bid's bits mapped so that unsigned order is
-    float order (negative floats reversed), over ~person (the lowest person
-    wins a tie)."""
-    u = int(np.float32(bid).view(np.uint32))
-    hi = (~u & 0xFFFFFFFF) if u & 0x80000000 else (u | 0x80000000)
-    return (hi << 32) | (~person & 0xFFFFFFFF)
+def order_bits(f) -> np.ndarray:
+    """The kernel's order-preserving map of float32 to uint32 (negative floats
+    reversed), elementwise."""
+    u = np.asarray(f, np.float32).view(np.uint32).astype(np.uint64)
+    return np.where(u & 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+
+
+def order_float(k) -> np.ndarray:
+    k = np.asarray(k, np.uint64)
+    u = np.where(k & 0x80000000, k & 0x7FFFFFFF, ~k & 0xFFFFFFFF)
+    return u.astype(np.uint32).view(np.float32)
+
+
+def order_key(bid: np.float32, j: int) -> int:
+    """The kernel's 64-bit key: the bid's order-mapped bits over ~j (the
+    lowest j, the lowest person, wins a tie)."""
+    return (int(order_bits(bid)) << 32) | (~j & 0xFFFFFFFF)
 
 
 def key_person(k: int) -> int:
     return ~k & 0xFFFFFFFF
 
 
-def lane_top2(v: np.ndarray, second: bool = True):
-    """v [n, O] f32 -> lane 0's (v1, first index, v2) after the shuffle tree."""
+def lane_runs(o: int, vec: bool, threads: int = LANES) -> np.ndarray:
+    """[runs, steps] object indices (-1 past the end): the runs a thread keeps,
+    run r of thread r % threads (a warp's 32 lanes, or the block's 512 threads
+    for a lone bidder). With vec, thread l's four runs are the components of
+    its float4s t = l, l + threads, ...; else one run, o = l, l + threads, ..."""
+    if vec:
+        t = np.arange(threads)[:, None] + threads * np.arange(-(-(o // 4) // threads))[None]
+        idx = np.stack([4 * t + a for a in range(4)])  # [4, threads, steps]
+        idx = np.where(t[None] < o // 4, idx, -1)
+        return idx.reshape(4 * threads, -1)
+    idx = np.arange(threads)[:, None] + threads * np.arange(-(-o // threads))[None]
+    return np.where(idx < o, idx, -1)
+
+
+def redux(a1, ai, a2, second=True):
+    """The kernel's three reductions over the last axis (32 lanes): the
+    largest order-mapped v1 (-0 as +0), the lowest index holding it, the
+    largest of the winner's v2 and the others' v1."""
+    k1 = order_bits(a1 + np.float32(0))  # -0 + 0 = +0
+    kmax = k1.max(-1)
+    first = np.where(k1 == kmax[..., None], ai, UINT_MAX).min(-1)
+    k2 = order_bits(np.where(ai == first[..., None], a2, a1)).max(-1)
+    v2 = order_float(k2) if second else np.full(kmax.shape, NEG, np.float32)
+    return order_float(kmax), first, v2
+
+
+def warp_top2(v: np.ndarray, vec: bool, second: bool = True, threads: int = LANES):
+    """v [n, O] f32 -> the (v1, first index, v2) the kernel forms: each run's
+    top2_add in index order, a thread's runs merged, the three reductions of
+    each warp, and for the block's scan (512 threads) the same reductions
+    over the 16 warps' results in warp 0 (lanes past 16 holding nothing)."""
     n, o = v.shape
-    steps = -(-o // LANES)
-    lanes = np.full((n, steps * LANES), -np.inf, np.float32)
-    lanes[:, :o] = v
-    lanes = lanes.reshape(n, steps, LANES)  # object = step * 32 + lane
-    m1 = lanes.max(1)
-    first = lanes.argmax(1)
-    i1 = first * LANES + np.arange(LANES)
-    i1 = np.where(i1 < o, i1, INT_MAX)  # a lane with no object keeps its start values
-    rest = lanes.copy()
-    np.put_along_axis(rest, first[:, None, :], -np.inf, axis=1)
-    m2 = np.maximum(rest.max(1), NEG) if second else np.full_like(m1, NEG)
-    for off in (16, 8, 4, 2, 1):
-        partner = np.arange(LANES) ^ off
-        om1, oi1, om2 = m1[:, partner], i1[:, partner], m2[:, partner]
-        take = (om1 > m1) | ((om1 == m1) & (oi1 < i1))
-        m2 = np.where(take, np.maximum(om2, m1), np.maximum(m2, om1))
-        m1, i1 = np.where(take, om1, m1), np.where(take, oi1, i1)
-    return m1[:, 0], i1[:, 0], m2[:, 0]
+    runs = lane_runs(o, vec, threads)
+    r = runs.shape[0]
+    m1 = np.full((n, r), -np.inf, np.float32)
+    m2 = np.full((n, r), NEG, np.float32)
+    i1 = np.full((n, r), INT_MAX, np.int64)
+    for s in range(runs.shape[1]):
+        idx = runs[:, s]
+        live = idx >= 0
+        x = np.where(live[None], v[:, np.maximum(idx, 0)], -np.inf).astype(np.float32)
+        i1 = np.where(live[None] & (x > m1), idx[None], i1)  # top2_add, without a branch
+        m2 = np.where(live[None], np.maximum(m2, np.minimum(x, m1)), m2)
+        m1 = np.where(live[None], np.maximum(m1, x), m1)
+    m1, i1, m2 = (a.reshape(n, -1, threads) for a in (m1, i1, m2))
+    a1, ai, a2 = m1[:, 0], i1[:, 0], m2[:, 0]
+    for a in range(1, m1.shape[1]):  # top2_merge
+        o1, oi, o2 = m1[:, a], i1[:, a], m2[:, a]
+        ai = np.where(o1 > a1, oi, np.where(o1 == a1, np.minimum(ai, oi), ai))
+        a2 = np.maximum(np.maximum(a2, o2), np.minimum(a1, o1))
+        a1 = np.maximum(a1, o1)
+    if threads == LANES:
+        return redux(a1, ai, a2, second)
+    w1, wi, w2 = redux(*(a.reshape(n, -1, LANES) for a in (a1, ai, a2)))  # [n, 16] a warp each
+    pad = LANES - w1.shape[1]
+    w1 = np.concatenate([w1, np.full((n, pad), -np.inf, np.float32)], 1)
+    wi = np.concatenate([wi.astype(np.int64), np.full((n, pad), INT_MAX, np.int64)], 1)
+    w2 = np.concatenate([w2, np.full((n, pad), NEG, np.float32)], 1)
+    return redux(w1, wi, w2, second)
 
 
-def bid_round(benefit, valid, obj, price, eps, rng):
-    """One round as the block runs it -> (obj, price, bids of the round)."""
-    obj, price = obj.copy(), price.copy()
-    cur = rng.permutation(np.nonzero(valid & (obj < 0))[0])
-    v = benefit[cur] - price[None, :]
-    v1, best, v2 = lane_top2(v)
-    bid = (price[best] + (v1 - v2)) + eps
-    assert bid.dtype == np.float32
-    key = {}
-    for j in rng.permutation(len(cur)):  # the atomics' order is open
-        key[best[j]] = max(key.get(best[j], 0), order_key(bid[j], int(cur[j])))
-    bidv = dict(zip(cur.tolist(), bid.tolist()))
-    best_of = dict(zip(cur.tolist(), best.tolist()))
-    for q in range(len(obj)):  # a thread a person
-        if not valid[q]:
-            continue
-        if obj[q] < 0:
-            ob = best_of[q]
-            if key_person(key[ob]) == q and bidv[q] > NEG / 2:
-                obj[q] = ob
-                price[ob] = bidv[q]
-        elif obj[q] in key and bidv[key_person(key[obj[q]])] > NEG / 2:
-            obj[q] = -1
-    return obj, price, len(cur)
+class Block:
+    """One problem as one thread block holds it."""
+
+    def __init__(self, benefit, valid, rng, aligned=True):
+        self.benefit = np.asarray(benefit, np.float32)
+        p, o = self.benefit.shape
+        self.vlist = np.nonzero(valid)[0]  # the ballot compaction: person order
+        self.n_valid = len(self.vlist)
+        self.vec = o % 4 == 0 and aligned
+        self.rng = rng
+        self.price = np.zeros(o, np.float32)
+        self.holder = np.full(o, -1, np.int64)
+        self.objv = np.full(self.n_valid, -1, np.int64)
+        self.key = np.zeros((2, o), np.uint64)
+        self.list = np.zeros((2, max(p, 1)), np.int64)
+        self.list[0, :self.n_valid] = np.arange(self.n_valid)
+        self.bobj = np.zeros((2, max(p, 1)), np.int64)
+        self.cnt = [0, 0]
+        self.par, self.n_prev = 0, 0
+
+    def row(self, js):
+        return self.benefit[self.vlist[js]]
+
+    def restart(self):
+        self.price[:] = 0
+        self.holder[:] = -1
+        self.objv[:] = -1
+        self.list[self.par, :self.n_valid] = np.arange(self.n_valid)
+        return self.n_valid
+
+    def round(self, n_bid, eps) -> int:
+        """One round, two barriers -> the next round's bidder count."""
+        par = self.par
+        # bid pass: the last round's keys cleared, this round's counter zeroed
+        self.key[par ^ 1, self.bobj[par ^ 1, :self.n_prev]] = 0
+        self.cnt[par] = 0
+        assert not self.key[par].any(), "a key of an earlier round was left"
+        cur = self.list[par, :n_bid].copy()
+        v = self.row(cur) - self.price[None, :]
+        v1, best, v2 = warp_top2(v, self.vec, threads=512 if n_bid == 1 else LANES)
+        bid = (self.price[best] + (v1 - v2)) + np.float32(eps)
+        assert bid.dtype == np.float32
+        if n_bid == 1:  # a lone bidder takes its object at once, and writes no key
+            j, o, push = int(cur[0]), int(best[0]), int(cur[0])
+            if bid[0] > NEG / 2:
+                push = int(self.holder[o])
+                self.holder[o], self.objv[j], self.price[o] = j, o, bid[0]
+                if push >= 0:
+                    self.objv[push] = -1
+            self.list[par ^ 1, 0] = push
+            self.cnt[par] = int(push >= 0)
+            self.n_prev, self.par = 0, par ^ 1
+            return self.cnt[par]
+        self.bobj[par, :n_bid] = best
+        for i in self.rng.permutation(n_bid):  # the atomics' order is open
+            k = max(int(self.key[par, best[i]]), order_key(bid[i], int(cur[i])))
+            self.key[par, best[i]] = np.uint64(k)
+        # resolution, a thread a bidder; each push's atomicAdd lands in an open order
+        nxt = []
+        for i in range(n_bid):
+            j, o = int(cur[i]), int(best[i])
+            if key_person(int(self.key[par, o])) == j and bid[i] > NEG / 2:
+                old = int(self.holder[o])
+                self.holder[o], self.objv[j], self.price[o] = j, o, bid[i]
+                if old >= 0:
+                    self.objv[old] = -1
+                    nxt.append(old)
+            else:
+                nxt.append(j)
+        nxt = [nxt[k] for k in self.rng.permutation(len(nxt))]
+        self.list[par ^ 1, :len(nxt)] = nxt
+        self.cnt[par] += len(nxt)
+        self.n_prev, self.par = n_bid, par ^ 1
+        return self.cnt[par]
+
+    def fallback(self, n_bid):
+        left = self.list[self.par, :n_bid]
+        if len(left):
+            free = np.where(self.holder[None] >= 0, NEG, self.row(left))
+            _, o, _ = warp_top2(free, vec=False, second=False)
+            self.objv[left] = o  # each on its own: two may take one object
+
+    def obj_of(self):
+        out = np.full(self.benefit.shape[0], -1, np.int64)
+        out[self.vlist] = self.objv
+        return out
 
 
-def emulate(benefit, valid, max_iters=3000, eps_rel=1e-4, seed=0):
+def emulate(benefit, valid, max_iters=3000, eps_rel=1e-4, seed=0, aligned=True):
     """One problem as one thread block runs it -> (obj_of [P], rounds, bids,
     restarts)."""
-    rng = np.random.default_rng(seed)
     benefit = np.asarray(benefit, np.float32)
-    p, o = benefit.shape
-    vlist = np.nonzero(valid)[0]
-    n_valid = len(vlist)
-    m = np.abs(benefit[vlist]).max() if n_valid else np.float32(0)
+    blk = Block(benefit, valid, np.random.default_rng(seed), aligned)
+    n_valid = blk.n_valid
+    rows = blk.row(np.arange(n_valid))
+    m = np.abs(rows).max() if n_valid else np.float32(0)
     scale = np.maximum(np.float32(m), np.float32(1e-6))
     eps = np.float32(eps_rel) * scale
     coarsest = scale / THETA
     cap = min(max_iters, 4 * n_valid + 64)
-    obj = np.full(p, -1, np.int64)
-    price = np.zeros(o, np.float32)
     it = best_n = last_prog = n_now = rounds = bids = restarts = 0
+    n_bid = n_valid
     while True:
         stalled = it >= cap or it - last_prog >= 32
         if not (n_now < n_valid and (not stalled or eps <= coarsest)):
@@ -124,21 +249,16 @@ def emulate(benefit, valid, max_iters=3000, eps_rel=1e-4, seed=0):
             restarts += 1
             eps = eps * THETA
             it = best_n = last_prog = 0
-            obj[:] = -1
-            price[:] = 0
-        obj, price, n_bid = bid_round(benefit, valid, obj, price, eps, rng)
+            n_bid = blk.restart()
         bids += n_bid
-        n_now = int((valid & (obj >= 0)).sum())
+        n_bid = blk.round(n_bid, eps)
+        n_now = n_valid - n_bid
+        assert n_now == int((blk.objv >= 0).sum())  # the next list is every unassigned one
         it += 1
         if n_now > best_n:
             best_n, last_prog = n_now, it
-    left = rng.permutation(np.nonzero(valid & (obj < 0))[0])
-    if len(left):
-        taken = np.zeros(o, bool)
-        taken[obj[obj >= 0]] = True
-        _, greedy, _ = lane_top2(np.where(taken[None], NEG, benefit[left]), second=False)
-        obj[left] = greedy  # each on its own: two may take one object
-    return obj, rounds, bids, restarts
+    blk.fallback(n_bid)
+    return blk.obj_of(), rounds, bids, restarts
 
 
 def plain(benefit, valid, max_iters=3000):
@@ -215,6 +335,22 @@ def test_flagship_shapes(n_valid):
     assert len(set(obj[valid].tolist())) == n_valid
 
 
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "misaligned"])
+def test_rows_not_a_multiple_of_16_bytes(aligned):
+    """O 30: a row is 120 bytes, so no lane takes float4s; with O 32 a
+    misaligned cost falls back to one run a lane too. P 20 with 17 valid, as
+    phase 15 of chip_smoke.py runs it."""
+    rng = np.random.default_rng(7)
+    for o in (30, 32):
+        cost = rng.standard_normal((20, o)).astype(np.float32)
+        valid = np.arange(20) < 17
+        obj, rounds, _, _ = emulate(-cost, valid, aligned=aligned)
+        ref_obj, ref_rounds = plain(-cost, valid)
+        np.testing.assert_array_equal(obj, jax_single(-cost, valid))
+        np.testing.assert_array_equal(obj, ref_obj)
+        assert rounds == ref_rounds
+
+
 def test_negative_bids_on_a_hand_built_state():
     """Prices below zero make every bid negative; tied rows make bidders meet
     on one object, so the key's map of negative floats decides the winner.
@@ -234,14 +370,34 @@ def test_negative_bids_on_a_hand_built_state():
         torch.from_numpy(valid & (obj < 0))[None], torch.from_numpy(obj)[None],
         torch.from_numpy(price)[None], torch.tensor([eps]))
     cur = np.nonzero(valid & (obj < 0))[0]
-    v1, best, v2 = lane_top2(benefit[cur] - price[None])
+    v1, best, v2 = warp_top2(benefit[cur] - price[None], vec=False)
     bids = (price[best] + (v1 - v2)) + eps
     assert (bids < 0).all() and len(set(best.tolist())) < len(cur)
     for seed in range(3):
-        got_obj, got_price, _ = bid_round(benefit, valid, obj, price, eps,
-                                          np.random.default_rng(seed))
-        np.testing.assert_array_equal(got_obj, want_obj[0].numpy())
-        np.testing.assert_array_equal(got_price, want_price[0].numpy())
+        blk = Block(benefit, valid, np.random.default_rng(seed))
+        jv = {q: j for j, q in enumerate(blk.vlist.tolist())}
+        for q in (1, 4, 7):  # the hand-built holders
+            blk.objv[jv[q]], blk.holder[obj[q]] = obj[q], jv[q]
+        blk.price[:] = price
+        unassigned = np.nonzero(blk.objv < 0)[0]
+        blk.list[0, :len(unassigned)] = unassigned
+        blk.round(len(unassigned), eps)
+        np.testing.assert_array_equal(blk.obj_of(), want_obj[0].numpy())
+        np.testing.assert_array_equal(blk.price, want_price[0].numpy())
+
+
+def test_signed_zeros_tie_across_lanes():
+    """-0 in lane 0 and +0 in lane 1 tie: the first index wins, as the plain
+    version's argmax takes it, and v2 = v1 (the word map alone would order
+    +0 above -0)."""
+    v = np.zeros((1, 64), np.float32)
+    v[0, 0] = -0.0
+    v[0, 2:] = -1.0
+    for vec in (False, True):
+        for threads in (LANES, 512):  # a warp's scan, and the block's for a lone bidder
+            v1, best, v2 = warp_top2(v, vec, threads=threads)
+            assert best[0] == 0 and v1[0] == 0 and v2[0] == 0
+    assert int(torch.tensor(v).argmax(1)) == 0
 
 
 def test_order_key_orders_floats_and_breaks_ties_by_person():
@@ -251,6 +407,7 @@ def test_order_key_orders_floats_and_breaks_ties_by_person():
     assert keys == sorted(keys) and len(set(keys)) == len(keys)
     assert order_key(np.float32(-2.0), 3) > order_key(np.float32(-2.0), 4)
     assert all(key_person(order_key(np.float32(1.5), q)) == q for q in (0, 299))
+    np.testing.assert_array_equal(order_float(order_bits(vals)), vals)
 
 
 def test_no_valid_person():
@@ -263,6 +420,26 @@ def test_no_valid_person():
     assert rounds == ref_rounds == bids == restarts == 0 and (obj == -1).all()
 
 
+@pytest.mark.parametrize("p,n_valid,o", [(3, 2, 1), (9, 5, 3), (40, 33, 513)],
+                         ids=["one-object", "O3", "O513"])
+def test_few_objects_and_odd_widths(p, n_valid, o):
+    """One object (v2 is -1e30 for every bidder, so two bidders meet on it
+    until the cap, and the fallback lets the loser collide), three objects,
+    and rows of 513 floats, correlated so that a restart and many rounds of
+    a lone bidder run: its 512 threads leave one object to thread 0's second
+    step."""
+    rng = np.random.default_rng(o)
+    cost = (rng.standard_normal((1, o)) + 0.1 * rng.standard_normal((p, o))).astype(np.float32)
+    valid = np.zeros(p, bool)
+    valid[rng.permutation(p)[:n_valid]] = True
+    obj, rounds, bids, _ = emulate(-cost, valid)
+    ref_obj, ref_rounds = plain(-cost, valid)
+    np.testing.assert_array_equal(obj, jax_single(-cost, valid))
+    np.testing.assert_array_equal(obj, ref_obj)
+    assert rounds == ref_rounds and bids >= n_valid
+    assert (obj[valid] >= 0).all() and (obj[~valid] == -1).all()
+
+
 class _OnCard(torch.Tensor):
     """A meta tensor that reports a CUDA device: it reaches the wrapper's
     kernel path without a card, and no kernel can run on it."""
@@ -273,9 +450,9 @@ class _OnCard(torch.Tensor):
 
 
 def test_cuda_wrapper_refuses_before_launching(monkeypatch):
-    """K4 keeps a problem in one block's shared memory and takes a bool mask:
-    a CUDA call that breaks either raises before any build or launch; one that
-    keeps both goes on to the launch."""
+    """K4 keeps a problem's state in one block's shared memory and takes a
+    bool mask: a CUDA call that breaks either raises before any build or
+    launch; one that keeps both goes on to the launch."""
 
     def no_launch(*args):
         raise AssertionError("kernel launch reached")

@@ -168,6 +168,25 @@ Phases, each printed as it completes:
     by bytes at 3.35 TB/s and the share; for K6 the CUDA-event time of
     ``torch._fused_adamw_``, one call a lr group (a yardstick: it rounds its
     decoupled decay otherwise).
+17. Data parallelism (``richsem_tpu_torch/parallel/dist.py``, run last):
+    ``train_loop`` on phase 13's config and a synthetic LVIS directory for
+    one epoch, twice without a process group and once with the launcher's
+    environment set (``RANK`` 0, ``WORLD_SIZE`` 1), as the one rank of an
+    NCCL group on ``cuda:0``: the backend and device; the steps and launches
+    of phase 13's first run (12/12/6/6/7/1/1 a step) and one gradient
+    collective a step; the parameters after the epoch within the spread of
+    the two single-process runs (F-P6, held as ``graph_vs_eager`` holds a
+    replay: twice the largest difference and twice the l2 distance); the
+    epoch's eval, gathered to rank 0, equal to a single-process ``evaluate``
+    of the same parameters; guarded profiles of three replays, each holding
+    exactly one NCCL kernel (in a one-rank group NCCL's AVG is its one-rank
+    reduce kernel), in turns with three of a single-process run's on the same
+    batch: the busy ms of each (and phase 10's), the NCCL kernel's device ms,
+    the averaged buffer's bytes and the operations the collective adds; and
+    ``--eval`` under the group writing ``eval.json`` with the epoch's AP;
+    and in the group a CUDA graph of one 48 MB in-place all-reduce with SUM
+    and with AVG, each replay profiled (the NCCL kernels and their device
+    ms). The group is destroyed at the end.
 
 ``python3 chip_smoke.py kernels`` stops after the kernel phases (1-5, 8, 9, 12,
 15 on its random cases, and 16).
@@ -201,7 +220,8 @@ its own:
 
 The kernels' JSON record lists the six kernels of the model, K4, K5 and K6,
 each with ``launches`` from the flagship train step (phase 10, K3 and
-K3-bwd from phase 11) and ``trainer_launches`` from phase 13, and the three probe
+K3-bwd from phase 11), ``trainer_launches`` from phase 13, and
+``ddp_launches`` and ``ddp_replay_busy_ms`` from phase 17, and the three probe
 sources, each with the numbers of one headline call at the top, every call
 under ``calls`` (each with ``device_ms`` beside the CUDA-event ``ms``, and
 ``library_device_ms``), and ``launches`` summed over its kernels in the
@@ -1305,7 +1325,11 @@ def two_runs(step, state, batches, text_embed=None, n=5):
           f"{losses[0][-1]:.6f} vs {losses[1][-1]:.6f}", flush=True)
 
 
-def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None, costs=None):
+REPLAY_BUSY = {}  # the device ms of each train phase's profiled replay
+
+
+def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None, costs=None,
+              phase=None):
     """Build the detector from seed 0, take one warm-up step (eager; it
     captures the step's CUDA graph: capture ms and pool GB printed) and
     ``n_steps`` train steps, each a replay (launches checked against ``want``
@@ -1443,6 +1467,8 @@ def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None, cost
     n_ops = {}
     dev = profile_once(lambda: step(state, batches[1], text_embed), also=ALL_OPS, counts=n_ops)
     seen = {k: n_ops.get(KERNELS[k][2], 0) for k in COUNTED}
+    if phase is not None and "all" in dev:
+        REPLAY_BUSY[phase] = dev["all"]
     print(f"  the replay's device operations: {n_ops.get('all')}; the kernels in its profile "
           f"{seen}; K4 {dev.get('auction_kernel', float('nan')):.4f} ms", flush=True)
     if cfg.use_language:  # F-P7's before and after, on one set of weights and draws
@@ -1524,7 +1550,8 @@ def phase_flagship(recs):
 
     costs = []
     launches = run_train(cfg, (12, 12, 6, 6, 0, 0, 7, 1, 1), N_STEPS, FLAGSHIP_LEAVES,
-                         clip_model=teacher, text_embed=text_embed, costs=costs)
+                         clip_model=teacher, text_embed=text_embed, costs=costs,
+                         phase="phase 10")
     for rec, n in zip(recs[:4] + recs[6:], launches[:4] + launches[6:]):
         rec["launches"] = n
     print("phase 10: flagship train step ok", flush=True)
@@ -2272,7 +2299,8 @@ def trainer_graphs(run, cfg, ckpt_dir, saved):
           flush=True)
     if not caps:
         fail("the trainer captured no train graph")
-    batch = trainer.place_batch(next(iter(trainer.build_loaders(cfg)[0].epoch(0))), DEVICE)
+    host = next(iter(trainer.build_loaders(cfg)[0].epoch(0)))
+    batch = trainer.place_batch(host, DEVICE)
     fed_weight = next(iter(step.graphs.values())).inputs.get("fed_weight")
     if fed_weight is not None:  # the trainer's, as it hands it to every step
         batch["fed_weight"] = fed_weight.clone()
@@ -2720,6 +2748,235 @@ def phase_ab(root: str) -> None:
     print(json.dumps(rec), flush=True)
 
 
+def nccl_ops(prof):
+    """(count, device ms) of NCCL's kernels in a profile: a collective's
+    (``ncclDevKernel_*``), or the one-rank reduce (``onerank.cu``) that a
+    one-rank group launches for AVG."""
+    n, ms = 0, 0.0
+    for key, count, t in prof.ops:
+        if "nccl" in key.lower() or "onerank" in key.lower():
+            n, ms = n + count, ms + t
+    return n, ms
+
+
+@contextlib.contextmanager
+def recorded_evals():
+    """Record what each ``LvisEvaluator`` is given while the context is open: a
+    list with a dict (image id -> scores, labels, boxes on the host) an
+    evaluator, appended at its first update."""
+    from richsem_tpu_torch.data.evaluation import LvisEvaluator
+
+    evals, real = [], LvisEvaluator.update
+
+    def update(self, predictions):
+        if not hasattr(self, "_recorded"):
+            self._recorded = {}
+            evals.append(self._recorded)
+        self._recorded.update({int(k): tuple(p[f].copy() for f in ("scores", "labels", "boxes"))
+                               for k, p in predictions.items()})
+        return real(self, predictions)
+
+    LvisEvaluator.update = update
+    try:
+        yield evals
+    finally:
+        LvisEvaluator.update = real
+
+
+def replay_profile(run, cfg):
+    """A guarded profile of one replay of ``train_loop``'s step (``run``) on the
+    first batch of its loader, with the statistics the trainer hands a step
+    -> (profile, retakes, gradient collectives issued a profiled call)."""
+    from richsem_tpu_torch.bench import guarded_profile
+    from richsem_tpu_torch.parallel import dist as pdist
+    from richsem_tpu_torch.train import main as trainer
+    from richsem_tpu_torch.train.engine import train_graph_key
+
+    d, step, state = run["dist"], run["train_step"], run["state"]
+    host = next(iter(trainer.build_loaders(cfg, d.rank, d.world)[0].epoch(0)))
+    host.update(pdist.step_stats(d, host, cfg))
+    batch = trainer.place_batch(host, DEVICE)
+    fed = next(iter(step.graphs.values())).inputs.get("fed_weight")
+    if fed is not None:
+        batch["fed_weight"] = fed.clone()
+    if train_graph_key(batch, None, state.ema is not None) not in step.graphs:
+        fail("the first batch's train graph was not captured")
+    before = pdist.average_.launches
+    prof, retakes = guarded_profile(lambda: step(state, batch))
+    return prof, retakes, (pdist.average_.launches - before) / (retakes + 1)
+
+
+def phase_ddp(recs, smi):
+    """Phase 17: ``train_loop`` as the one rank of an NCCL group (the launcher's
+    environment set, world size 1), on phase 13's config and synthetic LVIS
+    for one epoch, beside two runs of it without a group: the group's backend
+    and device, the steps and launches of phase 13's first run and one
+    gradient collective a step, the parameters within the two single-process
+    runs' spread (F-P6, held as ``graph_vs_eager`` holds a replay), the
+    epoch's eval (gathered) equal to a single-process ``evaluate`` of the same
+    parameters, guarded profiles of replays in turns with a single-process
+    run's on one batch (exactly one NCCL kernel in each; its device ms, the
+    busy ms beside the single-process replay's and phase 10's, the averaged
+    buffer's bytes and the operations the collective adds), and ``--eval``
+    under the group writing ``eval.json``."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from richsem_tpu_torch.data.synthetic import write_lvis
+    from richsem_tpu_torch.parallel import dist as pdist
+    from richsem_tpu_torch.train import main as trainer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    env = {k: os.environ.get(k) for k in pdist.LAUNCH_ENV}
+    try:
+        root = write_lvis(os.path.join(tmp, "lvis"))
+
+        def cfg_for(out, *extra):
+            args = ["-c", TRAIN_CONFIG, "--output_dir", os.path.join(tmp, out), "--data_root",
+                    root, "--device", DEVICE, "--options", "epochs=1", *extra]
+            return trainer.load_config(trainer.get_args_parser().parse_args(args))
+
+        def params_of(run):
+            return {"params": {n: p.detach().clone()
+                               for n, p in run["state"].model.named_parameters()}}
+
+        cfg = cfg_for("a")
+        _, val_loader, _, val_ds = trainer.build_loaders(cfg)
+        eval_batches = val_loader.num_batches_hint(0)
+        singles = []
+        for out in ("a", "b"):
+            t = time.perf_counter()
+            run = trainer.train_loop(cfg_for(out))
+            torch.cuda.synchronize()
+            singles.append(params_of(run))
+            steps = run["state"].step
+            print(f"  single-process train_loop ({out}): {steps} steps in "
+                  f"{time.perf_counter() - t:.1f} s", flush=True)
+            if out == "a":  # its graphs kept for the profiles in turns below
+                single_run = run
+            del run
+            torch.cuda.empty_cache()
+
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                          MASTER_PORT=str(pdist.free_port()))
+        counters = launch_counters()
+        for c in counters:
+            c.launches = 0
+        pdist.average_.launches = 0
+        t = time.perf_counter()
+        with recorded_evals() as gathered:
+            run = trainer.train_loop(cfg_for("c"))
+        torch.cuda.synchronize()
+        launches = [c.launches for c in counters]
+        collectives = pdist.average_.launches
+        d, step, state = run["dist"], run["train_step"], run["state"]
+        where = next(state.model.parameters()).device
+        print(f"  train_loop under the launcher's environment: {state.step} steps in "
+              f"{time.perf_counter() - t:.1f} s; group {dist.get_backend()}, rank {d.rank} of "
+              f"{d.world}, parameters on {where}", flush=True)
+        if not (d.active and d.backend == "nccl" == dist.get_backend() and d.world == 1
+                and str(where) == "cuda:0"):
+            fail("phase 17 did not run as the one rank of an NCCL group on cuda:0")
+        logs = [json.loads(line) for line in open(os.path.join(tmp, "c", "log.txt"))]
+        forwards = eval_batches + logs[0]["eval_graphs"]
+        want = [12 * (steps + forwards), 12 * steps, 6 * (steps + forwards), 6 * steps, 0, 0,
+                7 * steps, steps, steps]
+        print("  launches " + ", ".join(f"{k} {n}" for k, n in zip(COUNTED, launches))
+              + f" (expect {want}, phase 13's first run: 12/12/6/6/7/1/1 a step); gradient "
+              f"collectives {collectives} (expect {steps}, one a step)", flush=True)
+        if state.step != steps or launches != want or collectives != steps:
+            fail("the data-parallel run did not take phase 13's steps and launches, or not one "
+                 "gradient collective a step")
+        for rec, n in zip(recs, launches):
+            rec["ddp_launches"] = n
+        if [e["epoch"] for e in logs] != [0] or not os.listdir(os.path.join(tmp, "c", "ckpt")):
+            fail("rank 0 did not write one epoch's log line and its checkpoint")
+
+        # F-P6: the parameters against the single-process runs' spread
+        ends = params_of(run)
+        ab, ca = param_spread(*singles), param_spread(ends, singles[0])
+        big = max(float(p.abs().max()) for p in singles[0]["params"].values())
+        d_max = max(max(ab.values()), ulp(torch.tensor(big)))
+        d_l2 = max(param_l2(*singles), d_max)
+        c_l2 = param_l2(ends, singles[0])
+        print(f"  parameters after the epoch (F-P6): two single-process runs differ in "
+              f"{sum(v > 0 for v in ab.values())}/{len(ab)} leaves, largest {max(ab.values()):.3e}, "
+              f"l2 {param_l2(*singles):.3e}; the NCCL run against the first: "
+              f"{sum(v > 0 for v in ca.values())} leaves, largest {max(ca.values()):.3e} (bound "
+              f"{2 * d_max:.3e}), l2 {c_l2:.3e} (bound {2 * d_l2:.3e})", flush=True)
+        if max(ca.values()) > 2 * d_max or c_l2 > 2 * d_l2:
+            fail("the NCCL run's parameters lie outside the single-process runs' spread")
+        del ends, singles
+
+        # the epoch's eval came through the gather path: one process on the same parameters
+        with recorded_evals() as single:
+            one = trainer.evaluate(cfg, state.model, val_loader, val_ds, device=DEVICE)
+        keys = ("AP", "AP50", "AP75", "APr", "APc", "APf")
+        a, b = gathered[-1], single[-1]
+        same = a.keys() == b.keys() and all(
+            all(np.array_equal(x, y) for x, y in zip(a[k], b[k])) for k in a)
+        print(f"  eval, gathered to rank 0: {len(a)} images' predictions, equal to one "
+              f"process's bit for bit: {same}; " + ", ".join(
+                  f"{k} {logs[0][k]:.4f}/{one[k]:.4f}" for k in keys), flush=True)
+        if not same or any(logs[0][k] != one[k] for k in keys):
+            fail("the gathered eval differs from the single-process eval of the same parameters")
+
+        # replays profiled in turns, the single-process run's and this one's, on one
+        # batch: NCCL's kernel inside the graph, and what the collective adds
+        profs = {"single": [], "nccl": []}
+        for _ in range(3):
+            profs["single"].append(replay_profile(single_run, cfg)[0])
+            prof, _, per_call = replay_profile(run, cfg)
+            profs["nccl"].append(prof)
+            n_nccl, nccl_ms = nccl_ops(prof)
+            if n_nccl != 1 or per_call != 1:
+                fail("the replayed train graph does not hold exactly one NCCL all-reduce")
+        busy = {k: statistics.median(p.busy_ms for p in v) for k, v in profs.items()}
+        phase10 = REPLAY_BUSY.get("phase 10")
+        print(f"  replay profiles in turns ({smi}): busy "
+              f"{', '.join(f'{p.busy_ms:.2f}' for p in profs['nccl'])} ms (median "
+              f"{busy['nccl']:.2f}), {prof.n_ops} operations, against the single-process "
+              f"replay of the same batch {', '.join(f'{p.busy_ms:.2f}' for p in profs['single'])}"
+              f" (median {busy['single']:.2f}), {profs['single'][-1].n_ops} operations; phase "
+              f"10's flagship replay "
+              f"{'not measured' if phase10 is None else f'{phase10:.2f} ms'}", flush=True)
+        print(f"  NCCL kernels a replay: 1, {nccl_ms:.4f} ms device time over "
+              f"{step.reduce_bytes} bytes ({step.reduce_bytes / 1e6:.1f} MB: every gradient "
+              f"the norm reads and the metrics)", flush=True)
+        ops = [{k: (n, ms) for k, n, ms in p[-1].ops} for p in (profs["single"], profs["nccl"])]
+        added = sorted(((k, n - ops[0].get(k, (0, 0.0))[0], ms - ops[0].get(k, (0, 0.0))[1])
+                        for k, (n, ms) in ops[1].items() if n != ops[0].get(k, (0, 0.0))[0]),
+                       key=lambda r: -r[2])
+        print("  operations whose count the collective changes (the last pair of profiles): "
+              + "; ".join(f"{k[:70]} {n:+d}, {ms:+.4f} ms" for k, n, ms in added), flush=True)
+        for rec in recs:
+            rec["ddp_replay_busy_ms"] = busy["nccl"]
+        del run, step, state, single_run, profs
+        torch.cuda.empty_cache()
+
+        ev_run = trainer.train_loop(cfg_for("c", "--eval"))
+        ev = json.load(open(os.path.join(tmp, "c", "eval.json")))
+        print(f"  --eval under the group: eval.json step {ev['step']}, AP {ev['AP']:.4f} "
+              f"(epoch's {logs[0]['AP']:.4f})", flush=True)
+        if ev["step"] != steps or ev["AP"] != logs[0]["AP"] or ev_run["eval"]["AP"] != ev["AP"]:
+            fail("--eval under the group did not write the restored step's AP")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("phase 17: train_loop as one rank of an NCCL group: one all-reduce in the replayed "
+          "graph", flush=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -2782,6 +3039,8 @@ def main() -> None:
         phase_trainer(recs)
         torch.cuda.empty_cache()
         phase_bench()
+        torch.cuda.empty_cache()
+        phase_ddp(recs, smi)
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": recs + probe_recs}))

@@ -30,7 +30,7 @@ losses raise ``NotImplementedError`` naming the ROADMAP item.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -47,8 +47,9 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def fed_loss_classes(
-    uniforms: Tensor,  # [C] uniform in [0, 1)
-    matched_labels: Tensor,  # [N], -1 for invalid
+    uniforms: Tensor,  # [C] in [0, 1)
+    appeared: Tensor,  # [C] bool
+    n: int,
     num_classes: int,
     num_sample_cats: int,
     fed_weight: Optional[Tensor] = None,
@@ -56,16 +57,13 @@ def fed_loss_classes(
     """-> ``(ids [W], mask [W])``: every appeared class, then classes sampled
     proportionally to ``fed_weight`` without replacement (Gumbel top-k), up to
     ``max(num_sample_cats, n_appeared)`` active entries of ``W = min(C,
-    max(num_sample_cats, N))``. Ties keep JAX ``top_k``'s order (lower index
+    max(num_sample_cats, n))``. ``appeared`` holds the classes of the matched
+    GT of the global batch and ``n`` counts its matched-label slots (JAX's
+    ``matched_labels.size``). Ties keep JAX ``top_k``'s order (lower index
     first)."""
-    n = matched_labels.numel()
     num_sample_cats = min(num_sample_cats, num_classes)
     width = min(num_classes, max(num_sample_cats, n))
-    dev = matched_labels.device
-    # unmatched slots (-1) mark an extra entry, so that no mask selects on the host
-    slot = matched_labels.long().masked_fill(matched_labels < 0, num_classes)
-    appeared = torch.zeros(num_classes + 1, dtype=torch.bool, device=dev)
-    appeared = appeared.index_fill_(0, slot.reshape(-1), True)[:num_classes]
+    dev = appeared.device
     gumbel = -torch.log(-torch.log(uniforms.float() + 1e-20) + 1e-20)
     if fed_weight is None:
         fed_weight = torch.ones(num_classes, dtype=torch.float32, device=dev)
@@ -93,10 +91,13 @@ def loss_labels(
     gt_labels: Tensor,
     gt_valid: Tensor,
     num_boxes: Tensor,
+    num_matched: Tensor,
     focal_alpha: float = 0.25,
     fed_ids: Optional[Tuple[Tensor, Tensor]] = None,
     query_mask: Optional[Tensor] = None,  # [B, Q] queries to supervise
 ) -> Dict[str, Tensor]:
+    """Focal (or federated) loss over ``num_boxes``, and ``class_error`` over
+    ``num_matched``, the matched GT count."""
     b, q, c = pred_logits.shape
     logits = pred_logits.float()
     hit = gt_valid & (col >= 0)
@@ -119,7 +120,7 @@ def loss_labels(
         matched = torch.gather(pred_logits, 1,
                                col.clamp(min=0)[..., None].expand(-1, -1, c))
         ok = (matched.argmax(-1) == gt_labels) & hit
-        out["class_error"] = 100.0 * (1.0 - ok.sum() / hit.sum().clamp(min=1))
+        out["class_error"] = 100.0 * (1.0 - ok.sum() / num_matched)
     return out
 
 
@@ -211,9 +212,38 @@ def distill_loss_l1(pred_clip_embed: Tensor, col: Tensor, gt_valid: Tensor,
     return (l1 * m).sum() / num_boxes
 
 
+class GlobalStats(NamedTuple):
+    """What the losses read of the global batch, which is one process's batch
+    or the stacked batches of ``ranks`` data-parallel ranks, each count
+    clamped at 1 and divided by ``ranks``: ``num_boxes``, its valid GT count;
+    ``classes [C]``, the classes of its valid GT; ``dn_boxes`` and
+    ``dn_classes``, the same of the valid GT that CDN's positive queries hold
+    (all but those of an image past ``2 * dn_number``). Every valid GT is
+    matched (a query each, in every set), so these are what JAX counts and
+    sees as appeared over the matched GT of the matching sets and of the DN
+    sets; the mean over the ranks of their losses is then, term by term, the
+    loss of the global batch."""
+
+    num_boxes: Tensor
+    classes: Tensor
+    dn_boxes: Tensor
+    dn_classes: Tensor
+    ranks: int = 1
+
+    @classmethod
+    def of(cls, stats: Dict[str, Tensor], ranks: int = 1) -> "GlobalStats":
+        """From the global batch's statistics (``parallel/dist.py:STAT_KEYS``)."""
+        def share(count):
+            return count.float().clamp(min=1.0) / ranks
+
+        return cls(share(stats["gt_total"]), stats["gt_classes"], share(stats["dn_total"]),
+                   stats["dn_classes"], ranks)
+
+
 def set_criterion(
     outputs: Dict[str, Any],
     targets: Dict[str, Tensor],
+    stats: GlobalStats,
     num_classes: int,
     fed_uniforms: Optional[Tensor] = None,  # [16, C], see the module docstring
     focal_alpha: float = 0.25,
@@ -239,7 +269,10 @@ def set_criterion(
     Distillation reads ``targets["clip_logits"]`` (``clip_embed`` for
     ``clip_l1``) and ``clip_valid``, ``outputs["teacher_clip_logits"]`` for
     the ``pred`` objectives, and ``pos_clip_logits`` / ``pos_clip_valid`` of
-    ``dn_meta`` (:func:`expand_dn_targets`)."""
+    ``dn_meta`` (:func:`expand_dn_targets`).
+
+    ``stats`` are the global batch's (:class:`GlobalStats`): ``num_boxes``
+    normalises every set's losses, the DN sets' times their group count."""
     if distill_aux_layers:
         raise _not_ported("distill_aux_layers", "item 11")
     if matcher_type == "OptMatcher":
@@ -251,30 +284,27 @@ def set_criterion(
     if use_fed_loss and fed_uniforms is None:
         raise ValueError("the federated loss needs fed_uniforms [16, num_classes]")
     gt_labels, gt_boxes, gt_valid = targets["labels"], targets["boxes"], targets["valid"]
-    num_boxes = gt_valid.sum().float().clamp(min=1.0)
+    num_boxes = stats.num_boxes
 
     def run_matcher(out_set):
         return match(out_set["pred_logits"], out_set["pred_boxes"], gt_labels, gt_boxes,
                      gt_valid, cost_class, cost_bbox, cost_giou, focal_alpha,
                      matcher_type=matcher_type)
 
-    def fed_ids_for(i, col, labels=None, valid=None):
+    def fed_ids_for(i, col, appeared):
         if not use_fed_loss:
             return None
-        labels = gt_labels if labels is None else labels
-        valid = gt_valid if valid is None else valid
-        matched = torch.where(valid & (col >= 0), labels, -1).reshape(-1)
-        return fed_loss_classes(fed_uniforms[i], matched, num_classes,
-                                fed_num_sample_cats, fed_weight)
+        return fed_loss_classes(fed_uniforms[i], appeared, col.numel() * stats.ranks,
+                                num_classes, fed_num_sample_cats, fed_weight)
 
     has_distill = distill_type in ("clip_logits", "clip_l1") and (
         "pred_clip_logits" in outputs or "pred_clip_embed" in outputs)
     clip_valid = targets.get("clip_valid", gt_valid)
 
     def one_set(out_set, i, col, include_distill=False):
-        fids = fed_ids_for(i, col)
+        fids = fed_ids_for(i, col, stats.classes)
         d = loss_labels(out_set["pred_logits"], col, gt_labels, gt_valid, num_boxes,
-                        focal_alpha, fids)
+                        num_boxes, focal_alpha, fids)
         d.update(loss_boxes(out_set["pred_boxes"], col, gt_boxes, gt_valid, num_boxes))
         d["cardinality_error"] = loss_cardinality(out_set["pred_logits"], gt_valid)
         kd_fids = fids if use_fed_on_kd else None
@@ -299,13 +329,14 @@ def set_criterion(
         dn_out = outputs["dn_outputs"]
         dn_col = dn_slot_indices(dn_meta)
         dn_nb = num_boxes * dn_meta["num_groups"]
+        dn_hits = stats.dn_boxes * dn_meta["num_groups"]
         pos_valid, qmask = dn_meta["pos_valid"], dn_meta["slot_in_use"]
         dn_sets = [(dn_out, "_dn", 1)] + [
             (aux, f"_dn_{i}", 2 + i) for i, aux in enumerate(dn_out.get("aux_outputs", []))]
         for out_set, suffix, i in dn_sets:
-            fids = fed_ids_for(i, dn_col, dn_meta["pos_labels"], pos_valid)
+            fids = fed_ids_for(i, dn_col, stats.dn_classes)
             d = loss_labels(out_set["pred_logits"], dn_col, dn_meta["pos_labels"],
-                            pos_valid, dn_nb, focal_alpha, fids, query_mask=qmask)
+                            pos_valid, dn_nb, dn_hits, focal_alpha, fids, query_mask=qmask)
             d.update(loss_boxes(out_set["pred_boxes"], dn_col, dn_meta["pos_boxes"],
                                 pos_valid, dn_nb))
             if (i == 1 and has_distill and distill_type == "clip_logits"

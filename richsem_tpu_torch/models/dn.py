@@ -43,6 +43,7 @@ def prepare_cdn(
     gt_boxes: torch.Tensor,  # [B, G, 4] normalized cxcywh
     gt_valid: torch.Tensor,  # [B, G] bool
     draws: Dict[str, torch.Tensor],
+    max_count: torch.Tensor,  # 0-d int, the global batch's largest GT count
     dn_number: int = 100,
     label_noise_ratio: float = 0.5,
     box_noise_scale: float = 1.0,
@@ -52,6 +53,9 @@ def prepare_cdn(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """-> (dn_labels [B,P], dn_boxes_unsig [B,P,4], attn_mask [B,QT,QT] True =
     may attend, dn_meta) with P = 2 * dn_number and QT = P + num_queries.
+
+    ``m``, the largest GT count of an image of the global batch (over the
+    data-parallel ranks: ``max_count``), sets the groups' layout.
 
     ``dn_meta``: ``match_gt`` [B,P] (GT index of active positive slots, else
     -1), ``slot_active``, ``slot_in_use`` and ``num_groups`` (a 0-d tensor)."""
@@ -67,7 +71,7 @@ def prepare_cdn(
     dev = gt_labels.device
 
     counts = gt_valid.sum(dim=1)  # [B]
-    m = counts.max().clamp(min=1)
+    m = max_count.clamp(min=1)
     groups = (dn_number // m).clamp(1, dn_number)
 
     slot = torch.arange(pad, device=dev)

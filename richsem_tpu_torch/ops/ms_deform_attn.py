@@ -143,7 +143,10 @@ def ms_deform_attn_plain(
         wts = torch.where(valid, bilin, bilin.new_zeros(()))
         wts = wts * attention_weights[:, :, :, lvl].to(cdt)[..., None]  # [B,Q,M,P,4]
         idx = ys.clamp(0, h - 1) * w + xs.clamp(0, w - 1) + start + row0
-        taps = flat[idx.reshape(-1)].reshape(b, q, m, p * 4, d)
+        # a gather along rows: its backward adds into d_value in a fixed order
+        # on the CPU (an indexed read's backward adds with atomics across threads)
+        rows = idx.reshape(-1, 1).expand(-1, d)
+        taps = torch.gather(flat, 0, rows).reshape(b, q, m, p * 4, d)
         out += (wts.reshape(b, q, m, p * 4, 1) * taps).sum(dim=3)
         start += h * w
     return out.reshape(b, q, m * d).to(value.dtype)

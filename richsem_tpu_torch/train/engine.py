@@ -40,6 +40,7 @@ from richsem_tpu_torch.models.clip_align import (
     clip_teacher_box_targets,
 )
 from richsem_tpu_torch.models.criterion import (
+    GlobalStats,
     build_weight_dict,
     expand_dn_targets,
     set_criterion,
@@ -47,6 +48,7 @@ from richsem_tpu_torch.models.criterion import (
 )
 from richsem_tpu_torch.models.dn import cdn_draws, prepare_cdn
 from richsem_tpu_torch.models.postprocess import postprocess
+from richsem_tpu_torch.parallel.dist import STAT_KEYS, Dist, average_, tensor_stats
 from richsem_tpu_torch.train.optim import AdamW, ema_init, ema_update, frozen_leaves
 
 # JAX's metric keys (engine.py:301-311), and the DN distillation term
@@ -72,12 +74,17 @@ def step_draws(cfg, batch_size: int, generator: torch.Generator,
     return draws
 
 
-def make_loss_fn(model, cfg, clip_model=None
+def make_loss_fn(model, cfg, clip_model=None, world_size: int = 1
                  ) -> Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
     """-> ``loss_fn(batch, draws, text_embed=None) -> (total, losses)``.
 
     ``clip_model`` is the frozen teacher (``models/build.py:build_clip_teacher``),
-    which ``use_visual_distill`` needs."""
+    which ``use_visual_distill`` needs. The loss reads the global batch's
+    statistics (:data:`STAT_KEYS`): those the batch carries from the ranks'
+    host collective (``parallel/dist.py:step_stats``), which ``world_size``
+    above 1 requires, else the batch's own. It is this rank's share of the
+    loss of the global batch (each batch-global normaliser over
+    ``world_size``)."""
     if getattr(cfg, "use_clip_visual_query", False):
         raise NotImplementedError(
             "use_clip_visual_query is not ported to richsem_tpu_torch yet (ROADMAP.md "
@@ -95,6 +102,14 @@ def make_loss_fn(model, cfg, clip_model=None
         raise NotImplementedError(
             "the CDN group-count branch (dn_number < 50) is not ported yet "
             "(ROADMAP.md queue 1, item 11)")
+    # the teacher's weak labels rewrite extra images' boxes on the device, past
+    # the host's statistics
+    weak_labels = use_teacher and bool(getattr(cfg, "use_imagenet_pusedo_labels", False))
+    if weak_labels and world_size > 1 and getattr(cfg, "use_imagenet", False):
+        raise NotImplementedError(
+            "the teacher's weak labels under data parallelism are not ported yet: the "
+            "rewritten boxes change the global counts on the card (ROADMAP.md queue 1, "
+            "item 11)")
 
     def teacher_targets(batch, text_embed):
         """-> the batch with ``clip_logits``, ``clip_embed``, ``clip_valid`` (and
@@ -124,14 +139,26 @@ def make_loss_fn(model, cfg, clip_model=None
                 extra, torch.gather(batch["clip_valid"], 1, slot), batch["clip_valid"])
         return batch, spatial
 
+    def global_stats(batch):
+        """The global batch's statistics: those the batch carries (the ranks'
+        host collective), else, and where the teacher rewrote the batch, its
+        own (one process)."""
+        if STAT_KEYS[0] in batch and not (weak_labels and "is_extra" in batch):
+            return {k: batch[k] for k in STAT_KEYS}
+        if world_size > 1:
+            raise ValueError("a data-parallel step needs the global batch statistics "
+                             f"{STAT_KEYS} in the batch (parallel/dist.py:step_stats)")
+        return tensor_stats(batch, cfg)
+
     def loss_fn(batch, draws, text_embed=None):
         if use_teacher:
             batch, spatial = teacher_targets(batch, text_embed)
+        stats = global_stats(batch)
         dn_args, dn_meta = {}, None
         if use_dn:
             dn_labels, dn_boxes_unsig, dn_attn, dn_meta = prepare_cdn(
                 batch["labels"], batch["boxes"], batch["valid"], draws["dn"],
-                dn_number=cfg.dn_number, label_noise_ratio=cfg.dn_label_noise_ratio,
+                stats["gt_max"], dn_number=cfg.dn_number, label_noise_ratio=cfg.dn_label_noise_ratio,
                 box_noise_scale=cfg.dn_box_noise_scale, num_queries=cfg.num_queries,
                 check_pos_dn=cfg.check_pos_dn,
             )
@@ -150,7 +177,7 @@ def make_loss_fn(model, cfg, clip_model=None
         targets = {k: batch[k] for k in ("labels", "boxes", "valid", "clip_logits",
                                          "clip_embed", "clip_valid") if k in batch}
         losses = set_criterion(
-            outputs, targets, num_classes=cfg.num_classes,
+            outputs, targets, GlobalStats.of(stats, world_size), num_classes=cfg.num_classes,
             fed_uniforms=draws.get("fed_uniforms"), focal_alpha=cfg.focal_alpha,
             cost_class=cfg.set_cost_class, cost_bbox=cfg.set_cost_bbox,
             cost_giou=cfg.set_cost_giou, matcher_type=cfg.matcher_type,
@@ -164,7 +191,7 @@ def make_loss_fn(model, cfg, clip_model=None
         )
         weight_mask = None
         if batch.get("is_extra") is not None:
-            keep = 1.0 - batch["is_extra"].any().float()
+            keep = 1.0 - stats["extra_any"].float()
             weight_mask = {}
             if cfg.mask_bbox:
                 weight_mask.update(loss_bbox=keep, loss_xy=keep, loss_hw=keep)
@@ -286,7 +313,7 @@ class _Graphs:
                 with torch.cuda.graph(graph, pool=self._pool):
                     out.update(body())
 
-            launches = captured_launches(_launch_counters(), capture)
+            launches = captured_launches(_step_counters(), capture)
         except Exception as e:
             raise RuntimeError(f"{what}: CUDA graph capture failed for key {key}") from e
         torch.cuda.synchronize()
@@ -342,7 +369,7 @@ class EvalStep(_Graphs):
             if g.text is not None:
                 g.text.copy_(text_embed)
             g.graph.replay()
-            add_launches(_launch_counters(), g.launches)
+            add_launches(_step_counters(), g.launches)
             return {k: v.clone() for k, v in g.outputs.items()}
 
     def _capture(self, key, batch, text_embed) -> _Graph:
@@ -359,7 +386,7 @@ class EvalStep(_Graphs):
 
 # the batch's fields the train step reads (loss_fn), where present
 TRAIN_INPUTS = ("images", "pad_mask", "labels", "boxes", "valid", "size", "is_extra",
-                "fed_weight")
+                "fed_weight") + STAT_KEYS
 
 
 def train_graph_key(batch, text_embed=None, ema: bool = False) -> tuple:
@@ -414,18 +441,68 @@ class TrainStep(_Graphs):
     rebinds them (a new EMA dict) calls :meth:`reset`, and a call with
     another optimizer or EMA than the graph's raises. The kernel wrappers
     count a replay's launches (their deltas at capture).
+
+    Under a process group (``dist``, ``parallel/dist.py``) the step is one
+    rank's of a data-parallel step: its draws are its rows of the global
+    batch's, its loss its share of the global loss (the batch carries the
+    global statistics), and between the backward and the update one
+    all-reduce averages every gradient the optimizer reads and the metrics
+    (:meth:`_average`). Each call issues that collective exactly once: the
+    warm-up runs it eagerly, the capture records it and launches nothing, and
+    a replay runs the recorded one, so ranks may warm up and replay in the
+    same step.
     """
 
-    def __init__(self, model, cfg, seed: int = 0, device="cuda", clip_model=None):
+    def __init__(self, model, cfg, seed: int = 0, device="cuda", clip_model=None,
+                 dist: Optional[Dist] = None):
         super().__init__()
         self.model, self.cfg, self.seed, self.device = model, cfg, seed, device
-        self.loss_fn = make_loss_fn(model, cfg, clip_model)
+        self.dist = dist or Dist()
+        self.loss_fn = make_loss_fn(model, cfg, clip_model, world_size=self.dist.world)
         self.buffers = [b for _, b in frozen_leaves(model)]
+        self.reduce_bytes = 0  # the averaged buffer's bytes, once a step has run
 
     def draws(self, state: TrainState, batch_size: int) -> Dict[str, Any]:
-        """The step's draws, from a generator seeded with ``(seed, state.step)``."""
+        """The step's draws, from a generator seeded with ``(seed, state.step)``:
+        those of the global batch of ``batch_size`` images a rank, of which the
+        rank keeps its own rows, so that N ranks draw what one process with
+        the global batch draws."""
         g = torch.Generator(device=self.device).manual_seed(self.seed * 1_000_003 + state.step)
-        return step_draws(self.cfg, batch_size, g, device=self.device)
+        d = self.dist
+        draws = step_draws(self.cfg, batch_size * d.world, g, device=self.device)
+        if d.world > 1 and "dn" in draws:
+            rows = slice(d.rank * batch_size, (d.rank + 1) * batch_size)
+            draws["dn"] = {k: v[rows] for k, v in draws["dn"].items()}
+        return draws
+
+    def _average(self, opt: AdamW, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The data-parallel step's one collective: every gradient the
+        optimizer reads (``None`` as zeros) and the metrics, copied into one
+        flat f32 buffer (one multi-tensor copy), averaged over the ranks; each
+        leaf's ``.grad`` becomes its view of the buffer. -> the averaged
+        metrics."""
+        leaves, names = opt.leaves(), list(metrics)
+        flat = torch.empty(sum(t.numel() for t in leaves) + len(names), dtype=torch.float32,
+                           device=leaves[0].device)
+        views, dst, src, o = [], [], [], 0
+        for t in leaves:
+            views.append(flat[o:o + t.numel()].view_as(t))
+            o += t.numel()
+            if t.grad is None:
+                views[-1].zero_()
+            elif t.grad.dtype != torch.float32:
+                raise TypeError(f"the gradient collective takes float32 gradients, not "
+                                f"{t.grad.dtype}")
+            else:
+                dst.append(views[-1])
+                src.append(t.grad)
+        torch._foreach_copy_(dst, src)
+        flat[o:].copy_(torch.stack([metrics[k].float().reshape(()) for k in names]))
+        average_(flat, self.dist)
+        self.reduce_bytes = flat.numel() * flat.element_size()
+        for t, v in zip(leaves, views):
+            t.grad = v
+        return {k: flat[o + i] for i, k in enumerate(names)}
 
     def body(self, state: TrainState, batch, draws, text_embed=None) -> Dict[str, torch.Tensor]:
         """The device part: the loss and its backward (the FrozenBN tensors'
@@ -441,12 +518,16 @@ class TrainStep(_Graphs):
         finally:
             for b in self.buffers:
                 b.requires_grad_(False)
+        terms = {"loss": total.detach()}
+        terms.update({k: v.detach() for k, v in losses.items() if k in METRIC_KEYS})
+        if self.dist.active:
+            terms = self._average(opt, terms)
         gnorm = opt.update()
         if state.ema is not None:
             ema_update(state.ema, self.model, self.cfg.ema_decay)
-        metrics = {"loss": total.detach(), "grad_norm": gnorm,
-                   "finite": torch.isfinite(total.detach())}
-        metrics.update({k: v.detach() for k, v in losses.items() if k in METRIC_KEYS})
+        metrics = {"loss": terms.pop("loss"), "grad_norm": gnorm}
+        metrics["finite"] = torch.isfinite(metrics["loss"])
+        metrics.update(terms)
         return metrics
 
     def eager(self, state: TrainState, batch, text_embed=None, draws=None):
@@ -478,7 +559,7 @@ class TrainStep(_Graphs):
             g.text.copy_(text_embed)
         state.optimizer.prepare()
         g.graph.replay()
-        add_launches(_launch_counters(), g.launches)
+        add_launches(_step_counters(), g.launches)
         state.optimizer.advance()
         state.step += 1
         return {k: v.clone() for k, v in g.outputs.items()}
@@ -500,20 +581,27 @@ class TrainStep(_Graphs):
         return metrics
 
 
-def make_train_step(model, cfg, seed: int = 0, device="cuda", clip_model=None) -> TrainStep:
+def make_train_step(model, cfg, seed: int = 0, device="cuda", clip_model=None,
+                    dist: Optional[Dist] = None) -> TrainStep:
     """-> ``train_step(state, batch, text_embed=None, draws=None) -> metrics``.
 
     Updates ``state`` in place (parameters, optimizer moments, EMA, step).
     Without ``draws``, they come from a generator seeded with
     ``(seed, state.step)``. ``clip_model`` is the frozen teacher of
-    ``use_visual_distill``; it is not trained. See :class:`TrainStep`."""
-    return TrainStep(model, cfg, seed, device, clip_model)
+    ``use_visual_distill``; it is not trained. ``dist`` makes it one rank's
+    step of a data-parallel step. See :class:`TrainStep`."""
+    return TrainStep(model, cfg, seed, device, clip_model, dist)
 
 
 def _launch_counters() -> Dict[str, Any]:
     from richsem_tpu_torch.bench import launch_counters
 
     return launch_counters()
+
+
+def _step_counters() -> Dict[str, Any]:
+    """The kernel wrappers' counters and the gradient collective's."""
+    return dict(_launch_counters(), grad_average=average_)
 
 
 def make_eval_step(model, cfg) -> EvalStep:

@@ -3,18 +3,31 @@
 CLI -> config load/merge/dump -> model via the registry -> datasets, samplers
 (RFS/CAS/shuffle), bucket-grouped loaders (+ the ImageNet-LVIS interleave) ->
 optimizer -> auto-resume / pretrained load -> epoch loop (train, checkpoint,
-periodic eval, best-checkpoint tracking, EMA eval, JSON log lines), in one
-process on one device: the card unless ``--device cpu`` is asked for.
-Data-parallel training is not ported yet (ROADMAP queue 1, item 10).
+periodic eval, best-checkpoint tracking, EMA eval, JSON log lines), on the
+card unless ``--device cpu`` is asked for.
+
+Data parallelism (``parallel/dist.py``): one process a card, as ``torchrun``
+starts them; with the launcher's environment set the run is one rank of a
+process group (NCCL on ``cuda:LOCAL_RANK``, gloo on the CPU), at any world
+size. Each rank reads its shard of the samplers with ``cfg.batch_size``
+images a step, starts from rank 0's parameters, and before each step joins
+one host collective that gives the step the global batch statistics and
+ends the epoch for every rank when any rank's loader is out; its train step
+averages the gradients over the ranks. Each rank evaluates its shard of the
+val set, and rank 0 summarises the gathered predictions. Only rank 0 writes
+``log.txt``, ``config.json``, ``eval.json``, ``results.json`` and the
+checkpoints, each save followed by a barrier.
 
 Usage:
   python -m richsem_tpu_torch.train.main -c configs/richsem/dino_4scale_lvis.py \\
       --output_dir out/ [--options k=v ...] [--eval] [--test] [--resume dir] \\
       [--device cuda]
+  torchrun --nproc_per_node=N -m richsem_tpu_torch.train.main -c ... --output_dir out/
 
 The non-finite-loss abort is delayed by one step, as in JAX: a step's
 ``finite`` flag is read after the next step has been issued, so at most one
-poisoned update lands before the run stops.
+poisoned update lands before the run stops. The flag is the global loss's,
+so every rank stops at the same step.
 """
 
 from __future__ import annotations
@@ -37,6 +50,8 @@ from richsem_tpu_torch.data.datasets import build_dataset
 from richsem_tpu_torch.data.loader import DataLoader, MultiDatasetLoader
 from richsem_tpu_torch.data.samplers import ClassAwareSampler, RepeatFactorSampler, ShuffleSampler
 from richsem_tpu_torch.models import registry
+from richsem_tpu_torch.parallel import dist as pdist
+from richsem_tpu_torch.parallel.dist import Dist
 from richsem_tpu_torch.train.engine import create_train_state, make_eval_step, make_train_step
 from richsem_tpu_torch.train.optim import build_optimizer, ema_init
 from richsem_tpu_torch.utils.checkpoint import BestMetricHolder, CheckpointManager
@@ -51,10 +66,6 @@ _CLI_DEFAULTS = dict(
     pretrain_model_path="", finetune_ignore=None, eval=False, test=False,
     debug=False, seed=42, start_epoch=0, note="", device="cuda",
 )
-
-_DDP = ("data-parallel training (DDP over NCCL, per-rank step counts equalised) is not "
-        "ported yet: ROADMAP.md queue 1, item 10")
-
 
 def get_args_parser() -> argparse.ArgumentParser:
     """CLI surface parity with main.py:74-125, plus ``--device``.
@@ -101,8 +112,9 @@ def load_config(args) -> Config:
 
 
 def build_loaders(cfg, shard_id: int = 0, num_shards: int = 1):
-    """-> (train_loader, val_loader, train_ds, val_ds); ``cfg.batch_size``
-    images a step on the one device."""
+    """-> (train_loader, val_loader, train_ds, val_ds) of shard ``shard_id`` of
+    ``num_shards`` (a rank's), ``cfg.batch_size`` images a step: JAX's
+    ``global_batch // num_shards`` with one device a process."""
     train_ds = build_dataset("train", cfg)
     val_ds = build_dataset("val", cfg)
     buckets = [tuple(b) for b in cfg.train_canvas_buckets]
@@ -121,7 +133,7 @@ def build_loaders(cfg, shard_id: int = 0, num_shards: int = 1):
         )
     else:
         sampler = ShuffleSampler(len(train_ds), shard_id, num_shards, seed=cfg.seed)
-    global_batch = cfg.batch_size
+    global_batch = cfg.batch_size * num_shards
     train_loader = DataLoader(
         train_ds, sampler, global_batch // num_shards, buckets, max_gt, seed=cfg.seed,
     )
@@ -160,7 +172,8 @@ def place_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, object]:
         if k == "image_id":
             out[k] = np.asarray(v)
             continue
-        t = torch.from_numpy(np.ascontiguousarray(v))
+        a = np.asarray(v)  # a 0-d statistic stays 0-d (np.ascontiguousarray makes it 1-d)
+        t = torch.from_numpy(a if a.flags.c_contiguous else np.ascontiguousarray(a))
         if t.dtype == torch.int32:
             t = t.long()
         if device.type == "cuda":
@@ -219,18 +232,48 @@ def _predictions(results, image_ids):
             for i in range(len(image_ids))}, (scores, labels, boxes)
 
 
+def _eval_rounds(val_loader, d: Dist) -> Iterator:
+    """The val loader's batches; under a process group the last one is run
+    again until this rank has run as many as the rank with the most
+    (``num_batches_hint``, gathered), since every round gathers the
+    predictions (JAX ``main.py:196-218``)."""
+    pad = 0
+    if d.active:
+        local = val_loader.num_batches_hint(0)
+        if local is None:
+            raise RuntimeError("data-parallel eval needs an eval transform whose sizes the "
+                               "dataset can predict (dataset.size_hint)")
+        pad = int(pdist.gather_ints(d, [local]).max()) - local
+    last = None
+    for batch in val_loader.epoch(0):
+        last = batch
+        yield batch
+    if pad and last is None:
+        raise RuntimeError("this rank's val shard holds no batch to run again")
+    for _ in range(pad):
+        yield last
+
+
 def evaluate(cfg, model, val_loader, val_ds, text_embed=None, logger=None, device="cuda",
-             save_results_dir: Optional[str] = None) -> Dict[str, float]:
+             save_results_dir: Optional[str] = None, dist: Optional[Dist] = None
+             ) -> Dict[str, float]:
     """Eval loop + AP summary (engine.py:149-330 equivalent) -> the evaluator's
     metrics, ``eval_ms_per_batch`` (host clock, loader included) and
     ``eval_graphs``, the CUDA graphs the step captured (one a batch shape; 0
     on the CPU). Each call builds its own step, so no graph outlives it.
 
+    Under a process group (``dist``) each rank evaluates its shard in equal
+    rounds (:func:`_eval_rounds`), every round's predictions are gathered to
+    rank 0 (the evaluator keeps one an image id, so padded and re-run images
+    count once), and rank 0's summary is broadcast, so that every rank
+    returns the same metrics (JAX ``main.py:162-285``).
+
     ``save_results_dir`` mirrors the reference's ``--save_results`` dump
-    (engine.py:239-299): the {gt, prediction} arrays pickled to
-    ``results_rank0.pkl`` for offline AP-parity diffing."""
+    (engine.py:239-299): each rank's {gt, prediction} arrays pickled to
+    ``results_rank{k}.pkl`` for offline AP-parity diffing."""
     from richsem_tpu_torch.data.evaluation import CocoEvaluator, LvisEvaluator
 
+    d = dist or Dist()
     eval_step = make_eval_step(model, cfg)
     if cfg.dataset_file.startswith("lvis"):
         evaluator = LvisEvaluator(val_ds.index, max_dets=cfg.num_select)
@@ -240,10 +283,11 @@ def evaluate(cfg, model, val_loader, val_ds, text_embed=None, logger=None, devic
         evaluator = CocoEvaluator(val_ds.index, max_dets=100)
     n, n_batches, saved = 0, 0, []
     t0 = time.perf_counter()
-    for batch in prefetch_to_device(val_loader.epoch(0), device):
+    for batch in prefetch_to_device(_eval_rounds(val_loader, d), device):
         results = eval_step(batch, text_embed)
         preds, (scores, labels, boxes) = _predictions(results, batch["image_id"])
-        evaluator.update(preds)
+        for ranks_preds in pdist.gather_to_lead(d, preds) or []:
+            evaluator.update(ranks_preds)
         n_batches += 1
         if save_results_dir is not None:
             saved.append({
@@ -260,38 +304,54 @@ def evaluate(cfg, model, val_loader, val_ds, text_embed=None, logger=None, devic
     ms_batch = (time.perf_counter() - t0) * 1e3 / max(n_batches, 1)
     if save_results_dir is not None:
         os.makedirs(save_results_dir, exist_ok=True)
-        out = os.path.join(save_results_dir, "results_rank0.pkl")
+        out = os.path.join(save_results_dir, f"results_rank{d.rank}.pkl")
         with open(out, "wb") as f:
             pickle.dump(saved, f)
         if logger:
             logger.info(f"saved {len(saved)} eval batches to {out}")
-    stats = evaluator.summarize()
+    stats = None
+    if d.lead:
+        stats = dict(evaluator.summarize(), eval_ms_per_batch=ms_batch,
+                     eval_graphs=len(eval_step.graphs))
+    stats = pdist.broadcast_object(d, stats)
     if logger:
-        logger.info(f"eval on {n} images ({n_batches} batches, {ms_batch:.1f} ms/batch): {stats}")
-    return dict(stats, eval_ms_per_batch=ms_batch, eval_graphs=len(eval_step.graphs))
+        logger.info(f"eval on {n} images ({n_batches} batches, {ms_batch:.1f} ms/batch"
+                    f"{f', rank {d.rank} of {d.world}' if d.active else ''}): {stats}")
+    return stats
 
 
-def test_submission(cfg, model, val_loader, text_embed=None, device="cuda"):
+def test_submission(cfg, model, val_loader, text_embed=None, device="cuda",
+                    dist: Optional[Dist] = None) -> Optional[list]:
     """Submission mode: COCO-format result records (engine.py:333-447
-    ``test`` + ``convert_to_xywh`` parity)."""
+    ``test`` + ``convert_to_xywh`` parity), one set an image id. Under a
+    process group each rank runs its shard in equal rounds and rank 0 gathers
+    the records; the other ranks return None."""
+    d = dist or Dist()
     eval_step = make_eval_step(model, cfg)
-    records = []
-    for batch in prefetch_to_device(val_loader.epoch(0), device):
+    records, seen = [], set()
+    for batch in prefetch_to_device(_eval_rounds(val_loader, d), device):
         _, (scores, labels, boxes) = _predictions(eval_step(batch, text_embed),
                                                   batch["image_id"])
+        local: Dict[int, list] = {}
         for i in range(len(batch["image_id"])):
             b = boxes[i]
             xywh = np.stack([b[:, 0], b[:, 1], b[:, 2] - b[:, 0], b[:, 3] - b[:, 1]], axis=1)
+            recs = local.setdefault(int(batch["image_id"][i]), [])
             for k in range(len(xywh)):
                 if scores[i, k] <= 0:
                     continue
-                records.append({
+                recs.append({
                     "image_id": int(batch["image_id"][i]),
                     "category_id": int(labels[i, k]),
                     "bbox": [round(float(v), 2) for v in xywh[k]],
                     "score": round(float(scores[i, k]), 5),
                 })
-    return records
+        for ranks_records in pdist.gather_to_lead(d, local) or []:
+            for img_id, recs in ranks_records.items():
+                if img_id not in seen:
+                    seen.add(img_id)
+                    records.extend(recs)
+    return records if d.lead else None
 
 
 def _clip_branch(cfg, val_ds, device, logger):
@@ -326,17 +386,47 @@ def _resume_epoch(manager: CheckpointManager) -> int:
     return int(info["epoch"]) + 1
 
 
+def _synced(batches: Iterable, d: Dist, cfg) -> Iterator:
+    """The loader's batches, each with the step's global batch statistics
+    (``parallel/dist.py:step_stats``: one host collective a step, from the
+    numpy batch); it ends for every rank when any rank's loader is out, so
+    that every rank takes the same number of steps."""
+    it = iter(batches)
+    try:
+        while True:
+            batch = next(it, None)
+            stats = pdist.step_stats(d, batch, cfg)
+            if stats is None:
+                return
+            yield dict(batch, **stats)
+    finally:
+        if hasattr(it, "close"):
+            it.close()
+
+
+def _replicated(state) -> list:
+    """The tensors every rank holds alike: parameters, buffers, AdamW's moments
+    and the EMA."""
+    model, opt = state.model, state.optimizer
+    return [*model.parameters(), *model.buffers(), *opt.mu, *opt.nu,
+            *(state.ema or {}).values()]
+
+
 def train_loop(cfg, device=None) -> Dict:
     """One run as the CLI describes it -> ``{"test": path}``, ``{"eval": stats}``
     or ``{"best": ..., "state": the TrainState, "train_step": the step (its CUDA
-    graphs on the card), "epochs": the epoch stats, "step_s", "data_s": host
-    seconds a step and waiting for its batch, "ckpt_save_s", "ckpt_restore_s"}``."""
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or int(getattr(cfg, "world_size", 1)) > 1:
-        raise NotImplementedError(_DDP)
-    device = torch.device(device or getattr(cfg, "device", "cuda"))
-    logger = setup_logger(cfg.output_dir or None)
-    logger.info(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else device}")
-    if cfg.output_dir:
+    graphs on the card), "dist": this rank's place, "epochs": the epoch stats,
+    "step_s", "data_s": host seconds a step and waiting for its batch,
+    "ckpt_save_s", "ckpt_restore_s"}``. Under the launcher's environment the
+    run is one rank of a data-parallel run (see the module docstring)."""
+    kind = device or getattr(cfg, "device", "cuda")
+    d = pdist.init_distributed(kind)
+    pdist.check_mesh(getattr(cfg, "mesh_shape", None), d.world)
+    device = d.device(kind)
+    logger = setup_logger(cfg.output_dir or None, process_index=d.rank)
+    logger.info(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else device}"
+                + (f", rank {d.rank} of {d.world} over {d.backend}" if d.active else ""))
+    if cfg.output_dir and d.lead:
         os.makedirs(cfg.output_dir, exist_ok=True)
         Config.from_dict(cfg.to_dict()).dump(os.path.join(cfg.output_dir, "config.json"))
 
@@ -353,8 +443,9 @@ def train_loop(cfg, device=None) -> Dict:
     model, _, _ = registry.MODEL_REGISTRY["richsem"](
         cfg, device=device, generator=torch.Generator(device=device).manual_seed(cfg.seed))
 
-    train_loader, val_loader, train_ds, val_ds = build_loaders(cfg)
-    steps_per_epoch = max(len(train_loader), 1)
+    train_loader, val_loader, train_ds, val_ds = build_loaders(cfg, d.rank, d.world)
+    # the lr schedule must agree on every rank
+    steps_per_epoch = max(int(pdist.gather_ints(d, [len(train_loader)]).min()), 1)
     if pretrained is not None:
         from richsem_tpu_torch.utils.checkpoint import load_pretrained_params
 
@@ -375,9 +466,9 @@ def train_loop(cfg, device=None) -> Dict:
     state = create_train_state(model, build_optimizer(model, cfg, steps_per_epoch),
                                use_ema=cfg.use_ema)
     train_step = make_train_step(model, cfg, seed=cfg.seed, device=device,
-                                 clip_model=clip_model)
+                                 clip_model=clip_model, dist=d)
 
-    result: Dict = {"ckpt_save_s": [], "ckpt_restore_s": []}
+    result: Dict = {"ckpt_save_s": [], "ckpt_restore_s": [], "dist": d}
     ckpt: Optional[CheckpointManager] = None
     start_epoch = cfg.start_epoch
     if cfg.output_dir:
@@ -396,26 +487,41 @@ def train_loop(cfg, device=None) -> Dict:
         logger.info(f"resuming from {cfg.resume} step {step}")
         state = src.restore(state)
         start_epoch = _resume_epoch(src)
+    # every rank starts from rank 0's state, also a rank that cannot see its
+    # checkpoint: the tensors, then the step, AdamW's count and the epoch
+    pdist.broadcast_(d, _replicated(state))
+    state.step, state.optimizer.count, start_epoch = pdist.broadcast_object(
+        d, (state.step, state.optimizer.count, start_epoch))
 
     if cfg.test:
-        res = test_submission(cfg, model, val_loader, text_embed, device=device)
+        res = test_submission(cfg, model, val_loader, text_embed, device=device, dist=d)
         out_path = os.path.join(cfg.output_dir or ".", "results.json")
-        with open(out_path, "w") as f:
-            json.dump(res, f)
-        logger.info(f"wrote {len(res)} detections to {out_path}")
+        if d.lead:
+            with open(out_path, "w") as f:
+                json.dump(res, f)
+            logger.info(f"wrote {len(res)} detections to {out_path}")
+        pdist.barrier(d)
         return {"test": out_path}
 
     if cfg.eval:
         stats = evaluate(cfg, model, val_loader, val_ds, text_embed, logger, device,
                          save_results_dir=(cfg.output_dir or ".")
-                         if getattr(cfg, "save_results", False) else None)
-        if cfg.output_dir:
+                         if getattr(cfg, "save_results", False) else None, dist=d)
+        if cfg.output_dir and d.lead:
             with open(os.path.join(cfg.output_dir, "eval.json"), "w") as f:
                 json.dump(dict(stats, step=int(state.step)), f)
+        pdist.barrier(d)
         return {"eval": stats}
 
+    def save(**kw):  # rank 0 writes; every rank waits for it
+        if d.lead:
+            t = time.perf_counter()
+            ckpt.save(int(state.step), state, **kw)
+            result["ckpt_save_s"].append(time.perf_counter() - t)
+        pdist.barrier(d)
+
     best = BestMetricHolder(use_ema=cfg.use_ema)
-    log_path = os.path.join(cfg.output_dir, "log.txt") if cfg.output_dir else None
+    log_path = os.path.join(cfg.output_dir, "log.txt") if cfg.output_dir and d.lead else None
     result.update(epochs=[], step_s=[], data_s=[])
 
     for epoch in range(start_epoch, cfg.epochs):
@@ -430,8 +536,8 @@ def train_loop(cfg, device=None) -> Dict:
         # the step the NaN appears, engine.py:93-96; here at most ONE
         # poisoned update lands before the abort)
         prev_finite, prev_it = None, -1
-        placed = _timed(prefetch_to_device(train_loader.epoch(epoch), device),
-                        result["data_s"])
+        batches = _synced(train_loader.epoch(epoch), d, cfg)
+        placed = _timed(prefetch_to_device(batches, device), result["data_s"])
         t_step = time.perf_counter()
         for it, batch in enumerate(mlog.log_every(placed, 50, header=f"Epoch [{epoch}]",
                                                   total=steps_per_epoch)):
@@ -442,7 +548,7 @@ def train_loop(cfg, device=None) -> Dict:
                 logger.error(f"non-finite loss at epoch {epoch} it {prev_it}")
                 raise FloatingPointError("loss is not finite")
             prev_finite, prev_it = metrics["finite"], it
-            if it % 50 == 0:
+            if it % 50 == 0:  # the metrics are the global batch's on every rank
                 mlog.update(**{k: float(v) for k, v in metrics.items() if k != "finite"})
             now = time.perf_counter()
             result["step_s"].append(now - t_step)
@@ -456,19 +562,18 @@ def train_loop(cfg, device=None) -> Dict:
 
         if ckpt and ((epoch + 1) % cfg.save_checkpoint_interval == 0
                      or epoch + 1 == cfg.lr_drop):
-            t = time.perf_counter()
-            ckpt.save(int(state.step), state, epoch=epoch)
-            result["ckpt_save_s"].append(time.perf_counter() - t)
+            save(epoch=epoch)
 
         if (epoch + 1) % cfg.eval_interval == 0:
-            stats = evaluate(cfg, model, val_loader, val_ds, text_embed, logger, device)
+            stats = evaluate(cfg, model, val_loader, val_ds, text_embed, logger, device,
+                             dist=d)
             ap = stats.get("AP", float("nan"))
             if best.update(ap, epoch) and ckpt:
-                ckpt.save(int(state.step), state, metrics={"AP": ap}, epoch=epoch)
+                save(metrics={"AP": ap}, epoch=epoch)
             if cfg.use_ema and state.ema is not None:
                 with swapped_params(model, state.ema):
                     ema_stats = evaluate(cfg, model, val_loader, val_ds, text_embed, logger,
-                                         device)
+                                         device, dist=d)
                 best.update(ema_stats.get("AP", float("nan")), epoch, is_ema=True)
                 epoch_stats.update({f"ema_{k}": v for k, v in ema_stats.items()})
             epoch_stats.update(stats)

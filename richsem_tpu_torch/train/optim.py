@@ -155,11 +155,16 @@ class AdamW:
     def advance(self) -> None:
         self.count += 1
 
+    def leaves(self) -> List[torch.Tensor]:
+        """Every leaf whose gradient the global norm reads: the trainable
+        parameters, then the frozen ones and the FrozenBN buffers."""
+        return [t for _, t in self.trainable + self.frozen]
+
     @torch.no_grad()
     def update(self) -> torch.Tensor:
         """The update from the ``.grad`` of every leaf and :attr:`hyper` (K5,
         then K6 on the card) -> the pre-clip global norm."""
-        grads = [t.grad for _, t in self.trainable + self.frozen]
+        grads = [t.grad for t in self.leaves()]
         gnorm, clip_state = global_norm_clip(grads, self.clip_max_norm, self.hyper.device)
         n = len(self.trainable)
         adamw_update([p for _, p in self.trainable], grads[:n], self.mu, self.nu, self.hyper,
@@ -177,7 +182,7 @@ class AdamW:
         return gnorm
 
     def zero_grad(self) -> None:
-        for _, t in self.trainable + self.frozen:
+        for t in self.leaves():
             t.grad = None
 
 

@@ -49,6 +49,7 @@ from tests.test_torch_checkpoint import _batch, _same
 from tests.test_torch_checkpoint import _cfg as _ckpt_cfg
 from tests.test_torch_train_step import (CONFIG, TINY, _batches, _freeze_every_frozen_bn,
                                          _jax_draws, _np_params)
+from tests.test_torch_main import _drop_checkpoints  # noqa: F401  (autouse: ~400 MB a checkpoint)
 
 torch.set_num_threads(2)
 

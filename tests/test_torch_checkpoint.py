@@ -26,6 +26,7 @@ from richsem_tpu_torch.train.optim import build_optimizer
 from richsem_tpu_torch.utils.checkpoint import (BestMetricHolder, CheckpointManager,
                                                 guard_converted_checkpoint,
                                                 load_pretrained_params, state_to_dict)
+from tests.test_torch_main import _drop_checkpoints  # noqa: F401  (autouse: ~400 MB a checkpoint)
 
 torch.set_num_threads(2)
 

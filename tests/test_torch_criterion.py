@@ -28,6 +28,7 @@ from richsem_tpu.models.matcher import match_cost_matrix as jax_cost
 from richsem_tpu_torch.models import criterion as crit
 from richsem_tpu_torch.models.dn import prepare_cdn
 from richsem_tpu_torch.models.matcher import match, match_cost_matrix
+from richsem_tpu_torch.parallel.dist import tensor_stats
 
 torch.set_num_threads(2)
 
@@ -55,12 +56,12 @@ def _set(rng, q):
             "pred_boxes": (1 / (1 + np.exp(-rng.normal(size=(B, q, 4))))).astype(np.float32)}
 
 
-def _outputs(rng):
+def _outputs(rng, dn_number=DN):
     out = _set(rng, Q)
     out["aux_outputs"] = [_set(rng, Q) for _ in range(L - 1)]
     out["interm_outputs"] = _set(rng, Q)
-    dn = _set(rng, 2 * DN)
-    dn["aux_outputs"] = [_set(rng, 2 * DN) for _ in range(L - 1)]
+    dn = _set(rng, 2 * dn_number)
+    dn["aux_outputs"] = [_set(rng, 2 * dn_number) for _ in range(L - 1)]
     out["dn_outputs"] = dn
     return out
 
@@ -91,34 +92,47 @@ def _rebuild(out, flat, prefix=""):
     return res
 
 
-@pytest.fixture(scope="module")
-def case():
+def _stats(t, dn_number=DN):
+    """The batch's own statistics, as the train step reads them."""
+    cfg = types.SimpleNamespace(num_classes=C, dn_number=dn_number)
+    return crit.GlobalStats.of(tensor_stats(t, cfg))
+
+
+def _case(dn_number):
     rng = np.random.default_rng(0)
     labels, boxes, valid = _targets(rng)
-    outputs = _outputs(rng)
+    outputs = _outputs(rng, dn_number)
     key = jax.random.PRNGKey(7)
     k_dn, k_crit = jax.random.split(key)
     dn = jax_prepare_cdn(jnp.asarray(labels), jnp.asarray(boxes), jnp.asarray(valid), k_dn,
-                         dn_number=DN, num_classes=C, num_queries=Q)
+                         dn_number=dn_number, num_classes=C, num_queries=Q)
     meta = jcrit.expand_dn_targets(jnp.asarray(labels), jnp.asarray(boxes),
-                                   jnp.asarray(valid), dn[3], 2 * DN)
+                                   jnp.asarray(valid), dn[3], 2 * dn_number)
     k1, k2, k3, k4 = jax.random.split(k_dn, 4)
-    draws = {"flip": jax.random.uniform(k1, (B, 2 * DN)),
-             "new_label": jax.random.randint(k2, (B, 2 * DN), 0, C),
-             "sign": jax.random.randint(k3, (B, 2 * DN, 4), 0, 2).astype(jnp.float32) * 2 - 1,
-             "part": jax.random.uniform(k4, (B, 2 * DN, 4))}
+    pad = 2 * dn_number
+    draws = {"flip": jax.random.uniform(k1, (B, pad)),
+             "new_label": jax.random.randint(k2, (B, pad), 0, C),
+             "sign": jax.random.randint(k3, (B, pad, 4), 0, 2).astype(jnp.float32) * 2 - 1,
+             "part": jax.random.uniform(k4, (B, pad, 4))}
     draws = {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}
     t = {k: torch.from_numpy(v) for k, v in (("labels", labels), ("boxes", boxes),
                                               ("valid", valid))}
     t["labels"] = t["labels"].long()
+    stats = _stats(t, dn_number)
     port_meta = crit.expand_dn_targets(
         t["labels"], t["boxes"], t["valid"],
-        prepare_cdn(t["labels"], t["boxes"], t["valid"], draws, dn_number=DN,
-                    num_queries=Q)[3])
+        prepare_cdn(t["labels"], t["boxes"], t["valid"], draws, t["valid"].sum(1).max(),
+                    dn_number=dn_number, num_queries=Q)[3])
     fed = np.stack([np.asarray(jax.random.uniform(r, (C,)))
                     for r in jax.random.split(k_crit, 16)])
     return dict(labels=labels, boxes=boxes, valid=valid, outputs=outputs, k_crit=k_crit,
-                jax_meta=meta, port_meta=port_meta, fed=torch.from_numpy(fed), t=t)
+                jax_meta=meta, port_meta=port_meta, fed=torch.from_numpy(fed), t=t,
+                stats=stats)
+
+
+@pytest.fixture(scope="module")
+def case():
+    return _case(DN)
 
 
 def _jax_losses(c, flat):
@@ -133,7 +147,8 @@ def _jax_losses(c, flat):
 
 def _port_losses(c, flat):
     outputs = _rebuild(c["outputs"], flat)
-    losses = crit.set_criterion(outputs, c["t"], num_classes=C, fed_uniforms=c["fed"],
+    losses = crit.set_criterion(outputs, c["t"], c["stats"], num_classes=C,
+                                fed_uniforms=c["fed"],
                                 use_fed_loss=True, fed_num_sample_cats=10,
                                 dn_meta=c["port_meta"])
     return crit.weighted_loss(losses, crit.build_weight_dict(CFG)), losses
@@ -165,13 +180,15 @@ def test_fed_loss_classes_match_jax(case):
     weight = np.random.default_rng(1).uniform(0.1, 3.0, C).astype(np.float32)
     ids, mask = jcrit.fed_loss_classes(rng, jnp.asarray(matched), C, 6, jnp.asarray(weight))
     u = torch.from_numpy(np.array(jax.random.uniform(rng, (C,))))
-    p_ids, p_mask = crit.fed_loss_classes(u, torch.from_numpy(matched), C, 6,
+    appeared = np.zeros(C, bool)
+    appeared[matched[matched >= 0]] = True
+    p_ids, p_mask = crit.fed_loss_classes(u, torch.from_numpy(appeared), matched.size, C, 6,
                                           torch.from_numpy(weight))
     np.testing.assert_array_equal(p_ids.numpy(), np.asarray(ids))
     np.testing.assert_array_equal(p_mask.numpy(), np.asarray(mask))
 
 
-def test_losses_and_grads_match_jax(case):
+def _losses_and_grads_match_jax(case):
     flat = _leaves(case["outputs"])
     (ref_total, ref_losses), ref_grads = jax.value_and_grad(
         lambda f: _jax_losses(case, f), has_aux=True)({k: jnp.asarray(v) for k, v in flat.items()})
@@ -193,10 +210,31 @@ def test_losses_and_grads_match_jax(case):
         assert not losses[k].requires_grad
 
 
+def test_losses_and_grads_match_jax(case):
+    _losses_and_grads_match_jax(case)
+
+
+def test_dn_sets_past_their_slots_match_jax():
+    """Four DN slots (dn_number 2) and an image of 6 GT: its last two GT
+    enter no DN query, so the DN sets' federated classes and matched count
+    (``dn_classes``, ``dn_boxes``) leave them out, as JAX's do."""
+    c = _case(2)
+    stats = c["stats"]
+    assert not torch.equal(stats.classes, stats.dn_classes)
+    assert float(stats.dn_boxes) == 8.0 and float(stats.num_boxes) == 10.0
+    # half the DN rows predict their label, so that class_error_dn reads its count
+    logits, meta = c["outputs"]["dn_outputs"]["pred_logits"], c["port_meta"]
+    rows = meta["pos_slots"].numpy()
+    for b, p in zip(*np.nonzero(rows >= 0)):
+        if (b + p) % 2 == 0:
+            logits[b, p, int(meta["pos_labels"][b, p])] += 20.0
+    _losses_and_grads_match_jax(c)
+
+
 @pytest.mark.parametrize("kw", [{"distill_type": "clip_logits", "distill_aux_layers": True},
                                 {"matcher_type": "OptMatcher"}])
 def test_unported_branches_raise(case, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         crit.set_criterion({k: torch.from_numpy(v) for k, v in _set(np.random.default_rng(0),
                                                                      Q).items()},
-                           case["t"], num_classes=C, **kw)
+                           case["t"], case["stats"], num_classes=C, **kw)

@@ -23,6 +23,7 @@ from richsem_tpu.models import criterion as jcrit
 from richsem_tpu.models.dn import prepare_cdn as jax_prepare_cdn
 from richsem_tpu_torch.models import criterion as crit
 from richsem_tpu_torch.models.dn import prepare_cdn
+from richsem_tpu_torch.parallel.dist import tensor_stats
 from tests.test_torch_criterion import B, C, DN, Q, _leaves, _outputs, _rebuild, _targets
 
 torch.set_num_threads(2)
@@ -73,8 +74,8 @@ def case():
     t["labels"] = t["labels"].long()
     port_meta = crit.expand_dn_targets(
         t["labels"], t["boxes"], t["valid"],
-        prepare_cdn(t["labels"], t["boxes"], t["valid"], draws, dn_number=DN,
-                    num_queries=Q)[3],
+        prepare_cdn(t["labels"], t["boxes"], t["valid"], draws, t["valid"].sum(1).max(),
+                    dn_number=DN, num_queries=Q)[3],
         gt_clip_logits=t["clip_logits"], gt_clip_valid=t["clip_valid"])
     fed = np.stack([np.asarray(jax.random.uniform(r, (C,)))
                     for r in jax.random.split(k_crit, 16)])
@@ -122,7 +123,10 @@ def test_distill_losses_and_grads_match_jax(case, name):
     leaves = {k: torch.from_numpy(v).requires_grad_() for k, v in flat.items()}
     outputs = dict(_rebuild(case["outputs"], leaves),
                    teacher_clip_logits=torch.from_numpy(case["teacher"]))
-    losses = crit.set_criterion(outputs, case["t"], num_classes=C, fed_uniforms=case["fed"],
+    stats = crit.GlobalStats.of(tensor_stats(
+        case["t"], types.SimpleNamespace(num_classes=C, dn_number=DN)))
+    losses = crit.set_criterion(outputs, case["t"], stats, num_classes=C,
+                                fed_uniforms=case["fed"],
                                 use_fed_loss=True, fed_num_sample_cats=10,
                                 dn_meta=case["port_meta"], **knobs)
     total = crit.weighted_loss(losses, crit.build_weight_dict(CFG))

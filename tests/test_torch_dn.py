@@ -59,7 +59,8 @@ def test_prepare_cdn_matches_jax(counts, g_slots, dn_number):
     draws = {k: torch.from_numpy(np.array(v)) for k, v in
              _jax_draws(rng, b, 2 * dn_number).items()}
     out = prepare_cdn(torch.from_numpy(labels).long(), torch.from_numpy(boxes),
-                      torch.from_numpy(valid), draws, dn_number=dn_number,
+                      torch.from_numpy(valid), draws, torch.tensor(max(counts)),
+                      dn_number=dn_number,
                       label_noise_ratio=0.5, box_noise_scale=1.0, num_queries=nq)
     np.testing.assert_array_equal(out[0].numpy(), np.asarray(ref[0]))
     np.testing.assert_allclose(out[1].numpy(), np.asarray(ref[1]), rtol=1e-6, atol=1e-6)
@@ -92,4 +93,4 @@ def test_unported_branches_raise(kw):
     draws = cdn_draws(1, 10, C, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         prepare_cdn(torch.from_numpy(labels).long(), torch.from_numpy(boxes),
-                    torch.from_numpy(valid), draws, dn_number=10, **kw)
+                    torch.from_numpy(valid), draws, torch.tensor(2), dn_number=10, **kw)

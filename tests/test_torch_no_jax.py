@@ -71,6 +71,9 @@ MODULES = [
     "richsem_tpu_torch.bench",
     "richsem_tpu_torch.tools.bench_eval",
     "richsem_tpu_torch.tools.bench_input_pipeline",
+    "richsem_tpu_torch.parallel",
+    "richsem_tpu_torch.parallel.dist",
+    "richsem_tpu_torch.tools.dryrun_ddp",
 ]
 
 BLOCKED = ("jax", "flax", "richsem_tpu", "cv2")
@@ -151,7 +154,7 @@ print("OK")
 """
 
 DATA_SCRIPT = """
-import importlib, os, sys, tempfile
+import importlib, os, shutil, sys, tempfile
 for name in BLOCKED:
     sys.modules[name] = None
 import numpy as np
@@ -200,6 +203,7 @@ for fn in (bench_cal.vpu, bench_cal.mxu, bench_cal.grid_overhead, bench_cal.repe
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "richsem_tpu", "cv2")
              and sys.modules[m] is not None)
 assert not bad, bad
+shutil.rmtree(root)  # the trainer's checkpoint is ~300 MB
 print("OK")
 """
 

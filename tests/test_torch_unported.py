@@ -1,6 +1,7 @@
 """The port refuses what it has not ported, and names the ROADMAP item that
 holds it: the knobs, backbones and activation of the detector and NMS in the
-post-processing (queue 1, item 11), and data-parallel training (item 10).
+post-processing (queue 1, item 11), and the teacher's weak labels under
+data parallelism (item 11).
 
 ``two_stage_cls`` with the distillation branch on changes the function the
 JAX model trains (the CLIP logits join every decoder layer's logits), so the
@@ -16,7 +17,6 @@ from richsem_tpu.models.dino import DINOConfig as JaxDINOConfig
 from richsem_tpu_torch.config import Config
 from richsem_tpu_torch.models.dino import DINO, DINOConfig
 from richsem_tpu_torch.models.postprocess import postprocess
-from richsem_tpu_torch.train import main
 
 FLAGSHIP = "configs/richsem/richsem_4scale_lvis.py"
 
@@ -64,5 +64,14 @@ def test_unported_messages_name_item_11(what, call):
         call()
 
 
-def test_ddp_message_names_item_10():
-    assert main._DDP.endswith("ROADMAP.md queue 1, item 10")
+def test_weak_labels_under_data_parallelism_name_item_11():
+    """The teacher's weak labels rewrite extra images' boxes on the card, so
+    the host's global statistics cannot hold them: a data-parallel step with
+    them refuses, naming the item."""
+    from richsem_tpu_torch.train.engine import make_loss_fn
+
+    cfg = Config.fromfile("configs/richsem/richsem_4scale_lvis.py")
+    cfg.update(use_imagenet_pusedo_labels=True)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1, item 11\)"):
+        make_loss_fn(None, cfg, clip_model=object(), world_size=2)
+    make_loss_fn(None, cfg, clip_model=object(), world_size=1)

@@ -188,8 +188,42 @@ Phases, each printed as it completes:
     and with AVG, each replay profiled (the NCCL kernels and their device
     ms). The group is destroyed at the end.
 
+18. The flagship with the Swin-L backbone (``swin_L_384_22k``: embed 192,
+    depths (2, 2, 18, 2), window 12; run after phase 14), bf16, bs2 at
+    896 x 1344, random weights from a seed: the eval graph (3 replays, the
+    replay against the eager body bit for bit, K1 and K2 launches, ms/batch,
+    img/s, peak memory), then the train graph as phase 10 with the teacher,
+    the text bank and the distillation (``run_train``: one warm-up and
+    capture, 5 replays with the launches checked, K6 2 a step from the
+    optimizer's tables, the loss and ``grad_norm`` finite; a replay under
+    ``set_sync_debug_mode("error")``; the replay against one eager step
+    from one state, batch and draws, ``graph_vs_one_eager``: the pre-update
+    metrics bit for bit and ``grad_norm`` within ``GRAD_NORM_RTOL``, 1e-4
+    relative, since two eager steps already differ by up to 2.17e-5 (phase
+    20); gradient cosines of backbone
+    leaves against the plain versions; a profiled replay and its f32
+    CUDA-core GEMMs beside phase 10's, ROADMAP F-P10). Each part's seconds.
+19. ConvNeXt-XL (``convnext_xlarge_22k``) and FocalNet-L
+    (``focalnet_L_384_22k``) in the flagship, bf16, bs2 at 896 x 1344,
+    eager: one eval batch (finite, K1 12 and K2 6, peak memory) and one
+    train step (finite loss and ``grad_norm``, the launches, peak memory).
+20. The memory knobs on the R50 flagship at bs2 (one eager step each, one
+    state, batch and draws): the knob-free step twice, then
+    ``use_checkpoint``, ``enc_selective_remat`` and ``backbone_remat``
+    alone, each step's pre-update metrics equal to the first knob-free
+    step's bit for bit, its ``grad_norm`` within ``GRAD_NORM_RTOL`` of it
+    and its peak memory below it, K1's and K2's forward launches 24/12,
+    12/12 and 12/6 (``KNOB_LAUNCHES``); the same steps with PyTorch's
+    deterministic algorithms, with the plain versions, and with both, where
+    every gradient must equal the first step's bit for bit (each step's
+    gradients against the first's, leaf by leaf, printed in every setting);
+    then the train bench at ``BENCH_BATCH`` 4 and 8 (the root bench's remat
+    knobs on: K2 12 a step), its JSON line, img/s, busy ms and peak memory.
+
 ``python3 chip_smoke.py kernels`` stops after the kernel phases (1-5, 8, 9, 12,
-15 on its random cases, and 16).
+15 on its random cases, and 16). ``python3 chip_smoke.py backbones`` runs the
+kernel phases 1-5, 8 and 9, then phases 18-20 only; ``python3 chip_smoke.py
+knobs`` those kernel phases, then phase 20 only.
 
 ``python3 chip_smoke.py ab [DIR]`` only times kernels of the port in DIR
 (default: this checkout), for A/B runs of two trees: it imports
@@ -220,8 +254,9 @@ its own:
 
 The kernels' JSON record lists the six kernels of the model, K4, K5 and K6,
 each with ``launches`` from the flagship train step (phase 10, K3 and
-K3-bwd from phase 11), ``trainer_launches`` from phase 13, and
-``ddp_launches`` and ``ddp_replay_busy_ms`` from phase 17, and the three probe
+K3-bwd from phase 11), ``trainer_launches`` from phase 13,
+``ddp_launches`` and ``ddp_replay_busy_ms`` from phase 17 and
+``swin_launches`` from phase 18 (K1 and K2 also ``swin_eval_launches``), and the three probe
 sources, each with the numbers of one headline call at the top, every call
 under ``calls`` (each with ``device_ms`` beside the CUDA-event ``ms``, and
 ``library_device_ms``), and ``launches`` summed over its kernels in the
@@ -1326,10 +1361,82 @@ def two_runs(step, state, batches, text_embed=None, n=5):
 
 
 REPLAY_BUSY = {}  # the device ms of each train phase's profiled replay
+F32_GEMMS = {}  # the f32 CUDA-core GEMMs of each train phase's replay (ROADMAP F-P10)
+# The replay against one eager step (phase 18) and a knob's eager step against
+# the knob-free one (phase 20): the pre-update metrics bit for bit and
+# grad_norm within this relative bound. Two eager steps from one state differ
+# in their gradients' norm by up to 2.17e-5 on an H100 (phase 20's readings
+# over three runs, through K1-bwd's atomics and PyTorch's nondeterministic
+# operations, F-P6); the bound is some five times that. That the knobs change
+# no number shows exactly in phase 20's run with deterministic reductions.
+GRAD_NORM_RTOL = 1e-4
+
+
+def free_memory() -> None:
+    """Collect the garbage (a step's graphs can sit in reference cycles, their
+    pool with them), then return the allocator's cached blocks to the card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def adamw_launches(opt):
+    """(K5, K6) launches a step, from the optimizer's tables (``ops/adamw.py:plan``)."""
+    from richsem_tpu_torch.ops.adamw import ADAMW_LEAVES, NORM_LEAVES, plan
+
+    return (len(plan([t.numel() for t in opt.leaves()], NORM_LEAVES)),
+            len(plan([p.numel() for _, p in opt.trainable], ADAMW_LEAVES)))
+
+
+def f32_gemms(fn):
+    """-> (launches, device ms) of the f32 CUDA-core GEMMs (``ffma`` or ``sgemm``
+    in a GEMM's name) in one profiled call of ``fn``; (0, nan) unmeasured."""
+    from richsem_tpu_torch.utils.profiling import profile_call
+
+    prof = profile_call(fn)
+    if prof is None:
+        return 0, float("nan")
+    f32 = [(n, ms) for key, n, ms in prof.ops
+           if "gemm" in key.lower() and ("ffma" in key or "sgemm" in key)]
+    return sum(n for n, _ in f32), sum(ms for _, ms in f32)
+
+
+def graph_vs_one_eager(step, state, batch, text_embed=None, what="train"):
+    """The replay against one eager step from one state, batch and draws (the
+    state put back after each): the loss and every metric computed before the
+    update bit for bit (the forward has no atomics), ``grad_norm`` within
+    ``GRAD_NORM_RTOL``. No check of the parameters: F-P6 spreads them. Leaves
+    the state as it found it."""
+    import torch
+
+    draws = step.draws(state, batch["labels"].shape[0])
+    saved = state_copy(state)
+    runs = []
+    for run in (step.eager, step):
+        runs.append(run(state, batch, text_embed, draws=draws))
+        torch.cuda.synchronize()
+        state_put(state, saved)
+    e, r = runs
+    pre = [k for k in e if k != "grad_norm"]
+    same = [k for k in pre if torch.equal(r[k], e[k])]
+    ge, gr = float(e["grad_norm"]), float(r["grad_norm"])
+    rel = abs(gr - ge) / ge
+    print(f"  {what} graph vs one eager step (one state, batch and draws): pre-update metrics "
+          f"bit for bit {len(same)}/{len(pre)}; loss {float(r['loss']):.6f}; grad_norm "
+          f"{gr:.9g} vs {ge:.9g}, relative difference {rel:.3e} (bound {GRAD_NORM_RTOL:g})",
+          flush=True)
+    if len(same) != len(pre):
+        fail(f"the {what} graph's pre-update metrics differ from the eager step's: "
+             f"{sorted(set(pre) - set(same))}")
+    if not rel <= GRAD_NORM_RTOL:
+        fail(f"the {what} graph's grad_norm is {rel:.3e} away from the eager step's")
 
 
 def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None, costs=None,
-              phase=None):
+              phase=None, against_eager=None):
     """Build the detector from seed 0, take one warm-up step (eager; it
     captures the step's CUDA graph: capture ms and pool GB printed) and
     ``n_steps`` train steps, each a replay (launches checked against ``want``
@@ -1339,8 +1446,13 @@ def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None, cost
     runs of five replays (``two_runs``), compare the gradients of ``leaves``
     in one step against the same step with the plain versions, and profile
     one replay (its operations and K4's device ms). ``costs``, if given, gets
-    the cost matrices and masks of the warm-up step's matchings. -> the
-    launches of the nine kernels over the steps."""
+    the cost matrices and masks of the warm-up step's matchings. With
+    ``against_eager="one"`` the replay is held to one eager step instead
+    (``graph_vs_one_eager``) and ``two_runs`` is skipped. K5's and K6's
+    launches in ``want`` may be None: the optimizer's tables give them
+    (``adamw_launches``). With ``phase``, the f32 CUDA-core GEMMs of one more
+    replay are counted (``f32_gemms``, ROADMAP F-P10). -> the launches of the
+    nine kernels over the steps."""
     import torch
 
     import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
@@ -1377,6 +1489,8 @@ def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None, cost
           f"the step's CUDA graph: warm-up + capture {graph.capture_ms:.1f} ms, pool "
           f"{step.pool_bytes / 1e9:.3f} GB", flush=True)
 
+    want = tuple(want[:7]) + tuple(
+        n if n is not None else t for n, t in zip(want[7:], adamw_launches(state.optimizer)))
     counters = launch_counters()
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
@@ -1428,10 +1542,32 @@ def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None, cost
           f"peak memory {peak_gb:.2f} GB allocated (a replay allocates nothing; the pool "
           f"{step.pool_bytes / 1e9:.3f} GB beside it), {reserved_gb:.2f} GB reserved",
           flush=True)
-    graph_vs_eager(step, state, batches[0], text_embed)
-    two_runs(step, state, batches, text_embed)
+    if against_eager == "one":
+        graph_vs_one_eager(step, state, batches[0], text_embed)
+    else:
+        graph_vs_eager(step, state, batches[0], text_embed)
+        two_runs(step, state, batches, text_embed)
     if list(step.graphs) != [g_key]:
         fail(f"the train step captured {len(step.graphs)} graphs for one batch shape")
+
+    n_ops = {}
+    dev = profile_once(lambda: step(state, batches[1], text_embed), also=ALL_OPS, counts=n_ops)
+    seen = {k: n_ops.get(KERNELS[k][2], 0) for k in COUNTED}
+    if phase is not None and "all" in dev:
+        REPLAY_BUSY[phase] = dev["all"]
+    print(f"  the replay's device operations: {n_ops.get('all')}; the kernels in its profile "
+          f"{seen}; K4 {dev.get('auction_kernel', float('nan')):.4f} ms", flush=True)
+    if phase is not None:
+        n, ms = f32_gemms(lambda: step(state, batches[1], text_embed))
+        F32_GEMMS[phase] = n
+        print(f"  F-P10: f32 CUDA-core GEMMs (ffma/sgemm) in a replay: {n} launches, "
+              f"{ms:.3f} ms", flush=True)
+    # The graphs' pool is not needed past here: free it for the eager steps.
+    step.reset()
+    del metrics, m, graph
+    free_memory()
+    print(f"  the step's graphs dropped: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+          flush=True)
 
     # The gradient of one step with the kernels against the same step with the
     # plain versions in place of all of them, same weights, batch and draws.
@@ -1464,13 +1600,6 @@ def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None, cost
     if worst < COS_MIN:
         fail(f"a gradient with the kernels departs from the plain one (cosine < {COS_MIN})")
     del g_k, g_p
-    n_ops = {}
-    dev = profile_once(lambda: step(state, batches[1], text_embed), also=ALL_OPS, counts=n_ops)
-    seen = {k: n_ops.get(KERNELS[k][2], 0) for k in COUNTED}
-    if phase is not None and "all" in dev:
-        REPLAY_BUSY[phase] = dev["all"]
-    print(f"  the replay's device operations: {n_ops.get('all')}; the kernels in its profile "
-          f"{seen}; K4 {dev.get('auction_kernel', float('nan')):.4f} ms", flush=True)
     if cfg.use_language:  # F-P7's before and after, on one set of weights and draws
         def fwd_bwd():
             model.zero_grad(set_to_none=True)
@@ -2496,6 +2625,416 @@ def phase_bench():
     print("phase 14: the train, eval and input-pipeline benches ran", flush=True)
 
 
+SWIN = "swin_L_384_22k"  # phase 18's backbone: embed 192, depths (2, 2, 18, 2), window 12
+ALT_BACKBONES = ("convnext_xlarge_22k", "focalnet_L_384_22k")  # phase 19's
+# backbone leaves whose gradients phase 18 compares with the plain versions'
+SWIN_LEAVES = ("backbone.patch_embed.weight", "backbone.stage0_block0.attn.qkv.weight",
+               "backbone.stage2_block5.attn.rel_pos_bias",
+               "backbone.stage2_block17.mlp_fc2.weight", "backbone.merge_reduce2.weight",
+               "backbone.out_norm3.weight") + FLAGSHIP_LEAVES[:2]
+# K1's and K2's forward launches a train step with each memory knob (phase 20):
+# use_checkpoint runs every layer's forward again, enc_selective_remat the
+# encoder layers' around a kept K1 output, backbone_remat the ResNet only
+KNOB_LAUNCHES = {None: (12, 6), "use_checkpoint": (24, 12), "enc_selective_remat": (12, 12),
+                 "backbone_remat": (12, 6)}
+BENCH_BATCHES = (4, 8)  # phase 20's train lines, with the root bench's remat knobs
+
+
+def flagship_cfg(**overrides):
+    """The flagship config in bf16 with ``overrides``."""
+    from richsem_tpu_torch.config import Config
+
+    cfg = Config.fromfile(CONFIG)
+    cfg.compute_dtype = "bfloat16"
+    cfg.update(overrides)
+    return cfg
+
+
+def teacher_and_text(cfg):
+    """Phase 10's random-weight bf16 RN50 teacher and 1204 x 1024 text bank (seed 2)."""
+    import torch
+
+    from richsem_tpu_torch.models.build import build_clip_teacher
+
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    teacher = build_clip_teacher(cfg, dtype=torch.bfloat16, device=DEVICE, generator=g)
+    return teacher, torch.randn((cfg.num_classes, 1024), generator=g, device=DEVICE), g
+
+
+def check_eval_out(r, cfg):
+    import torch
+
+    if r["scores"].shape != (BATCH, cfg.num_select) or r["boxes"].shape != (
+            BATCH, cfg.num_select, 4):
+        fail(f"eval output shapes {tuple(r['scores'].shape)} {tuple(r['boxes'].shape)}")
+    if not all(torch.isfinite(r[k].float()).all() for k in ("scores", "boxes")):
+        fail("eval outputs are not finite")
+
+
+def phase_swin(recs):
+    """Phase 18: the flagship with the Swin-L backbone (``swin_L_384_22k``) at
+    full width, bf16, bs2 on 896 x 1344: the eval graph (3 replays, the replay
+    against the eager body bit for bit, K1 and K2 launches, ms/batch, peak GB),
+    then the train graph as phase 10 (``run_train``: 5 replays, launches, the
+    replay against one eager step, gradients against the plain versions, a
+    profiled replay and its f32 CUDA-core GEMMs)."""
+    import torch
+
+    import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
+    from richsem_tpu_torch.models import build_model
+    from richsem_tpu_torch.ops import fused_ffn as k2
+    from richsem_tpu_torch.ops import ms_deform_attn as k1
+    from richsem_tpu_torch.train.engine import eval_forward, make_eval_step
+
+    free_memory()
+    print(f"  at the start: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated", flush=True)
+    t0 = time.perf_counter()
+    cfg = flagship_cfg(backbone=SWIN)
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    model, _, _ = build_model("richsem", cfg, device=DEVICE, generator=g)
+    n_bb = sum(p.numel() for n, p in model.named_parameters() if n.startswith("backbone."))
+    text_embed = torch.randn((cfg.num_classes, 1024), generator=g, device=DEVICE)
+    batches = [eval_batch(g, CANVAS) for _ in range(N_BATCHES + 1)]
+    step = make_eval_step(model, cfg)
+    step(batches[-1], text_embed)  # warm-up and capture
+    torch.cuda.synchronize()
+    print(f"  {SWIN}: backbone {n_bb / 1e6:.1f} M parameters; eval setup + warm-up + capture "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    k1.ms_deform_attn.launches = k2.encoder_tail.launches = 0
+    times, results = [], []
+    for batch in batches[:N_BATCHES]:
+        t = time.perf_counter()
+        results.append(step(batch, text_embed))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    n_k1, n_k2 = k1.ms_deform_attn.launches, k2.encoder_tail.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for r in results:
+        check_eval_out(r, cfg)
+    want = ((cfg.enc_layers + cfg.dec_layers) * N_BATCHES, cfg.enc_layers * N_BATCHES)
+    ms_batch = statistics.median(times)
+    print(f"  eval (CUDA graph replays): {', '.join(f'{t:.2f}' for t in times)} ms/batch; median "
+          f"{ms_batch:.2f} ms/batch = {BATCH * 1e3 / ms_batch:.3f} img/s; peak memory "
+          f"{peak_gb:.2f} GB allocated, the graph's pool {step.pool_bytes / 1e9:.3f} GB beside "
+          f"it; launches K1 {n_k1}, K2 {n_k2} (expect {want[0]}, {want[1]})", flush=True)
+    if (n_k1, n_k2) != want:
+        fail("the Swin-L eval path did not launch K1 12 and K2 6 times a forward")
+    graphed = step(batches[0], text_embed)
+    with torch.inference_mode():
+        eager = eval_forward(model, cfg, batches[0], text_embed)
+    torch.cuda.synchronize()
+    same = all(torch.equal(graphed[k], eager[k]) for k in ("scores", "labels", "boxes"))
+    print(f"  eval replay equals the eager body bit for bit: {same}", flush=True)
+    if not same:
+        fail("the Swin-L eval graph differs from its eager body")
+    for rec, n in zip(recs[:3:2], (n_k1, n_k2)):
+        rec["swin_eval_launches"] = n
+    del step, results, graphed, eager
+    backbone_profiles(model, batches[0]["images"])
+    del model
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    print(f"  eval part {t1 - t0:.1f} s", flush=True)
+
+    teacher, text_embed, _ = teacher_and_text(cfg)
+    launches = run_train(cfg, (12, 12, 6, 6, 0, 0, 7, None, None), N_STEPS, SWIN_LEAVES,
+                         clip_model=teacher, text_embed=text_embed, phase="phase 18",
+                         against_eager="one")
+    for rec, n in zip(recs, launches):
+        rec["swin_launches"] = n
+    print(f"  F-P10: f32 CUDA-core GEMMs a replay, Swin-L {F32_GEMMS.get('phase 18')} against "
+          f"the R50 flagship's {F32_GEMMS.get('phase 10', 'not measured')}", flush=True)
+    print(f"  train part {time.perf_counter() - t1:.1f} s", flush=True)
+    print(f"phase 18: Swin-L flagship eval and train graphs ok ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    torch.cuda.empty_cache()
+
+
+def backbone_profiles(model, images):
+    """Where the backbone's time goes: its eager forward (inference) and its
+    forward and backward (the sum of its outputs) profiled once each, with
+    the busy ms, the operations, the busiest kernels and the GELU's kernels
+    (``F.gelu``, one pass each way)."""
+    import torch
+
+    from richsem_tpu_torch.utils.profiling import profile_call
+
+    images = images.to(model.cfg.compute_dtype)
+
+    def forward():
+        with torch.inference_mode():
+            model.backbone(images)
+
+    def forward_backward():
+        sum(f.float().sum() for f in model.backbone(images)).backward()
+        model.zero_grad(set_to_none=True)
+
+    for what, fn in (("forward", forward), ("forward and backward", forward_backward)):
+        fn()  # warm-up
+        prof = profile_call(fn)
+        if prof is None:
+            print(f"  backbone {what}: no device time recorded (not measured)")
+            continue
+        print(f"  backbone {what} (eager): busy {prof.busy_ms:.2f} ms, {prof.n_ops} operations, "
+              f"idle share {prof.idle_share:.3f}; busiest:", flush=True)
+        for key, n, ms in sorted(prof.ops, key=lambda o: -o[2])[:8]:
+            print(f"    {ms:9.3f} ms  x{n:<5d} {key[:100]}")
+        n, ms = prof.matching("Gelu") or (0, 0.0)
+        print(f"    the GELU: {ms:.3f} ms over {n} kernels", flush=True)
+
+
+def eager_step(cfg, teacher, text_embed, batch, draws=None, grads=False):
+    """Build the detector of ``cfg`` from seed 0 and take one eager train step
+    (``TrainStep.eager``) from a fresh state. -> (metrics, launches of the nine
+    kernels, peak GB allocated in the step, (K5, K6) from the tables), and with
+    ``grads`` a float32 copy of the gradient of every leaf the norm reads."""
+    import torch
+
+    import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
+    from richsem_tpu_torch.models import build_model
+    from richsem_tpu_torch.train.engine import create_train_state, make_train_step
+    from richsem_tpu_torch.train.optim import build_optimizer
+
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    model, _, _ = build_model("richsem", cfg, device=DEVICE, generator=g)
+    state = create_train_state(model, build_optimizer(model, cfg, steps_per_epoch=1000),
+                               use_ema=cfg.use_ema)
+    step = make_train_step(model, cfg, seed=0, device=DEVICE, clip_model=teacher)
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    m = step.eager(state, batch, text_embed, draws=draws)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = [c.launches for c in counters]
+    opt = state.optimizer
+    tables = adamw_launches(opt)
+    m = {k: v.clone() for k, v in m.items()}
+    out = (m, launches, peak, tables)
+    if grads:
+        out += ({n: t.grad.float().clone() for n, t in opt.trainable + opt.frozen},)
+    del model, state, step, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def grad_gap(g, base):
+    """-> (leaves not equal bit for bit, the largest leaf gap relative to the
+    leaf's largest magnitude, that leaf's name, the relative gap of the global
+    norm summed in float64) between two gradient sets."""
+    import torch
+
+    differ, worst, name = 0, 0.0, None
+    for n, b in base.items():
+        if torch.equal(g[n], b):
+            continue
+        differ += 1
+        gap = float((g[n] - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        if gap > worst:
+            worst, name = gap, n
+    norm = lambda gs: math.sqrt(sum(float(t.double().square().sum()) for t in gs.values()))
+    nb = norm(base)
+    return differ, worst, name, abs(norm(g) - nb) / nb
+
+
+def phase_alt_backbones():
+    """Phase 19: the flagship with ConvNeXt-XL and with FocalNet-L at full
+    width, bf16, bs2 on 896 x 1344, eager (to bound the run's time): one eval
+    batch (finite outputs, K1 12 and K2 6, peak GB) and one train step (finite
+    loss and grad_norm, the launches, peak GB)."""
+    import torch
+
+    import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
+    from richsem_tpu_torch.models import build_model
+    from richsem_tpu_torch.ops import fused_ffn as k2
+    from richsem_tpu_torch.ops import ms_deform_attn as k1
+    from richsem_tpu_torch.train.engine import eval_forward
+
+    free_memory()
+    print(f"  at the start: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated", flush=True)
+    for name in ALT_BACKBONES:
+        t0 = time.perf_counter()
+        cfg = flagship_cfg(backbone=name)
+        g = torch.Generator(device=DEVICE).manual_seed(0)
+        model, _, _ = build_model("richsem", cfg, device=DEVICE, generator=g)
+        n_bb = sum(p.numel() for n, p in model.named_parameters() if n.startswith("backbone."))
+        text_embed = torch.randn((cfg.num_classes, 1024), generator=g, device=DEVICE)
+        batch = eval_batch(g, CANVAS)
+        with torch.inference_mode():
+            eval_forward(model, cfg, batch, text_embed)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1.ms_deform_attn.launches = k2.encoder_tail.launches = 0
+        t = time.perf_counter()
+        with torch.inference_mode():
+            r = eval_forward(model, cfg, batch, text_embed)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        check_eval_out(r, cfg)
+        n = (k1.ms_deform_attn.launches, k2.encoder_tail.launches)
+        print(f"  {name}: backbone {n_bb / 1e6:.1f} M parameters; one eager eval batch "
+              f"{ms:.1f} ms, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+              f"K1 {n[0]}, K2 {n[1]}", flush=True)
+        if n != (cfg.enc_layers + cfg.dec_layers, cfg.enc_layers):
+            fail(f"the {name} eval forward did not launch K1 12 and K2 6 times")
+        del model, r
+        torch.cuda.empty_cache()
+        teacher, text_embed, tg = teacher_and_text(cfg)
+        t = time.perf_counter()
+        m, launches, peak, (k5, k6) = eager_step(cfg, teacher, text_embed, train_batch(tg))
+        want = [12, 12, 6, 6, 0, 0, 7, k5, k6]
+        print(f"  {name}: one eager train step (build included) {time.perf_counter() - t:.1f} s, "
+              f"loss {float(m['loss']):.4f}, grad_norm {float(m['grad_norm']):.4f}, peak "
+              f"{peak:.2f} GB; launches " + ", ".join(f"{k} {v}" for k, v in zip(COUNTED, launches))
+              + f" (expect {want})", flush=True)
+        if not (bool(m["finite"]) and math.isfinite(float(m["grad_norm"]))):
+            fail(f"the {name} train step's loss or grad_norm is not finite")
+        if launches != want:
+            fail(f"the {name} train step launched {launches}, not {want}")
+        del teacher
+        torch.cuda.empty_cache()
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    print("phase 19: ConvNeXt-XL and FocalNet-L eval and train steps ok", flush=True)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (a warning names any operation that
+    has none) and cuDNN's deterministic convolutions, as they were after."""
+    import torch
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev[2:]
+
+
+def phase_knobs():
+    """Phase 20: the memory knobs on the R50 flagship at bs2 (phase 10's step,
+    eager, one state, batch and draws; 562 gradient leaves). With the
+    kernels: the step without a knob twice (their spread, F-P6), then one
+    step with each knob alone: its pre-update metrics equal to the knob-free
+    step's bit for bit, ``grad_norm`` within ``GRAD_NORM_RTOL``, its peak
+    memory below that step's, K1's and K2's forward launches as
+    ``KNOB_LAUNCHES`` says. The same five steps with the kernels and
+    PyTorch's deterministic algorithms, with the plain versions, and with
+    both, each step's gradients against the first's leaf by leaf: the last
+    has no nondeterministic reduction left, and there every gradient and
+    metric of every step must be equal bit for bit. Then the train bench
+    (``richsem_tpu_torch/bench.py``) at ``BENCH_BATCH`` 4 and 8, where the
+    root bench's knobs turn ``backbone_remat`` and ``enc_selective_remat``
+    on."""
+    import torch
+
+    from richsem_tpu_torch import bench
+    from richsem_tpu_torch.train.engine import step_draws
+
+    free_memory()
+    print(f"  at the start: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated", flush=True)
+    t0 = time.perf_counter()
+    cfg0 = flagship_cfg()
+    teacher, text_embed, g = teacher_and_text(cfg0)
+    batch = train_batch(g)
+
+    def run(knob):
+        cfg = flagship_cfg(**({knob: True} if knob else {}))
+        draws = step_draws(cfg, BATCH, torch.Generator(device=DEVICE).manual_seed(7),
+                           device=DEVICE)
+        return eager_step(cfg, teacher, text_embed, batch, draws, grads=True)
+
+    def gaps(grads, base):
+        differ, worst, name, norm = grad_gap(grads, base)
+        return (f"gradients: {differ}/{len(base)} leaves differ from the first step's, "
+                f"largest {worst:.3e} of its leaf's magnitude ({name}), global norm "
+                f"{norm:.3e}"), differ
+
+    print("  with the kernels", flush=True)
+    base, errors = None, []
+    for knob in (None, None) + tuple(k for k in KNOB_LAUNCHES if k):
+        t = time.perf_counter()
+        m, launches, peak, (k5, k6), grads = run(knob)
+        w1, w2 = KNOB_LAUNCHES[knob]
+        want = [w1, 12, w2, 6, 0, 0, 7, k5, k6]
+        line = (f"  {knob or 'no knob'}: peak {peak:.2f} GB allocated, loss {float(m['loss']):.6f},"
+                f" grad_norm {float(m['grad_norm']):.6f}; launches "
+                + ", ".join(f"{k} {v}" for k, v in zip(COUNTED, launches)) + f" (expect {want})")
+        if launches != want:
+            fail(f"the step with {knob} launched {launches}, not {want}")
+        if base is None:
+            base = (m, peak, grads)
+            print(line + f"; {time.perf_counter() - t:.1f} s", flush=True)
+            continue
+        pre = [k for k in base[0] if k != "grad_norm"]
+        same = [k for k in pre if torch.equal(m[k], base[0][k])]
+        ge, gk = float(base[0]["grad_norm"]), float(m["grad_norm"])
+        rel = abs(gk - ge) / ge
+        print(line + f"; pre-update metrics equal the first step's bit for bit {len(same)}/"
+              f"{len(pre)}; grad_norm {rel:.3e} from it (bound {GRAD_NORM_RTOL:g}); "
+              f"{gaps(grads, base[2])[0]}; peak {peak - base[1]:+.2f} GB; "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        if len(same) != len(pre):
+            fail(f"{knob} changes the pre-update metrics {sorted(set(pre) - set(same))}")
+        if not rel <= GRAD_NORM_RTOL:  # failed after the other settings' spreads
+            errors.append(f"{knob or 'a second step'} moves grad_norm by {rel:.3e}")
+        if knob and not peak < base[1]:
+            fail(f"{knob} does not lower the step's peak memory")
+        del grads
+    del base
+    for plain, det in ((False, True), (True, False), (True, True)):
+        what = (("the plain versions" if plain else "the kernels")
+                + (" and deterministic algorithms" if det else ""))
+        print(f"  with {what}", flush=True)
+        base = None
+        with (plain_versions() if plain else contextlib.nullcontext()), \
+                (deterministic() if det else contextlib.nullcontext()):
+            for knob in (None, None) + tuple(k for k in KNOB_LAUNCHES if k):
+                t = time.perf_counter()
+                m, _, _, _, grads = run(knob)
+                if base is None:
+                    base = (m, grads)
+                    print(f"  {knob or 'no knob'}: loss {float(m['loss']):.6f}, grad_norm "
+                          f"{float(m['grad_norm']):.6f}; {time.perf_counter() - t:.1f} s",
+                          flush=True)
+                    continue
+                text, differ = gaps(grads, base[1])
+                same = [k for k in base[0] if torch.equal(m[k], base[0][k])]
+                print(f"  {knob or 'no knob'}: metrics equal the first step's bit for bit "
+                      f"{len(same)}/{len(base[0])} (grad_norm {float(m['grad_norm']):.6f}); "
+                      f"{text}; {time.perf_counter() - t:.1f} s", flush=True)
+                if plain and det and (differ or len(same) != len(base[0])):
+                    errors.append(f"{knob or 'a second step'} changes a gradient with {what}")
+                del grads
+        del base
+    if errors:
+        fail("; ".join(errors))
+    del teacher
+    torch.cuda.empty_cache()
+    want = dict(BENCH_LAUNCHES["train"], K2=12)  # enc_selective_remat runs the tail again
+    for bs in BENCH_BATCHES:
+        t = time.perf_counter()
+        line = bench.bench_line(env={"BENCH_BATCH": str(bs)})
+        print(json.dumps(line), flush=True)
+        print(f"  train bench bs{bs}: {line['value']:.3f} img/s, busy {line['device_busy_ms']:.1f}"
+              f" ms, peak {line['peak_memory_gb']:.2f} GB; {time.perf_counter() - t:.1f} s",
+              flush=True)
+        if not (line["value"] > 0 and line["graph"] and f"bs{bs}" in line["metric"]):
+            fail(f"the bs{bs} train bench line holds a value out of range")
+        if line["launches_per_step"] != want:
+            fail(f"the bs{bs} train bench launched {line['launches_per_step']}, not {want}")
+        torch.cuda.empty_cache()
+    print(f"phase 20: memory knobs and the bs4 and bs8 train lines ok "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 MXU_KERNELS = ("mxu_kernel", "mxu_reduce_kernel")
 CELL_KERNELS = ("cell_kernel", "cell_reduce_kernel")
 REPEAT_KERNELS = {"float32": "repeat_f32_kernel", "bfloat16": "repeat_bf16_kernel"}
@@ -3020,6 +3559,16 @@ def main() -> None:
                           ":179-184 (the optax chain's clip, Adam, decay, group scale and lr)",
               "launches": None}
     recs = [k1_rec, k1b_rec, k2_rec, k2b_rec, k3_rec, k3b_rec, k4_rec, k5_rec, k6_rec]
+    if sys.argv[1:] == ["knobs"]:
+        phase_knobs()
+        print(f"total {time.perf_counter() - t0:.1f} s")
+        return
+    if sys.argv[1:] == ["backbones"]:
+        phase_swin(recs)
+        phase_alt_backbones()
+        phase_knobs()
+        print(f"total {time.perf_counter() - t0:.1f} s")
+        return
     probe_recs = phase_probes()
     if sys.argv[1:] == ["kernels"]:
         phase_auction(k4_rec, [])
@@ -3039,6 +3588,10 @@ def main() -> None:
         phase_trainer(recs)
         torch.cuda.empty_cache()
         phase_bench()
+        torch.cuda.empty_cache()
+        phase_swin(recs)
+        phase_alt_backbones()
+        phase_knobs()
         torch.cuda.empty_cache()
         phase_ddp(recs, smi)
     print(f"total {time.perf_counter() - t0:.1f} s")

@@ -43,17 +43,18 @@ DINO-4scale R50 training rate on an NVIDIA A100 (about 55 min an epoch on
 figure, not one measured here.
 
 Settings from the environment, as the root bench reads them: ``BENCH_BATCH``
-(1 or 2), ``BENCH_VALID``, ``BENCH_DEC_IMPL`` (``sep``, whose decoder runs
-K1, or ``sep_pallas``, which runs K3 and K3-bwd), ``BENCH_NO_DN``,
+(from 3 images on, ``backbone_remat`` and ``enc_selective_remat`` are on),
+``BENCH_REMAT=1`` (``use_checkpoint``), ``BENCH_BB_REMAT=1``
+(``backbone_remat``), ``BENCH_SEL_REMAT=1`` (``enc_selective_remat``),
+``BENCH_VALID``, ``BENCH_DEC_IMPL`` (``sep``, whose decoder runs K1, or
+``sep_pallas``, which runs K3 and K3-bwd), ``BENCH_NO_DN``,
 ``BENCH_NO_DISTILL``, ``BENCH_MATCHER``, ``BENCH_MONITOR``,
 ``BENCH_ENC_LAYERS``, ``BENCH_DEC_LAYERS`` and ``BENCH_FUSED_OPT`` (``1``
 sets ``cfg.fused_adamw``: AdamW in ``fused_adamw``'s order, on the same
 kernels K5 and K6). Those the port does not implement raise
 ``NotImplementedError`` naming their ROADMAP item: ``BENCH_IMPL`` other than
 the config's, ``BENCH_TILE`` and ``BENCH_MARGIN`` (the TPU's windowed
-kernels, item 12), and ``BENCH_REMAT=1``, ``BENCH_BB_REMAT=1``,
-``BENCH_SEL_REMAT=1`` and ``BENCH_BATCH`` of 3 or more, for which the root
-bench turns the remat knobs on (item 11).
+kernels, item 12).
 """
 
 from __future__ import annotations
@@ -153,9 +154,6 @@ def bench_config(env: Optional[Mapping[str, str]] = None, overrides: Optional[di
     cfg = Config.fromfile(CONFIG)
     cfg.compute_dtype = "bfloat16"
     batch = int(env.get("BENCH_BATCH", "2"))
-    if batch >= 3:
-        _refuse(f"BENCH_BATCH={batch} (the root bench turns backbone_remat and "
-                "enc_selective_remat on from 3 images)", "item 11")
     if env.get("BENCH_IMPL") and env["BENCH_IMPL"] != cfg.msda_impl:
         _refuse(f"BENCH_IMPL={env['BENCH_IMPL']} (the port's encoder runs K1 for every "
                 "windowed implementation)", "item 12")
@@ -163,9 +161,11 @@ def bench_config(env: Optional[Mapping[str, str]] = None, overrides: Optional[di
                       ("BENCH_MARGIN", "the windowed kernels' margin")):
         if env.get(var):
             _refuse(f"{var} ({what})", "item 12")
-    for var in ("BENCH_REMAT", "BENCH_BB_REMAT", "BENCH_SEL_REMAT"):
-        if env.get(var) == "1":
-            _refuse(f"{var}=1 (remat)", "item 11")
+    # the memory knobs as the root bench sets them (bench.py:75-81): larger
+    # batches turn the backbone's and the encoder's remat on
+    cfg.use_checkpoint = env.get("BENCH_REMAT", "") == "1"
+    cfg.backbone_remat = batch >= 3 or env.get("BENCH_BB_REMAT") == "1"
+    cfg.enc_selective_remat = batch >= 3 or env.get("BENCH_SEL_REMAT") == "1"
     if env.get("BENCH_MONITOR"):
         cfg.monitor_msda_offsets = env["BENCH_MONITOR"] == "1"
     if env.get("BENCH_NO_DN") == "1":

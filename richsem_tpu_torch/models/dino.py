@@ -1,6 +1,7 @@
 """DINO deformable-DETR detector (counterpart of ``richsem_tpu/models/dino.py``).
 
-R50 backbone -> 4-level input projections -> deformable encoder (K1 sampler,
+Backbone (ResNet-50/101, Swin, ConvNeXt or FocalNet, :func:`build_backbone`)
+-> 4-level input projections -> deformable encoder (K1 sampler,
 K2 tail) -> two-stage top-``num_queries`` selection -> decoder with iterative
 box refinement (K1 cross-attention) -> stacked shared heads and, with
 ``use_language``, the CLIP-text dot-product classifier. Module and parameter
@@ -21,11 +22,20 @@ reference points handed to the decoder, the content queries when
 ``embed_init_tgt`` is off, the reference between decoder layers (the list of
 references keeps the undetached boxes) and the offset-saturation monitor. CLIP
 query features raise ``NotImplementedError`` (ROADMAP.md queue 1, item 11).
+
+The memory knobs act where a gradient is taken, as the JAX package's
+``nn.remat`` does, and change no number: ``backbone_remat`` recomputes the
+ResNet in the backward (the JAX package remats no other backbone);
+``use_checkpoint`` recomputes every encoder and decoder layer, keeping the
+products' outputs (K1 and K2 run again); ``enc_selective_remat`` (without
+``use_checkpoint``) recomputes every encoder layer but keeps the output of
+its K1 call, which does not run again.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -43,7 +53,10 @@ from richsem_tpu_torch.models.layers import (
     lecun_normal_,
     normal_,
 )
+from richsem_tpu_torch.models.convnext import ConvNeXt, ConvNeXtConfig
+from richsem_tpu_torch.models.focalnet import FocalNet, FocalNetConfig
 from richsem_tpu_torch.models.resnet import ResNet
+from richsem_tpu_torch.models.swin import SwinConfig, SwinTransformer
 from richsem_tpu_torch.models.transformer_utils import (
     encoder_reference_points,
     flatten_levels,
@@ -99,7 +112,8 @@ class DINOConfig:
     dn_labelbook_size: int = 1204
     dn_labelbook_reuse_cls: bool = True
     compute_dtype: Any = torch.float32
-    # memory knobs of the JAX training step; they do not change the eval forward
+    # memory knobs of the training step (``remat``); they change no number, and
+    # act only where a gradient is taken
     use_checkpoint: bool = False
     enc_selective_remat: bool = False
     backbone_remat: bool = False
@@ -199,6 +213,49 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to richsem_tpu_torch yet (ROADMAP.md queue 1, {item})"
     )
+
+
+def build_backbone(c: DINOConfig, device) -> Tuple[nn.Module, Tuple[int, ...]]:
+    """-> (backbone, its output channels), chosen by name as the JAX ``DINO.setup``
+    chooses (``richsem_tpu/models/dino.py:413-463``): ResNet-50/101, Swin,
+    ConvNeXt or FocalNet, the last three from their variant tables (an unknown
+    variant raises their ``KeyError``) in ``compute_dtype``; any other name
+    raises ``NotImplementedError``."""
+    if c.backbone in ("resnet50", "resnet101"):
+        blocks = (3, 4, 6, 3) if c.backbone == "resnet50" else (3, 4, 23, 3)
+        return (ResNet(blocks, c.return_strides, dtype=c.compute_dtype, device=device),
+                ResNet.out_channels(c.return_strides))
+    families = (("swin", SwinConfig, SwinTransformer), ("convnext", ConvNeXtConfig, ConvNeXt),
+                ("focalnet", FocalNetConfig, FocalNet))
+    for prefix, cfg_cls, cls in families:
+        if c.backbone.startswith(prefix):
+            bcfg = dataclasses.replace(cfg_cls.variant(c.backbone), dtype=c.compute_dtype)
+            return cls(bcfg, device=device), bcfg.num_channels()
+    raise NotImplementedError(c.backbone)
+
+
+# The memory knobs (``dino.py:416-420``, :474-503 of the JAX package). Each
+# recomputes part of the forward in the backward with torch.utils.checkpoint
+# (non-reentrant, no RNG state: nothing in these regions draws); the numbers
+# do not change. ``dots_saveable``'s counterpart keeps every product's output;
+# ``save_only_these_names("msda_out")``'s keeps the encoder's deformable
+# sampler output, the dispatcher op ``msda_out`` (``ops/ms_deform_attn.py``).
+DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+        torch.ops.aten.bmm.default)
+MSDA_OUT = (torch.ops.richsem_tpu_torch.msda_out.default,)
+
+
+def remat(fn, *args, saved: Optional[Sequence] = None):
+    """``fn(*args)`` under ``torch.utils.checkpoint``: the outputs of the ops in
+    ``saved`` are kept, every other tensor the backward needs is recomputed;
+    ``saved`` None recomputes everything."""
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {}
+    if saved is not None:
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             list(saved))
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
 class DeformableEncoderLayer(nn.Module):
@@ -372,8 +429,6 @@ class DINO(nn.Module):
                 "is available; pass device='cpu' to build on the CPU"
             )
         c = self.cfg = cfg
-        if c.backbone not in ("resnet50", "resnet101"):
-            raise _not_ported(f"backbone {c.backbone!r}", "item 11")
         for knob in ("masks", "use_clip_visual_query", "share_vl_proj", "enc_cls_agn",
                      "distill_aux_layers", "two_stage_cls"):
             if getattr(c, knob):
@@ -382,10 +437,7 @@ class DINO(nn.Module):
             raise _not_ported(f"activation {c.activation!r} in the encoder tail", "item 11")
         if c.two_stage_type != "standard":
             raise NotImplementedError(c.two_stage_type)
-        blocks = (3, 4, 6, 3) if c.backbone == "resnet50" else (3, 4, 23, 3)
-        self.backbone = ResNet(blocks, c.return_strides, dtype=c.compute_dtype,
-                               device=device)
-        chans = ResNet.out_channels(c.return_strides)
+        self.backbone, chans = build_backbone(c, device)
         n_backbone = len(chans)
         for i in range(c.num_feature_levels):
             in_ch = chans[i] if i < n_backbone else (
@@ -503,7 +555,12 @@ class DINO(nn.Module):
         clip_features: Optional[torch.Tensor] = None,
         train: bool = False,
     ) -> Dict[str, Any]:
-        feats = self.backbone(images.to(self.cfg.compute_dtype))
+        c = self.cfg
+        images = images.to(c.compute_dtype)
+        if c.backbone_remat and isinstance(self.backbone, ResNet) and torch.is_grad_enabled():
+            feats = remat(self.backbone, images)  # the JAX package remats the ResNet only
+        else:
+            feats = self.backbone(images)
         return self.detect(feats, pad_mask, dn_labels=dn_labels,
                            dn_boxes_unsig=dn_boxes_unsig, dn_attn_mask=dn_attn_mask,
                            text_embed=text_embed, clip_features=clip_features,
@@ -554,9 +611,21 @@ class DINO(nn.Module):
         enc_ref = encoder_reference_points(spatial_shapes, vr)
         memory = src_flat
         monitor = [] if train else None
+        grad = torch.is_grad_enabled()
+        enc_saved = DOTS if c.use_checkpoint else MSDA_OUT
         for layer in self.layers("encoder"):
-            memory = layer(memory, pos_flat, enc_ref, spatial_shapes, mask_flat,
-                           monitor=monitor)
+            if grad and (c.use_checkpoint or c.enc_selective_remat):
+                def run(src, layer=layer):  # the monitor's entries come out as outputs
+                    seen = None if monitor is None else []
+                    return layer(src, pos_flat, enc_ref, spatial_shapes, mask_flat,
+                                 monitor=seen), seen
+
+                memory, seen = remat(run, memory, saved=enc_saved)
+                if monitor is not None:
+                    monitor.extend(seen)
+            else:
+                memory = layer(memory, pos_flat, enc_ref, spatial_shapes, mask_flat,
+                               monitor=monitor)
 
         # ---- two-stage query selection ----------------------------------
         out_memory, out_props_unsig, prop_valid = gen_encoder_output_proposals(
@@ -600,8 +669,12 @@ class DINO(nn.Module):
             query_sine = gen_sineembed_for_position(ref_input[:, :, 0, :],
                                                     c.hidden_dim // 2)
             query_pos = self.ref_point_head(query_sine)
-            tgt = layer(tgt, query_pos, ref_input, memory, spatial_shapes, mask_flat,
-                        self_attn_mask)
+            args = (tgt, query_pos, ref_input, memory, spatial_shapes, mask_flat,
+                    self_attn_mask)
+            if grad and c.use_checkpoint:
+                tgt = remat(layer, *args, saved=DOTS)
+            else:
+                tgt = layer(*args)
             # refinement uses the un-normed layer output; the heads the normed one
             delta = self.bbox_embed(tgt).float()
             new_ref = torch.sigmoid(delta + inverse_sigmoid(ref))

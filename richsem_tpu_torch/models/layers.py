@@ -14,7 +14,7 @@ uses truncated ones).
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -124,20 +124,46 @@ class GroupNorm(LayerNorm):
         return y * self.weight + self.bias
 
 
+def same_pads(size: Sequence[int], kernel: Sequence[int], stride: Sequence[int]):
+    """flax's ``padding="SAME"`` (``lax.padtype_to_pads``) as ``F.pad``'s
+    ``(left, right, top, bottom)``: ``ceil(n / s)`` outputs along each side, the
+    padding split with its smaller half first."""
+    pads = []
+    for n, k, s in zip(size, kernel, stride):
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads.append((total // 2, total - total // 2))
+    (top, bottom), (left, right) = pads
+    return (left, right, top, bottom)
+
+
 class Conv(nn.Conv2d):
-    """``nn.Conv`` with channel-last ``[B, H, W, C]`` in and out (NCHW inside)."""
+    """``nn.Conv`` with channel-last ``[B, H, W, C]`` in and out (NCHW inside).
+
+    ``padding`` is a number of pixels on every side, or ``"same"`` for flax's
+    default ``"SAME"``; ``groups`` is flax's ``feature_group_count`` (``groups``
+    equal to the channels is a depthwise convolution)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-                 padding: int = 0, bias: bool = True,
+                 padding: Union[int, str] = 0, bias: bool = True, groups: int = 1,
                  dtype: Optional[torch.dtype] = None, device=None):
-        super().__init__(in_ch, out_ch, kernel, stride=stride, padding=padding,
-                         bias=bias, device=device)
+        same = padding == "same"
+        super().__init__(in_ch, out_ch, kernel, stride=stride, padding=0 if same else padding,
+                         bias=bias, groups=groups, device=device)
+        self.same = same
         self.compute_dtype = dtype
 
     def forward_nchw(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding)
+        x = x.to(dt)
+        if self.same:
+            x = F.pad(x, same_pads(x.shape[2:], self.kernel_size, self.stride))
+        y = F.conv2d(x, self.weight.to(dt), None, self.stride, self.padding,
+                     groups=self.groups)
+        if self.bias is None:
+            return y
+        # flax adds the bias to the rounded product (F.conv2d would add it before
+        # rounding a bf16 result)
+        return y + self.bias.to(dt)[:, None, None]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.forward_nchw(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)

@@ -1,11 +1,14 @@
 """Multi-scale deformable attention (counterpart of ``richsem_tpu/ops/ms_deform_attn.py``).
 
-* :func:`ms_deform_attn` -- the public op. On a CUDA tensor it is a
-  ``torch.autograd.Function``: the forward launches the hand-written kernel K1
-  (``csrc/ms_deform_attn_fwd.cu``), saves only ``(value, loc, aw)``, and the
+* :func:`ms_deform_attn` -- the public op, the dispatcher op
+  ``richsem_tpu_torch::msda_out`` (:func:`msda_out`, with its autograd), whose
+  output the encoder's selective checkpoint keeps (``enc_selective_remat``).
+  On a CUDA tensor its forward launches the hand-written kernel K1
+  (``csrc/ms_deform_attn_fwd.cu``), saves only ``(value, loc, aw)``, and its
   backward launches K1-bwd (``csrc/ms_deform_attn_bwd.cu``). On a CPU tensor it
-  runs :func:`ms_deform_attn_plain`, whose gradient is autograd's. Nothing
-  else: a CUDA call that cannot launch raises.
+  runs :func:`ms_deform_attn_plain`, and its backward is autograd's gradient of
+  that plain version, run again from the saved inputs. Nothing else: a CUDA
+  call that cannot launch raises.
 * :func:`ms_deform_attn_plain` -- the plain PyTorch version, the exact gather
   of the JAX package (``_tap_geometry`` + flat take): pixel = ``loc*size - 0.5``
   and zero-padded taps, accumulated in float32. The value is gathered in
@@ -26,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -228,21 +231,38 @@ def _ms_deform_attn_bwd_cuda(value, spatial_shapes, loc, aw, grad_out):
     return d_value.to(value.dtype), d_loc, d_aw
 
 
-class _MSDeformAttnFn(torch.autograd.Function):
-    """K1 forward, K1-bwd backward; saves only (value, loc, aw)."""
-
-    @staticmethod
-    def forward(ctx, value, loc, aw, spatial_shapes):
-        ctx.spatial_shapes = spatial_shapes
-        ctx.save_for_backward(value, loc, aw)
+@torch.library.custom_op("richsem_tpu_torch::msda_out", mutates_args=())
+def msda_out(value: torch.Tensor, loc: torch.Tensor, aw: torch.Tensor,
+             shapes: List[int]) -> torch.Tensor:
+    """The sampler as one dispatcher op, which a selective checkpoint sees and
+    can keep (``shapes``: the pyramid's ``[h0, w0, h1, w1, ...]``): K1 on CUDA
+    tensors, saving only ``(value, loc, aw)`` for K1-bwd; the plain version on
+    CPU ones."""
+    spatial_shapes = tuple(zip(shapes[::2], shapes[1::2]))
+    if value.is_cuda:
         return _ms_deform_attn_cuda(value, spatial_shapes, loc, aw)
+    return ms_deform_attn_plain(value, spatial_shapes, loc, aw)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        value, loc, aw = ctx.saved_tensors
-        d_value, d_loc, d_aw = _ms_deform_attn_bwd_cuda(
-            value, ctx.spatial_shapes, loc, aw, grad_out)
-        return d_value, d_loc, d_aw, None
+
+def _msda_out_setup(ctx, inputs, output):
+    value, loc, aw, shapes = inputs
+    ctx.shapes = tuple(zip(shapes[::2], shapes[1::2]))
+    ctx.save_for_backward(value, loc, aw)
+
+
+def _msda_out_backward(ctx, grad_out):
+    """K1-bwd on CUDA tensors; on CPU ones autograd's gradient of the plain
+    version, computed again from the saved inputs."""
+    value, loc, aw = ctx.saved_tensors
+    if value.is_cuda:
+        return (*_ms_deform_attn_bwd_cuda(value, ctx.shapes, loc, aw, grad_out), None)
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (value, loc, aw)]
+        out = ms_deform_attn_plain(inputs[0], ctx.shapes, inputs[1], inputs[2])
+        return (*torch.autograd.grad(out, inputs, grad_out), None)
+
+
+msda_out.register_autograd(_msda_out_backward, setup_context=_msda_out_setup)
 
 
 def ms_deform_attn(
@@ -251,22 +271,17 @@ def ms_deform_attn(
     sampling_locations: torch.Tensor,
     attention_weights: torch.Tensor,
 ) -> torch.Tensor:
-    """Deformable attention core: K1 (and K1-bwd) on CUDA tensors, the plain
-    version on CPU ones."""
+    """Deformable attention core, through the op :func:`msda_out`: K1 (and
+    K1-bwd) on CUDA tensors, the plain version on CPU ones."""
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
-    if value.device.type == "cpu":
-        return ms_deform_attn_plain(
-            value, spatial_shapes, sampling_locations, attention_weights
-        )
-    if value.device.type != "cuda":
+    if value.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"ms_deform_attn: no kernel for device {value.device}")
     _check(value, spatial_shapes, sampling_locations, attention_weights)
-    _check_cuda(value, sampling_locations, attention_weights)
-    _check_head_dim(value)
-    return _MSDeformAttnFn.apply(
-        value.contiguous(), sampling_locations.contiguous(),
-        attention_weights.contiguous(), spatial_shapes,
-    )
+    if value.is_cuda:
+        _check_cuda(value, sampling_locations, attention_weights)
+        _check_head_dim(value)
+    return msda_out(value.contiguous(), sampling_locations.contiguous(),
+                    attention_weights.contiguous(), [v for hw in spatial_shapes for v in hw])
 
 
 def ms_deform_attn_backward(value, spatial_shapes, sampling_locations,

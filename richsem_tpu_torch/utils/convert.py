@@ -18,7 +18,12 @@ MHA ``out`` ``kernel``     ``weight`` [out,h*hd]   ``[h,hd,out]`` -> ``[h*hd,out
 top-level arrays           the same name           as is (``level_embed``, ``tgt_embed``,
                                                    ``logit_scale``, ``cls_kernel`` ...)
 ``positional_embedding``   the same name           as is (the CLIP attention pool's)
+``rel_pos_bias`` [T,H]     the same name           as is (Swin's window attention)
+``gamma`` [C]              the same name           as is (ConvNeXt's layer scale)
 =========================  ======================  =================================
+
+A depthwise kernel (flax ``[kh, kw, 1, C]``, ``feature_group_count=C``) takes
+the convolution rule and becomes PyTorch's ``[C, 1, kh, kw]``.
 
 Flax's attention divides the query by sqrt(head_dim) at run time; the port does
 the same in ``MultiHeadAttention``, so no weight is rescaled. Real RichSem
@@ -35,6 +40,7 @@ import torch
 
 _RENAME = {"scale": "weight", "mean": "running_mean", "var": "running_var",
            "bias": "bias"}
+_KEPT = ("positional_embedding", "rel_pos_bias", "gamma")  # named leaves kept as they are
 
 
 def _shape(v) -> Tuple[int, ...]:
@@ -51,7 +57,7 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
 
 
 def _convert_leaf(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
-    if len(path) == 1 or path[-1] == "positional_embedding":
+    if len(path) == 1 or path[-1] in _KEPT:
         return ".".join(path), arr
     *parents, leaf = path
     module = ".".join(parents)
@@ -82,8 +88,9 @@ def params_from_jax(
     Every flax leaf maps to exactly one key, or this raises. With ``expected``
     (a state dict, or any mapping of names to tensors or shapes), every key on
     either side must be matched, with equal shapes, or this raises. A
-    ``positional_embedding`` array below the top level (the CLIP attention
-    pool's) keeps its name, as the top-level arrays do.
+    ``positional_embedding``, ``rel_pos_bias`` or ``gamma`` array below the top
+    level (the CLIP attention pool's, Swin's, ConvNeXt's) keeps its name, as
+    the top-level arrays do.
     """
     if set(flax_params) == {"params"}:
         flax_params = flax_params["params"]

@@ -270,14 +270,34 @@ def test_input_pipeline_bench_prints_its_keys(capsys):
     ({"BENCH_TILE": "8,8"}, "item 12"),
     ({"BENCH_MARGIN": "8"}, "item 12"),
     ({"BENCH_DEC_IMPL": "gather"}, "item 12"),
-    ({"BENCH_REMAT": "1"}, "item 11"),
-    ({"BENCH_BB_REMAT": "1"}, "item 11"),
-    ({"BENCH_SEL_REMAT": "1"}, "item 11"),
-    ({"BENCH_BATCH": "4"}, "item 11"),
 ], ids=lambda v: "-".join(v) if isinstance(v, dict) else None)
 def test_refused_knobs_name_their_roadmap_item(env, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
         bench.bench_config(env=env)
+
+
+REMAT = ("use_checkpoint", "backbone_remat", "enc_selective_remat")
+
+
+@pytest.mark.parametrize("env,on", [
+    ({}, ()),
+    ({"BENCH_BATCH": "1"}, ()),
+    ({"BENCH_BATCH": "3"}, ("backbone_remat", "enc_selective_remat")),
+    ({"BENCH_BATCH": "4"}, ("backbone_remat", "enc_selective_remat")),
+    ({"BENCH_BATCH": "8", "BENCH_REMAT": "1"}, REMAT),
+    ({"BENCH_REMAT": "1"}, ("use_checkpoint",)),
+    ({"BENCH_REMAT": "0"}, ()),
+    ({"BENCH_BB_REMAT": "1"}, ("backbone_remat",)),
+    ({"BENCH_SEL_REMAT": "1"}, ("enc_selective_remat",)),
+], ids=lambda v: ("-".join(f"{k[6:]}{x}" for k, x in v.items()) or "none")
+   if isinstance(v, dict) else None)
+def test_remat_knobs_follow_the_root_bench(env, on):
+    """``BENCH_BATCH`` of 3 or more turns ``backbone_remat`` and
+    ``enc_selective_remat`` on, and each ``BENCH_*REMAT=1`` its knob, as the
+    root bench sets them (``bench.py:75-81``); the batch size is the one asked."""
+    cfg, batch_size, _ = bench.bench_config(env=env)
+    assert {k for k in REMAT if cfg[k]} == set(on)
+    assert batch_size == int(env.get("BENCH_BATCH", "2"))
 
 
 def test_implemented_knobs_set_the_config():

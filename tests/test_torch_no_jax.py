@@ -35,6 +35,9 @@ MODULES = [
     "richsem_tpu_torch.models.transformer_utils",
     "richsem_tpu_torch.models.layers",
     "richsem_tpu_torch.models.resnet",
+    "richsem_tpu_torch.models.swin",
+    "richsem_tpu_torch.models.convnext",
+    "richsem_tpu_torch.models.focalnet",
     "richsem_tpu_torch.models.dino",
     "richsem_tpu_torch.models.postprocess",
     "richsem_tpu_torch.models.registry",

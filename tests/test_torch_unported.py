@@ -1,7 +1,8 @@
 """The port refuses what it has not ported, and names the ROADMAP item that
-holds it: the knobs, backbones and activation of the detector and NMS in the
-post-processing (queue 1, item 11), and the teacher's weak labels under
-data parallelism (item 11).
+holds it: the knobs and activation of the detector, the CLIP teacher's ViT
+tower and NMS in the post-processing (queue 1, item 11), and the teacher's
+weak labels under data parallelism (item 11). A backbone name the variant
+tables do not hold raises JAX's errors.
 
 ``two_stage_cls`` with the distillation branch on changes the function the
 JAX model trains (the CLIP logits join every decoder layer's logits), so the
@@ -53,8 +54,14 @@ def _nms():
                 torch.tensor([[64, 64]]), num_select=2, nms_iou_threshold=0.5)
 
 
+def _clip_vit_teacher():
+    from richsem_tpu_torch.models.build import build_clip_teacher
+
+    build_clip_teacher(_flagship(clip_model="ViT-B/32"), device="cpu")
+
+
 @pytest.mark.parametrize("what,call", [
-    ("backbone", lambda: DINO(DINOConfig(backbone="swin_T_224_1k"), device="cpu")),
+    ("backbone", _clip_vit_teacher),
     ("knob", lambda: DINO(DINOConfig(share_vl_proj=True), device="cpu")),
     ("activation", lambda: DINO(DINOConfig(activation="gelu"), device="cpu")),
     ("nms", _nms),
@@ -75,3 +82,22 @@ def test_weak_labels_under_data_parallelism_name_item_11():
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1, item 11\)"):
         make_loss_fn(None, cfg, clip_model=object(), world_size=2)
     make_loss_fn(None, cfg, clip_model=object(), world_size=1)
+
+
+@pytest.mark.parametrize("name,error", [
+    ("swin_X_224_1k", KeyError), ("convnext_huge", KeyError), ("focalnet_M_384_22k", KeyError),
+    ("vit_base", NotImplementedError)])
+def test_unknown_backbone_raises_as_jax(name, error):
+    """A name of a ported family that its variant table lacks raises the
+    table's ``KeyError``; any other name ``NotImplementedError``, in both
+    packages."""
+    import jax
+    import jax.numpy as jnp
+
+    from richsem_tpu.models.dino import DINO as JaxDINO
+
+    with pytest.raises(error):
+        DINO(DINOConfig(backbone=name), device="cpu")
+    with pytest.raises(error):
+        JaxDINO(JaxDINOConfig(backbone=name)).init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)), jnp.zeros((1, 64, 64), bool))

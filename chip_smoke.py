@@ -6,7 +6,7 @@ Phases, each printed as it completes:
 
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the build of every hand-written kernel from
-   ``richsem_tpu_torch/csrc`` (eleven sources, one nvcc per source, all at
+   ``richsem_tpu_torch/csrc`` (twelve sources, one nvcc per source, all at
    once, sm_90a) with its register report (and any ptxas note that it
    serialised ``wgmma`` products); K1, K1-bwd, K2, K2-bwd, K3, K3-bwd, K4 (the
    auction) and ``adamw.cu`` (K5 and K6, the optimizer) must spill nothing,
@@ -219,9 +219,30 @@ Phases, each printed as it completes:
     gradients against the first's, leaf by leaf, printed in every setting);
     then the train bench at ``BENCH_BATCH`` 4 and 8 (the root bench's remat
     knobs on: K2 12 a step), its JSON line, img/s, busy ms and peak memory.
+21. Variant A, "semantic" (the flagship with ``share_vl_proj``,
+    ``enc_cls_agn``, ``two_stage_cls``, ``distill_aux_layers``,
+    ``use_clip_visual_query``, ``check_pos_dn``, ``OptMatcher`` and NMS at
+    0.7; the random bf16 RN50 teacher; bs2 at 896 x 1344): the eval graph
+    with the teacher's spatial pass (3 replays, each against its eager body
+    bit for bit; K1 12, K2 6 and K7 1 a batch; ms/batch, img/s, peak
+    memory); K7 against its plain version on the eval's own boxes and scores
+    and on ``k7_cases`` (ties, IoUs exactly at the threshold, N 1,024, 33
+    and 1), keep masks equal, with its device and CUDA-event time beside the
+    plain loop's, its bound and the sweep's latency floor; then phase 18's
+    ``run_train`` (K4 0 a step: every matched set goes through simOTA).
+22. Variant B, "groups and tail" (``dn_number`` 5: the group-count branch,
+    a pad of 4 x 5 x 100 = 2,000 DN slots with 100 GT slots, 16 valid;
+    gelu; dropout 0.1; ``HungarianMatcherCPU``): the step on the card
+    refuses a graph, two eager steps (finite, K1 12 and K1-bwd 12, K2 and K4
+    0 a step, peak memory), SciPy's assignment of the first matching
+    against K4's on the same cost (equal total cost within the auction's
+    n_valid * eps); then dropout in a graph at a cut width (one encoder
+    and one decoder layer, 256 x 384): the replay against one eager step,
+    and two replays a step apart drawing different masks.
 
 ``python3 chip_smoke.py kernels`` stops after the kernel phases (1-5, 8, 9, 12,
-15 on its random cases, and 16). ``python3 chip_smoke.py backbones`` runs the
+15 on its random cases, 16 and K7 on its constructed cases).
+``python3 chip_smoke.py variants`` runs phases 1-5, 8, 9, 21 and 22. ``python3 chip_smoke.py backbones`` runs the
 kernel phases 1-5, 8 and 9, then phases 18-20 only; ``python3 chip_smoke.py
 knobs`` those kernel phases, then phase 20 only.
 
@@ -252,7 +273,8 @@ its own:
 
     for t in build/parent . . build/parent; do python3 chip_smoke.py ab $t; done
 
-The kernels' JSON record lists the six kernels of the model, K4, K5 and K6,
+The kernels' JSON record lists the six kernels of the model, K4, K5, K6 and
+K7 (its ``launches`` from phase 21's eval batches),
 each with ``launches`` from the flagship train step (phase 10, K3 and
 K3-bwd from phase 11), ``trainer_launches`` from phase 13,
 ``ddp_launches`` and ``ddp_replay_busy_ms`` from phase 17 and
@@ -288,7 +310,7 @@ SHAPES = ((112, 168), (56, 84), (28, 42), (14, 21))  # the 896 x 1344 pyramid
 DEVICE = "cuda"
 KERNELS = ("ms_deform_attn_fwd", "ms_deform_attn_bwd", "fused_encoder_tail_fwd",
            "fused_encoder_tail_bwd", "ms_deform_attn_sep_fwd", "ms_deform_attn_sep_bwd",
-           "auction", "adamw", "probe_cal", "probe_cell", "probe_vpu_model")
+           "auction", "adamw", "probe_cal", "probe_cell", "probe_vpu_model", "nms")
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor-core and f32 FLOP/s
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 BF16_VEC_FLOPS = 133.8e12  # bf16 outside the tensor cores (NVIDIA's H100 white paper, SXM5)
@@ -301,7 +323,7 @@ F32_ISSUE_OPS, BF16_VEC_ISSUE_OPS = F32_FLOPS / 2, BF16_VEC_FLOPS / 2
 COS_MIN = 0.9  # least gradient cosine, kernels vs plain versions (phases 7, 10, 11)
 NO_SPILL = ("ms_deform_attn_fwd", "ms_deform_attn_bwd", "fused_encoder_tail_fwd",
             "fused_encoder_tail_bwd", "ms_deform_attn_sep_fwd",
-            "ms_deform_attn_sep_bwd", "auction", "adamw")  # ptxas must report 0 spill bytes
+            "ms_deform_attn_sep_bwd", "auction", "adamw", "nms")  # ptxas: 0 spill bytes
 # kernels that must spill nothing in sources that hold other kernels too
 NO_SPILL_KERNELS = {"probe_cal": ("mxu_kernel", "vpu_bf16_kernel", "repeat_f32_kernel",
                                   "repeat_bf16_kernel"),
@@ -2571,9 +2593,9 @@ def phase_trainer(recs):
 
 BENCH_LAUNCHES = {  # the bench lines' launches a step or batch
     "train": {"K1": 12, "K1-bwd": 12, "K2": 6, "K2-bwd": 6, "K3": 0, "K3-bwd": 0, "K4": 7,
-              "K5": 1, "K6": 1},
+              "K5": 1, "K6": 1, "K7": 0},
     "eval": {"K1": 12, "K1-bwd": 0, "K2": 6, "K2-bwd": 0, "K3": 0, "K3-bwd": 0, "K4": 0,
-             "K5": 0, "K6": 0}}
+             "K5": 0, "K6": 0, "K7": 0}}
 PIPELINE_IMAGES = 100  # the input-pipeline bench's corpus here
 
 
@@ -3516,6 +3538,335 @@ def phase_ddp(recs, smi):
           "graph", flush=True)
 
 
+# ---- the recipe variants (phases 21 and 22) and K7 --------------------------
+VARIANT_B_GT = 100  # phase 22's GT slots: CDN's group-count branch pads 4 * dn_number * G
+# variant A's leaves whose gradients run_train compares with the plain versions'
+VARIANT_A_LEAVES = GRAD_LEAVES[:5] + ("vl_proj.layer3.weight", "clip_query_proj.weight",
+                                      "enc_cls_kernel", GRAD_LEAVES[6])
+NMS_THR = 0.7  # variant A's nms_iou_threshold
+
+
+def variant(name):
+    """The overrides of variant A ("semantic": the five semantic-branch knobs,
+    check_pos_dn, OptMatcher, NMS at 0.7) or B ("groups and tail": dn_number 5,
+    gelu, dropout 0.1, HungarianMatcherCPU), set here, in code."""
+    from richsem_tpu_torch.tools.gemm_sites import VARIANT_A
+
+    if name == "A":
+        return dict(VARIANT_A, nms_iou_threshold=NMS_THR)
+    return dict(dn_number=5, transformer_activation="gelu", dropout=0.1,
+                matcher_type="HungarianMatcherCPU")
+
+
+def k7_cases(g):
+    """K7's inputs, [B, N, 4] xyxy f32 boxes and [B, N] f32 scores on the card:
+    bs2 at the eval's N 300 with scores rounded to 1e-2 (many ties), the
+    constructed case of tied scores and IoUs exactly at the threshold (1/3 and
+    1/2, kept: the rule is iou > threshold), N 1,024 (the limit), N 33 and 1."""
+    import torch
+
+    def rand(b, n, thr):
+        xy = torch.rand((b, n, 2), generator=g, device=DEVICE) * 800
+        wh = torch.rand((b, n, 2), generator=g, device=DEVICE) * 200 + 1
+        scores = (torch.rand((b, n), generator=g, device=DEVICE) * 100).round() / 100
+        return torch.cat([xy, xy + wh], -1), scores, thr
+
+    tied = torch.tensor([[[0, 0, 10, 10], [0, 0, 10, 20], [0, 0, 10, 10], [5, 0, 15, 10],
+                          [0, 0, 10, 10.5], [40, 40, 50, 50], [40, 40, 50, 50]]],
+                        dtype=torch.float32, device=DEVICE)
+    tied_scores = torch.tensor([[0.5, 0.9, 0.5, 0.5, 0.9, 0.3, 0.3]], device=DEVICE)
+    return [("random bs2 N 300", *rand(2, 300, NMS_THR)),
+            ("ties and IoU at 1/2", tied, tied_scores, 0.5),
+            ("ties and IoU at 1/3", tied, tied_scores, 1 / 3),
+            ("N 1024", *rand(2, 1024, 0.5)), ("N 33", *rand(3, 33, 0.5)),
+            ("N 1", *rand(2, 1, 0.5))]
+
+
+def phase_k7(rec, eval_inputs=None):
+    """K7 against the plain version on CUDA tensors, keep masks exactly equal,
+    on ``k7_cases`` and on the eval's own boxes and scores (``eval_inputs``);
+    then its device time (five profiled calls) and CUDA-event time beside the
+    plain loop's host and device time, on the eval's inputs (or the random
+    case), with its bound (each input read once and the mask written once,
+    against the IoU pairs' f32 operations at the issue rate) and the sweep's
+    latency floor: N dependent steps at the per-step time of the sweep's loop
+    body alone on one warp (``ops/nms.py:sweep_floor``)."""
+    import torch
+
+    from richsem_tpu_torch.ops import nms
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=DEVICE).manual_seed(21)
+    cases = k7_cases(g)
+    if eval_inputs is not None:
+        cases.insert(0, ("the eval's own (bs2, top-300)", *eval_inputs))
+    for name, boxes, scores, thr in cases:
+        keep = nms._nms_cuda(boxes, scores, thr)
+        ref = nms.nms_mask_plain(boxes, scores, thr)
+        torch.cuda.synchronize()
+        same = torch.equal(keep, ref)
+        print(f"  K7 {name}: keep masks equal {same}; kept {int(keep.sum())} of "
+              f"{keep.numel()} at threshold {thr:.4g}", flush=True)
+        if not same:
+            fail(f"K7 differs from the plain NMS on {name}")
+    name, boxes, scores, thr = cases[0]
+    fn = lambda: nms._nms_cuda(boxes, scores, thr)  # noqa: E731
+    kern = device_ms(fn, ["nms_kernel"])["nms_kernel"]
+    ms = cuda_ms(fn)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(5):
+        nms.nms_mask_plain(boxes, scores, thr)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3 / 5
+    plain_dev = device_ms(lambda: nms.nms_mask_plain(boxes, scores, thr), [], iters=1,
+                          also=ALL_OPS)["all"]
+    b, n = scores.shape
+    bms, by = bound(nbytes(boxes, scores) + b * n, b * n * (n - 1) / 2 * 12, F32_ISSUE_OPS)
+    floor = nms.sweep_floor()
+    latency_ms = n * floor["ns"] / 1e6
+    print(f"  K7 on {name}: device {_ms(kern)} ms a launch, CUDA events {ms:.4f} ms; plain "
+          f"loop: host {plain_ms:.3f} ms, device {_ms(plain_dev)} ms; bound {bms:.6f} ms ({by}); "
+          f"the sweep's floor {floor['cycles']:.1f} cycles = {floor['ns']:.2f} ns a step, "
+          f"{n} dependent steps = {latency_ms:.5f} ms", flush=True)
+    rec.update({"max_abs_err": 0.0, "ms": ms, "device_ms": kern, "plain_ms": plain_ms,
+                "plain_device_ms": plain_dev, "bound_ms": bms, "bound_by": by,
+                "library_ms": None, "latency_bound_ms": latency_ms,
+                "sweep_step_ns": floor["ns"], "case": name})
+    print(f"  K7 phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_variant_a(k7_rec):
+    """Phase 21, variant A ("semantic") at the flagship's full width, bf16,
+    bs2 on 896 x 1344, random weights (seed 0) and the random bf16 RN50
+    teacher: the eval graph (the teacher's spatial pass, K1 12, K2 6 and K7 1
+    a batch; 3 replays, each against its eager body bit for bit; ms/batch,
+    img/s, peak memory), K7 on the eval's own boxes (``phase_k7``), then the
+    train graph (``run_train``: 5 replays, K4 0 a step since every matched set
+    goes through simOTA, a replay under set_sync_debug_mode("error"), the
+    replay against one eager step, gradients against the plain versions, the
+    f32 CUDA-core GEMMs of a replay)."""
+    import torch
+
+    import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
+    from richsem_tpu_torch.models import build_model
+    from richsem_tpu_torch.models import postprocess as post
+    from richsem_tpu_torch.ops import fused_ffn as k2
+    from richsem_tpu_torch.ops import ms_deform_attn as k1
+    from richsem_tpu_torch.ops import nms
+    from richsem_tpu_torch.train.engine import eval_forward, make_eval_step
+
+    free_memory()
+    t0 = time.perf_counter()
+    cfg = flagship_cfg(**variant("A"))
+    print(f"  variant A: {variant('A')}", flush=True)
+    teacher, text_embed, _ = teacher_and_text(cfg)
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    model, _, _ = build_model("richsem", cfg, device=DEVICE, generator=g)
+    batches = [eval_batch(g, CANVAS) for _ in range(N_BATCHES + 1)]
+    step = make_eval_step(model, cfg, teacher)
+    step(batches[-1], text_embed)  # warm-up and capture
+    torch.cuda.synchronize()
+    (graph,) = step.graphs.values()
+    print(f"  eval setup + warm-up + capture {time.perf_counter() - t0:.1f} s (warm-up + "
+          f"capture {graph.capture_ms:.1f} ms, pool {step.pool_bytes / 1e9:.3f} GB)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    k1.ms_deform_attn.launches = k2.encoder_tail.launches = nms.nms_mask.launches = 0
+    times, results = [], []
+    for batch in batches[:N_BATCHES]:
+        t = time.perf_counter()
+        results.append(step(batch, text_embed))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    got = (k1.ms_deform_attn.launches, k2.encoder_tail.launches, nms.nms_mask.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for r in results:
+        check_eval_out(r, cfg)
+    dropped = [int((r["scores"] == -1).sum()) for r in results]
+    want = ((cfg.enc_layers + cfg.dec_layers) * N_BATCHES, cfg.enc_layers * N_BATCHES, N_BATCHES)
+    ms_batch = statistics.median(times)
+    print(f"  eval (CUDA graph replays): {', '.join(f'{t:.2f}' for t in times)} ms/batch; median "
+          f"{ms_batch:.2f} ms/batch = {BATCH * 1e3 / ms_batch:.3f} img/s; peak memory "
+          f"{peak_gb:.2f} GB allocated; launches K1 {got[0]}, K2 {got[1]}, K7 {got[2]} (expect "
+          f"{want}); boxes NMS dropped a batch {dropped} of {BATCH * cfg.num_select}", flush=True)
+    if got != want:
+        fail("the variant A eval path did not launch K1 12, K2 6 and K7 1 times a batch")
+    k7_rec["launches"] = got[2]
+    for i, batch in enumerate(batches[:N_BATCHES]):
+        graphed = step(batch, text_embed)
+        with torch.inference_mode():
+            eager = eval_forward(model, cfg, batch, text_embed, teacher)
+        torch.cuda.synchronize()
+        same = all(torch.equal(graphed[k], eager[k]) for k in ("scores", "labels", "boxes"))
+        print(f"  replay {i} equals its eager body bit for bit: {same}", flush=True)
+        if not same:
+            fail("the variant A eval graph differs from its eager body")
+    seen = []
+    kept = post.nms_mask
+    post.nms_mask = lambda b, s, thr: seen.append((b.clone(), s.clone(), thr)) or kept(b, s, thr)
+    try:
+        with torch.inference_mode():
+            eval_forward(model, cfg, batches[0], text_embed, teacher)
+    finally:
+        post.nms_mask = kept
+    del step, results, graphed, eager, graph
+    free_memory()
+    phase_k7(k7_rec, seen[0])
+    del model, seen
+    free_memory()
+    t1 = time.perf_counter()
+    print(f"  eval part {t1 - t0:.1f} s", flush=True)
+    run_train(cfg, (12, 12, 6, 6, 0, 0, 0, None, None), N_STEPS, VARIANT_A_LEAVES,
+              clip_model=teacher, text_embed=text_embed, phase="phase 21", against_eager="one")
+    print(f"  train part {time.perf_counter() - t1:.1f} s", flush=True)
+    print(f"phase 21: variant A eval and train graphs ok ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+
+def dropout_graph_check():
+    """Dropout in a CUDA graph (phase 22's last check), at a cut width that
+    captures in seconds: dino_4scale_lvis.py with one encoder and one decoder
+    layer, 100 queries, dropout 0.1, bs2 at 256 x 384. A replay against one
+    eager step from one state, batch, draws and dropout seed (the pre-update
+    metrics bit for bit: the graph draws from the generator registered with
+    it), then two replays a step apart with the same draws, whose losses must
+    differ (each replay draws anew)."""
+    import torch
+
+    import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
+    from richsem_tpu_torch.config import Config
+    from richsem_tpu_torch.models import build_model
+    from richsem_tpu_torch.train.engine import create_train_state, make_train_step
+    from richsem_tpu_torch.train.optim import build_optimizer
+
+    cfg = Config.fromfile(TRAIN_CONFIG)
+    cfg.update(compute_dtype="bfloat16", enc_layers=1, dec_layers=1, num_queries=100,
+               dropout=0.1)
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    model, _, _ = build_model("richsem", cfg, device=DEVICE, generator=g)
+    state = create_train_state(model, build_optimizer(model, cfg, steps_per_epoch=1000))
+    step = make_train_step(model, cfg, seed=0, device=DEVICE)
+    h, w = 256, 384
+    pad = torch.zeros(BATCH, h, w, dtype=torch.bool, device=DEVICE)
+    batch = {"images": torch.rand((BATCH, h, w, 3), generator=g, device=DEVICE) * 2 - 1,
+             "pad_mask": pad,
+             "labels": torch.randint(0, 1203, (BATCH, 20), generator=g, device=DEVICE),
+             "boxes": torch.rand((BATCH, 20, 4), generator=g, device=DEVICE) * 0.5 + 0.2,
+             "valid": (torch.arange(20, device=DEVICE) < 8)[None].expand(BATCH, -1)}
+    step(state, batch)  # the warm-up step and the capture
+    torch.cuda.synchronize()
+    graph_vs_one_eager(step, state, batch, what="dropout 0.1 train (cut width)")
+    draws = step.draws(state, BATCH)
+    losses = [float(step(state, batch, draws=draws)["loss"]) for _ in range(2)]
+    print(f"  two replays a step apart, same draws: loss {losses[0]:.6f} and {losses[1]:.6f}",
+          flush=True)
+    if losses[0] == losses[1]:
+        fail("two replays with dropout drew the same masks")
+    step.reset()
+
+
+def phase_variant_b():
+    """Phase 22, variant B ("groups and tail") at the flagship's full width,
+    bf16, bs2 on 896 x 1344 with ``VARIANT_B_GT`` GT slots (16 valid): the
+    step on the card refuses a graph (``HungarianMatcherCPU`` reads the cost
+    on the host), so two eager steps (K1 12 and K1-bwd 12 a step, K2 and K4 0:
+    the gelu tail is the modules' composition and SciPy matches), finite
+    losses; SciPy's assignment of the first matching against K4's on the same
+    cost, equal total cost (the auction is optimal within n_valid * eps); peak
+    memory; then ``dropout_graph_check``."""
+    import torch
+
+    import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
+    from richsem_tpu_torch.models import build_model, matcher
+    from richsem_tpu_torch.ops import lap
+    from richsem_tpu_torch.train.engine import create_train_state, make_train_step
+    from richsem_tpu_torch.train.optim import build_optimizer
+
+    free_memory()
+    t0 = time.perf_counter()
+    cfg = flagship_cfg(**variant("B"))
+    pad = 4 * cfg.dn_number * VARIANT_B_GT
+    print(f"  variant B: {variant('B')}; {VARIANT_B_GT} GT slots, {N_VALID} valid: a DN pad of "
+          f"4 x {cfg.dn_number} x {VARIANT_B_GT} = {pad} slots and {pad + cfg.num_queries} decoder "
+          f"queries (the bench's 300 slots would pad {4 * cfg.dn_number * MAX_GT})", flush=True)
+    teacher, text_embed, g = teacher_and_text(cfg)
+    model, _, _ = build_model("richsem", cfg, device=DEVICE, generator=g)
+    state = create_train_state(model, build_optimizer(model, cfg, steps_per_epoch=1000),
+                               use_ema=cfg.use_ema)
+    step = make_train_step(model, cfg, seed=0, device=DEVICE, clip_model=teacher)
+    batches = []
+    for _ in range(2):
+        b = train_batch(g)
+        for k in ("labels", "boxes", "valid"):
+            b[k] = b[k][:, :VARIANT_B_GT].contiguous()
+        batches.append(b)
+    try:
+        step(state, batches[0], text_embed)
+        fail("the variant B step on the card did not refuse a graph")
+    except RuntimeError as e:
+        if "HungarianMatcherCPU" not in str(e):
+            raise
+        print(f"  the step refuses a graph: {e}", flush=True)
+    seen = []
+    solve = matcher.scipy_assignment
+
+    def keep(c, v):
+        col = solve(c, v)
+        if not seen:
+            seen.append((c.clone(), v.clone(), col.clone()))
+        return col
+
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    matcher.scipy_assignment = keep
+    times, metrics = [], []
+    try:
+        for b in batches:
+            t = time.perf_counter()
+            metrics.append(step.eager(state, b, text_embed))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+    finally:
+        matcher.scipy_assignment = solve
+    launches = [c.launches for c in counters]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    k5, k6 = adamw_launches(state.optimizer)
+    want = [12 * 2, 12 * 2, 0, 0, 0, 0, 0, k5 * 2, k6 * 2]
+    for i, m in enumerate(metrics):
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        print(f"  eager step {i}: {times[i]:.1f} ms, loss {loss:.4f}, grad_norm {gnorm:.4f}, "
+              f"loss_ce_dn {float(m['loss_ce_dn']):.4f}, loss_distill {float(m['loss_distill']):.4f}",
+              flush=True)
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            fail(f"variant B step {i}: loss or grad_norm is not finite")
+    print(f"  launches over 2 eager steps: "
+          + ", ".join(f"{k} {n}" for k, n in zip(COUNTED, launches)) + f" (expect {want}); "
+          f"peak memory {peak_gb:.2f} GB allocated", flush=True)
+    if launches != want:
+        fail("the variant B steps did not launch the kernels as expected")
+    c, v, col = seen[0]
+    k4 = lap.batched_min_cost_assignment(c, v)
+    rows = v.nonzero(as_tuple=True)
+
+    def total(cols):
+        return float(c.double()[rows[0], rows[1], cols[rows]].sum())
+
+    scale = float(c[v].abs().max().clamp(min=1e-6))
+    slack = int(v.sum()) * 1e-4 * scale
+    ts, tk = total(col), total(k4)
+    print(f"  the first matching ({tuple(c.shape)}, {int(v.sum())} valid rows): SciPy total "
+          f"cost {ts:.6f}, K4 {tk:.6f} (the auction within {slack:.3g}); same assignment "
+          f"{torch.equal(col, k4)}", flush=True)
+    if not abs(tk - ts) <= slack:
+        fail("HungarianMatcherCPU's total cost differs from K4's on the same cost")
+    del step, state, model, metrics
+    free_memory()
+    dropout_graph_check()
+    print(f"phase 22: variant B eager steps ok ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -3558,7 +3909,22 @@ def main() -> None:
               "replaces": "richsem_tpu/train/optim.py:126-146 (fused_adamw's update) and "
                           ":179-184 (the optax chain's clip, Adam, decay, group scale and lr)",
               "launches": None}
-    recs = [k1_rec, k1b_rec, k2_rec, k2b_rec, k3_rec, k3b_rec, k4_rec, k5_rec, k6_rec]
+    k7_rec = {"name": "K7 NMS keep masks (nms_kernel)", "route": "cuda",
+              "source": "richsem_tpu_torch/csrc/nms.cu",
+              "replaces": "richsem_tpu/ops/nms.py:35 (the lax.fori_loop of nms_mask; not "
+                          "Pallas)",
+              "launches": None}
+    recs = [k1_rec, k1b_rec, k2_rec, k2b_rec, k3_rec, k3b_rec, k4_rec, k5_rec, k6_rec, k7_rec]
+    if sys.argv[1:] == ["variants"]:
+        phase_variant_a(k7_rec)
+        phase_variant_b()
+        print(f"total {time.perf_counter() - t0:.1f} s")
+        print(smi)
+        print(json.dumps({"kernels": recs}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if sys.argv[1:] == ["knobs"]:
         phase_knobs()
         print(f"total {time.perf_counter() - t0:.1f} s")
@@ -3573,6 +3939,7 @@ def main() -> None:
     if sys.argv[1:] == ["kernels"]:
         phase_auction(k4_rec, [])
         phase_adamw(k5_rec, k6_rec)
+        phase_k7(k7_rec)
     else:
         phase_eval(k1_rec, k2_rec)
         torch.cuda.empty_cache()
@@ -3592,6 +3959,9 @@ def main() -> None:
         phase_swin(recs)
         phase_alt_backbones()
         phase_knobs()
+        torch.cuda.empty_cache()
+        phase_variant_a(k7_rec)
+        phase_variant_b()
         torch.cuda.empty_cache()
         phase_ddp(recs, smi)
     print(f"total {time.perf_counter() - t0:.1f} s")

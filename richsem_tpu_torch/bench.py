@@ -96,6 +96,7 @@ KERNELS = {
     "K4": ("lap", "batched_min_cost_assignment", "auction_kernel"),
     "K5": ("adamw", "global_norm_clip", "sumsq_kernel"),
     "K6": ("adamw", "adamw_update", "adamw_kernel"),
+    "K7": ("nms", "nms_mask", "nms_kernel"),
 }
 
 

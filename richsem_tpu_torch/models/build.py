@@ -25,7 +25,8 @@ def build_richsem(
     (random weights from a seed); without, they stay uninitialized until a
     state dict is loaded.
     """
-    model = DINO(DINOConfig.from_config(cfg), device=device).eval()
+    model = DINO(DINOConfig.from_config(cfg), device=device,
+                 clip_spatial_dim=getattr(cfg, "clip_spatial_dim", 2048)).eval()
     if generator is not None:
         model.init_weights(generator)
     post_kwargs = dict(

@@ -23,18 +23,27 @@ queries; optionally restricted to the federated-loss classes of the same set
 (``use_fed_on_kd``) and weighted by the teacher's entropy
 (``use_dynamic_distill_weight``).
 
-The many-to-one OptMatcher layout, ``distill_aux_layers`` and the mask
-losses raise ``NotImplementedError`` naming the ROADMAP item.
+Under ``matcher_type="OptMatcher"`` every matched set takes the many-to-one
+layout (``criterion.py:170-240``): simOTA (:mod:`richsem_tpu_torch.models.ota_matcher`)
+gives each query its GT, ``gt_of_query [B, Q]`` (-1 background), and the
+focal, box and distillation losses run over the assigned queries
+(:func:`loss_labels_m2o`, :func:`loss_boxes_m2o`), normalised by the global
+valid GT count; the DN sets keep their fabricated one-to-one matching.
+``distill_aux_layers`` distills every aux decoder layer as the final one, and
+``enc_cls_agn`` matches and supervises the interm set with every label 0
+(its federated classes from split 15). The mask losses raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from richsem_tpu_torch.models.matcher import match
+from richsem_tpu_torch.models.ota_matcher import ota_match
 from richsem_tpu_torch.utils import boxes as box_ops
 from richsem_tpu_torch.utils.misc import l2_normalize
 
@@ -212,6 +221,59 @@ def distill_loss_l1(pred_clip_embed: Tensor, col: Tensor, gt_valid: Tensor,
     return (l1 * m).sum() / num_boxes
 
 
+def _gather_gt_per_query(gt_of_query: Tensor, gt_field: Tensor, gt_valid: Tensor
+                         ) -> Tuple[Tensor, Tensor]:
+    """``gt_of_query [B, Q]`` (-1 background) x ``gt_field [B, G, ...]`` ->
+    (the field of each query's GT [B, Q, ...], assigned [B, Q])."""
+    safe = gt_of_query.clamp(min=0)
+    idx = safe if gt_field.dim() == 2 else safe[..., None].expand(-1, -1, gt_field.shape[-1])
+    sel = torch.gather(gt_field, 1, idx)
+    return sel, (gt_of_query >= 0) & torch.gather(gt_valid, 1, safe)
+
+
+def loss_labels_m2o(pred_logits: Tensor, gt_of_query: Tensor, gt_labels: Tensor,
+                    gt_valid: Tensor, num_boxes: Tensor, focal_alpha: float = 0.25,
+                    fed_ids: Optional[Tuple[Tensor, Tensor]] = None) -> Dict[str, Tensor]:
+    """The focal (or federated) loss under the many-to-one assignment, over
+    ``num_boxes``; ``class_error`` over the assigned queries."""
+    c = pred_logits.shape[-1]
+    logits = pred_logits.float()
+    lbl, assigned = _gather_gt_per_query(gt_of_query, gt_labels, gt_valid)
+    classes = torch.arange(c, device=lbl.device)
+    onehot = ((lbl[..., None] == classes) & assigned[..., None]).float()
+    fed_mask = None
+    if fed_ids is not None:
+        ids, fed_mask = fed_ids
+        logits, onehot = logits[..., ids], onehot[..., ids]
+    focal = _sigmoid_focal(logits, onehot, focal_alpha, 2.0)
+    if fed_mask is not None:
+        focal = focal * fed_mask.float()
+    out = {"loss_ce": focal.sum() / num_boxes}
+    with torch.no_grad():
+        ok = (pred_logits.argmax(-1) == lbl) & assigned
+        out["class_error"] = 100.0 * (1.0 - ok.sum() / assigned.sum().clamp(min=1))
+    return out
+
+
+def loss_boxes_m2o(pred_boxes: Tensor, gt_of_query: Tensor, gt_boxes: Tensor,
+                   gt_valid: Tensor, num_boxes: Tensor) -> Dict[str, Tensor]:
+    """L1 and GIoU of every assigned query against its GT, over ``num_boxes``."""
+    sel, assigned = _gather_gt_per_query(gt_of_query, gt_boxes, gt_valid)
+    m = assigned.float()
+    pb = pred_boxes.float()
+    l1 = (pb - sel.float()).abs()
+    giou = box_ops.generalized_box_iou_elementwise(
+        box_ops.box_cxcywh_to_xyxy(pb), box_ops.box_cxcywh_to_xyxy(sel.float()))
+    out = {
+        "loss_bbox": (l1.sum(-1) * m).sum() / num_boxes,
+        "loss_giou": ((1.0 - giou) * m).sum() / num_boxes,
+    }
+    with torch.no_grad():
+        out["loss_xy"] = (l1[..., :2].sum(-1) * m).sum() / num_boxes
+        out["loss_hw"] = (l1[..., 2:].sum(-1) * m).sum() / num_boxes
+    return out
+
+
 class GlobalStats(NamedTuple):
     """What the losses read of the global batch, which is one process's batch
     or the stacked batches of ``ranks`` data-parallel ranks, each count
@@ -229,15 +291,18 @@ class GlobalStats(NamedTuple):
     dn_boxes: Tensor
     dn_classes: Tensor
     ranks: int = 1
+    union: Optional[Callable[[Tensor], Tensor]] = None  # a mask's union over the ranks
 
     @classmethod
-    def of(cls, stats: Dict[str, Tensor], ranks: int = 1) -> "GlobalStats":
-        """From the global batch's statistics (``parallel/dist.py:STAT_KEYS``)."""
+    def of(cls, stats: Dict[str, Tensor], ranks: int = 1,
+           union: Optional[Callable[[Tensor], Tensor]] = None) -> "GlobalStats":
+        """From the global batch's statistics (``parallel/dist.py:STAT_KEYS``);
+        ``union`` (``parallel/dist.py:union_``) with ``ranks`` above 1."""
         def share(count):
             return count.float().clamp(min=1.0) / ranks
 
         return cls(share(stats["gt_total"]), stats["gt_classes"], share(stats["dn_total"]),
-                   stats["dn_classes"], ranks)
+                   stats["dn_classes"], ranks, union)
 
 
 def set_criterion(
@@ -272,55 +337,99 @@ def set_criterion(
     ``dn_meta`` (:func:`expand_dn_targets`).
 
     ``stats`` are the global batch's (:class:`GlobalStats`): ``num_boxes``
-    normalises every set's losses, the DN sets' times their group count."""
-    if distill_aux_layers:
-        raise _not_ported("distill_aux_layers", "item 11")
-    if matcher_type == "OptMatcher":
-        raise _not_ported("the OptMatcher many-to-one layout", "item 11")
+    normalises every set's losses, the DN sets' times their group count. Under
+    the many-to-one layout a set's federated classes are the classes of its
+    assigned queries over the global batch (``stats.union`` across ranks: a
+    valid GT may end without a query), and their table's width counts
+    ``min(Q, G)`` slots an image (``criterion.py:58``). The many-to-one
+    ``class_error`` counts this process's assigned queries."""
     if "masks" in targets or "pred_masks" in outputs or "mask_params" in outputs:
         raise _not_ported("mask losses", "item 11")
-    if enc_cls_agn:
-        raise _not_ported("enc_cls_agn", "item 11")
     if use_fed_loss and fed_uniforms is None:
         raise ValueError("the federated loss needs fed_uniforms [16, num_classes]")
     gt_labels, gt_boxes, gt_valid = targets["labels"], targets["boxes"], targets["valid"]
     num_boxes = stats.num_boxes
+    many_to_one = matcher_type == "OptMatcher"
+    b, g = gt_labels.shape
 
-    def run_matcher(out_set):
-        return match(out_set["pred_logits"], out_set["pred_boxes"], gt_labels, gt_boxes,
+    def run_matcher(out_set, labels=gt_labels):
+        if many_to_one:
+            return ota_match(out_set["pred_logits"], out_set["pred_boxes"], labels, gt_boxes,
+                             gt_valid, focal_alpha=focal_alpha)
+        return match(out_set["pred_logits"], out_set["pred_boxes"], labels, gt_boxes,
                      gt_valid, cost_class, cost_bbox, cost_giou, focal_alpha,
                      matcher_type=matcher_type)
 
-    def fed_ids_for(i, col, appeared):
+    def fed_ids_for(i, n, appeared):
+        """Split ``i``'s classes; ``n`` matched-label slots of a process."""
         if not use_fed_loss:
             return None
-        return fed_loss_classes(fed_uniforms[i], appeared, col.numel() * stats.ranks,
+        return fed_loss_classes(fed_uniforms[i], appeared, n * stats.ranks,
                                 num_classes, fed_num_sample_cats, fed_weight)
+
+    def slots(col):  # JAX's matched_labels.size, the many-to-one table capped at B * G
+        return min(col.numel(), b * g) if many_to_one else col.numel()
 
     has_distill = distill_type in ("clip_logits", "clip_l1") and (
         "pred_clip_logits" in outputs or "pred_clip_embed" in outputs)
     clip_valid = targets.get("clip_valid", gt_valid)
 
-    def one_set(out_set, i, col, include_distill=False):
-        fids = fed_ids_for(i, col, stats.classes)
-        d = loss_labels(out_set["pred_logits"], col, gt_labels, gt_valid, num_boxes,
-                        num_boxes, focal_alpha, fids)
-        d.update(loss_boxes(out_set["pred_boxes"], col, gt_boxes, gt_valid, num_boxes))
+    def distill(out_set, col, kd_fids):
+        if distill_type == "clip_l1":
+            if not many_to_one:
+                return distill_loss_l1(out_set["pred_clip_embed"], col, clip_valid,
+                                       targets["clip_embed"], num_boxes)
+            sel_t, assigned = _gather_gt_per_query(col, targets["clip_embed"],
+                                                   gt_valid & clip_valid)
+            l1 = (l2_normalize(out_set["pred_clip_embed"].float()) - sel_t.float()).abs().sum(-1)
+            return (l1 * assigned.float()).sum() / num_boxes
+        pred = out_set["pred_clip_logits"]
+        if clip_distill_objective == "gt" and many_to_one:
+            sel_t, assigned = _gather_gt_per_query(col, targets["clip_logits"],
+                                                   gt_valid & clip_valid)
+            kl = _kl_terms(pred, sel_t, use_dynamic_distill_weight, kd_fids)
+            return (kl * assigned.float()).sum() / num_boxes
+        if clip_distill_objective == "gt":
+            return distill_loss_kl(pred, col, clip_valid, targets["clip_logits"], num_boxes,
+                                   use_dynamic_distill_weight, kd_fids)
+        if clip_distill_objective == "pred_all" or not many_to_one:
+            return distill_loss_kl_pred(pred, outputs["teacher_clip_logits"], col, gt_valid,
+                                        num_boxes, clip_distill_objective,
+                                        use_dynamic_distill_weight, kd_fids)
+        # 'pred' under many-to-one: the assigned queries against the teacher
+        _, assigned = _gather_gt_per_query(col, gt_boxes, gt_valid)
+        kl = _kl_terms(pred, outputs["teacher_clip_logits"], use_dynamic_distill_weight,
+                       kd_fids)
+        return (kl * assigned.float()).sum() / num_boxes
+
+    def appeared(col):
+        """The classes the set's matching holds, over the global batch."""
+        if not many_to_one:
+            return stats.classes  # every valid GT is matched
+        lbl, assigned = _gather_gt_per_query(col, gt_labels, gt_valid)
+        seen = torch.zeros(num_classes + 1, dtype=torch.bool, device=col.device)
+        seen = seen.scatter(0, torch.where(assigned, lbl, num_classes).reshape(-1), True)
+        seen = seen[:num_classes]
+        return stats.union(seen) if stats.union is not None else seen
+
+    def matched_losses(out_set, col, labels, fids):
+        """The focal, box and cardinality terms of a set matched by ``col``."""
+        if many_to_one:
+            d = loss_labels_m2o(out_set["pred_logits"], col, labels, gt_valid, num_boxes,
+                                focal_alpha, fids)
+            d.update(loss_boxes_m2o(out_set["pred_boxes"], col, gt_boxes, gt_valid, num_boxes))
+        else:
+            d = loss_labels(out_set["pred_logits"], col, labels, gt_valid, num_boxes,
+                            num_boxes, focal_alpha, fids)
+            d.update(loss_boxes(out_set["pred_boxes"], col, gt_boxes, gt_valid, num_boxes))
         d["cardinality_error"] = loss_cardinality(out_set["pred_logits"], gt_valid)
-        kd_fids = fids if use_fed_on_kd else None
-        if include_distill and distill_type == "clip_logits":
-            if clip_distill_objective == "gt":
-                d["loss_distill"] = distill_loss_kl(
-                    out_set["pred_clip_logits"], col, clip_valid, targets["clip_logits"],
-                    num_boxes, use_dynamic_distill_weight, kd_fids)
-            else:
-                d["loss_distill"] = distill_loss_kl_pred(
-                    out_set["pred_clip_logits"], outputs["teacher_clip_logits"], col,
-                    gt_valid, num_boxes, clip_distill_objective,
-                    use_dynamic_distill_weight, kd_fids)
-        elif include_distill and distill_type == "clip_l1":
-            d["loss_distill"] = distill_loss_l1(out_set["pred_clip_embed"], col, clip_valid,
-                                                targets["clip_embed"], num_boxes)
+        return d
+
+    def one_set(out_set, i, col, include_distill=False):
+        fids = fed_ids_for(i, slots(col), appeared(col)) if use_fed_loss else None
+        d = matched_losses(out_set, col, gt_labels, fids)
+        if include_distill:
+            d["loss_distill"] = distill(out_set, col, fids if use_fed_on_kd else None)
         return d
 
     losses: Dict[str, Tensor] = dict(one_set(outputs, 0, run_matcher(outputs), has_distill))
@@ -334,7 +443,7 @@ def set_criterion(
         dn_sets = [(dn_out, "_dn", 1)] + [
             (aux, f"_dn_{i}", 2 + i) for i, aux in enumerate(dn_out.get("aux_outputs", []))]
         for out_set, suffix, i in dn_sets:
-            fids = fed_ids_for(i, dn_col, stats.dn_classes)
+            fids = fed_ids_for(i, dn_col.numel(), stats.dn_classes)
             d = loss_labels(out_set["pred_logits"], dn_col, dn_meta["pos_labels"],
                             pos_valid, dn_nb, dn_hits, focal_alpha, fids, query_mask=qmask)
             d.update(loss_boxes(out_set["pred_boxes"], dn_col, dn_meta["pos_boxes"],
@@ -349,12 +458,25 @@ def set_criterion(
             losses.update({f"{k}{suffix}": v for k, v in d.items()})
 
     for i, aux in enumerate(outputs.get("aux_outputs", [])):
-        d = one_set(aux, 8 + i, run_matcher(aux))
+        aux_distill = has_distill and distill_aux_layers and (
+            "pred_clip_logits" in aux or "pred_clip_embed" in aux)
+        d = one_set(aux, 8 + i, run_matcher(aux), aux_distill)
         losses.update({f"{k}_{i}": v for k, v in d.items()})
 
     if "interm_outputs" in outputs:
         interm = outputs["interm_outputs"]
-        d = one_set(interm, 14, run_matcher(interm))
+        if enc_cls_agn:
+            # class-agnostic: every label 0, for the matching and the loss
+            agn = torch.zeros_like(gt_labels)
+            col = run_matcher(interm, agn)
+            fids = None
+            if use_fed_loss:  # class 0 appeared if any GT did; JAX caps no table here
+                seen = torch.zeros_like(stats.classes)
+                seen[0] = stats.classes.any()
+                fids = fed_ids_for(15, col.numel(), seen)
+            d = matched_losses(interm, col, agn, fids)
+        else:
+            d = one_set(interm, 14, run_matcher(interm))
         losses.update({f"{k}_interm": v for k, v in d.items()})
     return losses
 

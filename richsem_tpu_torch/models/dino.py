@@ -20,8 +20,20 @@ Training (``train=True``) takes the contrastive-denoising queries of
 package's ``stop_gradient`` sites: the two-stage selection scores, the
 reference points handed to the decoder, the content queries when
 ``embed_init_tgt`` is off, the reference between decoder layers (the list of
-references keeps the undetached boxes) and the offset-saturation monitor. CLIP
-query features raise ``NotImplementedError`` (ROADMAP.md queue 1, item 11).
+references keeps the undetached boxes) and the offset-saturation monitor.
+Dropout (``dropout > 0``) acts in training only, drawn from the generator the
+caller passes (``dropout_generator``): after each sampler, in the decoder's
+self-attention weights and in every FFN; the encoder then runs the flax-module
+tail (LN1, FFN, LN2) in place of K2, as it does for an activation other than
+relu.
+
+RichSem's semantic-branch knobs follow the JAX package: ``share_vl_proj`` (one
+4-layer MLP, ``vl_proj``, projects for the classifier and for distillation),
+``enc_cls_agn`` (a linear encoder head), ``two_stage_cls`` (in training the
+detached CLIP class probabilities join every decoder layer's logits),
+``distill_aux_layers`` (CLIP outputs of every decoder layer) and
+``use_clip_visual_query`` (the decoder's content queries are projected 1x1
+RoIs of the teacher's spatial map, ``clip_features``, at the reference boxes).
 
 The memory knobs act where a gradient is taken, as the JAX package's
 ``nn.remat`` does, and change no number: ``backbone_remat`` recomputes the
@@ -50,7 +62,7 @@ from richsem_tpu_torch.models.layers import (
     LayerNorm,
     MSDeformAttn,
     MultiHeadAttention,
-    lecun_normal_,
+    dropout,
     normal_,
 )
 from richsem_tpu_torch.models.convnext import ConvNeXt, ConvNeXtConfig
@@ -73,6 +85,8 @@ from richsem_tpu_torch.utils.misc import (
     resize_mask,
     valid_ratios,
 )
+from richsem_tpu_torch.ops.roi_align import roi_align
+from richsem_tpu_torch.utils.boxes import box_cxcywh_to_xyxy
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -259,11 +273,16 @@ def remat(fn, *args, saved: Optional[Sequence] = None):
 
 
 class DeformableEncoderLayer(nn.Module):
-    """Deformable self-attention (K1) -> residual+LN1 -> FFN -> residual+LN2 (K2)."""
+    """Deformable self-attention (K1) -> residual+LN1 -> FFN -> residual+LN2 (K2).
+
+    With an activation other than relu, or dropout in training (a
+    ``generator``), the tail is the modules' composition, as JAX's knob
+    variants keep flax's modules (``dino.py:293-301``): K2 does not run."""
 
     def __init__(self, c: DINOConfig, device=None):
         super().__init__()
         self.compute_dtype = c.compute_dtype
+        self.activation, self.dropout = c.activation, c.dropout
         self.self_attn = MSDeformAttn(
             d_model=c.hidden_dim, n_levels=c.num_feature_levels, n_heads=c.nheads,
             n_points=c.enc_n_points, compute_dtype=c.compute_dtype, impl=c.msda_impl,
@@ -272,12 +291,15 @@ class DeformableEncoderLayer(nn.Module):
         )
         self.norm1 = LayerNorm(c.hidden_dim, device=device)
         self.ffn = FFN(c.hidden_dim, c.dim_feedforward, c.activation, c.compute_dtype,
-                       device=device)
+                       device=device, dropout_rate=c.dropout)
 
     def forward(self, src, pos, reference_points, spatial_shapes, pad_mask,
-                monitor=None):
+                monitor=None, generator=None):
         attn_out = self.self_attn(src + pos, reference_points, src, spatial_shapes,
                                   pad_mask, monitor=monitor)
+        if self.activation != "relu" or generator is not None:
+            attn_out = dropout(attn_out, self.dropout, generator)
+            return self.ffn(self.norm1(src + attn_out), generator)
         b, s, d = src.shape
         ffn = self.ffn
         y = encoder_tail(
@@ -299,8 +321,9 @@ class DeformableDecoderLayer(nn.Module):
 
     def __init__(self, c: DINOConfig, device=None):
         super().__init__()
+        self.dropout = c.dropout
         self.self_attn = MultiHeadAttention(c.hidden_dim, c.nheads, c.compute_dtype,
-                                            device=device)
+                                            device=device, dropout_rate=c.dropout)
         self.norm2 = LayerNorm(c.hidden_dim, device=device)
         self.cross_attn = MSDeformAttn(
             d_model=c.hidden_dim, n_levels=c.num_feature_levels, n_heads=c.nheads,
@@ -309,16 +332,17 @@ class DeformableDecoderLayer(nn.Module):
         )
         self.norm1 = LayerNorm(c.hidden_dim, device=device)
         self.ffn = FFN(c.hidden_dim, c.dim_feedforward, c.activation, c.compute_dtype,
-                       device=device)
+                       device=device, dropout_rate=c.dropout)
 
     def forward(self, tgt, query_pos, reference_points_input, memory, spatial_shapes,
-                memory_pad_mask, self_attn_mask=None):
+                memory_pad_mask, self_attn_mask=None, generator=None):
         q = tgt + query_pos
-        tgt = self.norm2(tgt + self.self_attn(q, q, tgt, mask=self_attn_mask))
+        tgt = self.norm2(tgt + self.self_attn(q, q, tgt, mask=self_attn_mask,
+                                              generator=generator))
         ca = self.cross_attn(tgt + query_pos, reference_points_input, memory,
                              spatial_shapes, memory_pad_mask)
-        tgt = self.norm1(tgt + ca)
-        return self.ffn(tgt)
+        tgt = self.norm1(tgt + dropout(ca, self.dropout, generator))
+        return self.ffn(tgt, generator)
 
     def init_weights(self, g: torch.Generator) -> None:
         for mod in (self.self_attn, self.norm2, self.cross_attn, self.norm1, self.ffn):
@@ -395,32 +419,38 @@ def head_product(v: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 class ClipAlignHead(nn.Module):
     """Open-vocab classifier: CLIP text dot product (``CLIPAlign.forward_hs``).
 
-    Projects queries into the CLIP joint space (``dino_visual_proj``), L2-normalizes
-    both sides in f32, rounds both to ``compute_dtype`` and accumulates their
-    product in f32 (:func:`head_product`), then scales by exp(logit_scale).
+    Projects queries into the CLIP joint space (``dino_visual_proj``, or with
+    ``shared`` the ``proj`` the caller passes: ``share_vl_proj``'s ``vl_proj``,
+    which holds the parameters), L2-normalizes both sides in f32, rounds both
+    to ``compute_dtype`` and accumulates their product in f32
+    (:func:`head_product`), then scales by exp(logit_scale).
     """
 
-    def __init__(self, c: DINOConfig, use_mlp: bool = False, device=None):
+    def __init__(self, c: DINOConfig, use_mlp: bool = False, device=None, shared: bool = False):
         super().__init__()
         self.compute_dtype = c.compute_dtype
         self.embed_dim = c.clip_embed_dim
-        self.dino_visual_proj = _clip_proj(c, use_mlp, device)
+        self.dino_visual_proj = None if shared else _clip_proj(c, use_mlp, device)
 
-    def forward(self, hs, text_embed, logit_scale):
-        v = l2_normalize(self.dino_visual_proj(hs).float())
+    def forward(self, hs, text_embed, logit_scale, proj=None):
+        v = l2_normalize((self.dino_visual_proj if proj is None else proj)(hs).float())
         t = l2_normalize(text_embed.float())
         cd = self.compute_dtype
         return torch.exp(logit_scale) * head_product(v.to(cd), t.to(cd))
 
     def init_weights(self, g: torch.Generator) -> None:
-        _init_clip_proj(self.dino_visual_proj, self.embed_dim, g)
+        if self.dino_visual_proj is not None:
+            _init_clip_proj(self.dino_visual_proj, self.embed_dim, g)
 
 
 class DINO(nn.Module):
     """The detector. Build with ``DINO(cfg, device)``, then ``init_weights(generator)``
-    or load a converted state dict (:func:`richsem_tpu_torch.utils.convert.params_from_jax`)."""
+    or load a converted state dict (:func:`richsem_tpu_torch.utils.convert.params_from_jax`).
+    ``clip_spatial_dim`` is the width of the teacher's spatial map, the input of
+    ``use_clip_visual_query``'s projection (2048 for RN50), which flax infers
+    from its first call."""
 
-    def __init__(self, cfg: DINOConfig, device="cuda"):
+    def __init__(self, cfg: DINOConfig, device="cuda", clip_spatial_dim: int = 2048):
         super().__init__()
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -429,12 +459,8 @@ class DINO(nn.Module):
                 "is available; pass device='cpu' to build on the CPU"
             )
         c = self.cfg = cfg
-        for knob in ("masks", "use_clip_visual_query", "share_vl_proj", "enc_cls_agn",
-                     "distill_aux_layers", "two_stage_cls"):
-            if getattr(c, knob):
-                raise _not_ported(f"knob {knob}", "item 11")
-        if c.activation != "relu":
-            raise _not_ported(f"activation {c.activation!r} in the encoder tail", "item 11")
+        if c.masks:
+            raise _not_ported("knob masks", "item 11")
         if c.two_stage_type != "standard":
             raise NotImplementedError(c.two_stage_type)
         self.backbone, chans = build_backbone(c, device)
@@ -461,10 +487,20 @@ class DINO(nn.Module):
                                   device=device)
         self.bbox_embed = MLP(c.hidden_dim, c.hidden_dim, 4, 3, device=device)
         self.enc_out_bbox_embed = MLP(c.hidden_dim, c.hidden_dim, 4, 3, device=device)
+        self.vl_proj = None
+        if c.share_vl_proj and (c.use_language or c.use_visual_distill):
+            # one MLP projects for the classifier and for distillation
+            self.vl_proj = _clip_proj(c, True, device)
         if c.use_language:
             self.class_embed = ClipAlignHead(
-                c, use_mlp=c.use_cls_mlp_proj and c.use_mlp_proj, device=device)
-            self.enc_out_class_embed = ClipAlignHead(c, use_mlp=False, device=device)
+                c, use_mlp=c.use_cls_mlp_proj and c.use_mlp_proj, device=device,
+                shared=self.vl_proj is not None)
+            if c.enc_cls_agn:  # a linear, class-agnostic encoder head
+                self.enc_cls_kernel = nn.Parameter(
+                    torch.empty((c.hidden_dim, c.num_classes), device=device))
+                self.enc_cls_bias = nn.Parameter(torch.empty(c.num_classes, device=device))
+            else:
+                self.enc_out_class_embed = ClipAlignHead(c, use_mlp=False, device=device)
         if c.use_language or c.use_visual_distill:
             self.logit_scale = nn.Parameter(torch.empty((), device=device))
         else:
@@ -479,8 +515,15 @@ class DINO(nn.Module):
         elif c.use_language:
             self.label_proj = Dense(c.clip_embed_dim, c.hidden_dim, bias=False,
                                     device=device)
-        if c.use_visual_distill:
+        if c.use_visual_distill and self.vl_proj is None:
             self.clip_visual_proj = _clip_proj(c, c.use_mlp_proj, device)
+        if c.use_clip_visual_query:
+            self.clip_query_proj = Dense(clip_spatial_dim, c.hidden_dim, bias=False,
+                                         device=device)
+
+    def distill_proj(self) -> nn.Module:
+        """The distillation projection: ``vl_proj`` under ``share_vl_proj``."""
+        return self.vl_proj if self.vl_proj is not None else self.clip_visual_proj
 
     def layers(self, kind: str):
         n = self.cfg.enc_layers if kind == "encoder" else self.cfg.dec_layers
@@ -504,9 +547,15 @@ class DINO(nn.Module):
             head.init_weights(g)
             nn.init.zeros_(head.layers()[-1].weight)
             nn.init.zeros_(head.layers()[-1].bias)
+        if self.vl_proj is not None:
+            _init_clip_proj(self.vl_proj, c.clip_embed_dim, g)
         if c.use_language:
             self.class_embed.init_weights(g)
-            self.enc_out_class_embed.init_weights(g)
+            if c.enc_cls_agn:
+                normal_(self.enc_cls_kernel, g, c.hidden_dim**-0.5)
+                self.enc_cls_bias.fill_(_CLS_BIAS)
+            else:
+                self.enc_out_class_embed.init_weights(g)
         if c.use_language or c.use_visual_distill:
             self.logit_scale.fill_(math.log(1 / 0.07))
         else:
@@ -518,13 +567,17 @@ class DINO(nn.Module):
             normal_(self.label_enc, g, 1.0)
         elif c.use_language:
             normal_(self.label_proj.weight, g, c.clip_embed_dim**-0.5)
-        if c.use_visual_distill:
+        if c.use_visual_distill and self.vl_proj is None:
             _init_clip_proj(self.clip_visual_proj, c.clip_embed_dim, g)
+        if c.use_clip_visual_query:
+            self.clip_query_proj.init_weights(g)
 
     def _class_logits(self, h, text_embed, enc: bool = False):
-        if self.cfg.use_language:
-            head = self.enc_out_class_embed if enc else self.class_embed
-            return head(h, text_embed, self.logit_scale)
+        c = self.cfg
+        if c.use_language and not (enc and c.enc_cls_agn):
+            if enc:
+                return self.enc_out_class_embed(h, text_embed, self.logit_scale)
+            return self.class_embed(h, text_embed, self.logit_scale, proj=self.vl_proj)
         k = self.enc_cls_kernel if enc else self.cls_kernel
         bias = self.enc_cls_bias if enc else self.cls_bias
         return h.float() @ k + bias
@@ -554,6 +607,7 @@ class DINO(nn.Module):
         text_embed: Optional[torch.Tensor] = None,  # [C, clip_embed_dim]
         clip_features: Optional[torch.Tensor] = None,
         train: bool = False,
+        dropout_generator: Optional[torch.Generator] = None,
     ) -> Dict[str, Any]:
         c = self.cfg
         images = images.to(c.compute_dtype)
@@ -564,7 +618,7 @@ class DINO(nn.Module):
         return self.detect(feats, pad_mask, dn_labels=dn_labels,
                            dn_boxes_unsig=dn_boxes_unsig, dn_attn_mask=dn_attn_mask,
                            text_embed=text_embed, clip_features=clip_features,
-                           train=train)
+                           train=train, dropout_generator=dropout_generator)
 
     def detect(
         self,
@@ -576,19 +630,28 @@ class DINO(nn.Module):
         text_embed: Optional[torch.Tensor] = None,
         clip_features: Optional[torch.Tensor] = None,
         train: bool = False,
+        dropout_generator: Optional[torch.Generator] = None,
     ) -> Dict[str, Any]:
         """Input projections -> transformer -> heads, from backbone features.
 
         With ``train`` the output also holds ``offset_beyond_margin`` (where the
         encoder's windowed-kernel rule applies), and with DN inputs the DN
-        queries' outputs under ``dn_outputs``."""
+        queries' outputs under ``dn_outputs``. Dropout in training draws its
+        masks from ``dropout_generator``. ``clip_features`` (the teacher's
+        spatial map ``[B, h, w, Dv]``) feeds the content queries under
+        ``use_clip_visual_query``."""
         c = self.cfg
-        if clip_features is not None:
-            raise _not_ported("CLIP query features", "item 11")
         if (dn_labels is None) != (dn_boxes_unsig is None):
             raise ValueError("dn_labels and dn_boxes_unsig come together")
+        gen = None
         if train and c.dropout > 0.0:
-            raise _not_ported("dropout in training", "item 11")
+            if dropout_generator is None:
+                raise ValueError("dropout in training draws its masks from a generator: pass "
+                                 "dropout_generator")
+            if c.use_checkpoint or c.enc_selective_remat:
+                raise ValueError("dropout in training and use_checkpoint or enc_selective_remat: "
+                                 "a recomputed layer would draw other masks")
+            gen = dropout_generator
         b = pad_mask.shape[0]
 
         # ---- projections (the extra level comes from feats[-1]) --------
@@ -625,7 +688,7 @@ class DINO(nn.Module):
                     monitor.extend(seen)
             else:
                 memory = layer(memory, pos_flat, enc_ref, spatial_shapes, mask_flat,
-                               monitor=monitor)
+                               monitor=monitor, generator=gen)
 
         # ---- two-stage query selection ----------------------------------
         out_memory, out_props_unsig, prop_valid = gen_encoder_output_proposals(
@@ -659,6 +722,17 @@ class DINO(nn.Module):
             refpoints_unsig = torch.cat([dn_boxes_unsig.float(), refpoints_unsig], dim=1)
         self_attn_mask = None if dn_attn_mask is None else dn_attn_mask[:, None]
 
+        if c.use_clip_visual_query and clip_features is not None:
+            # content queries from 1x1 RoIs of the teacher's map at the (DN and
+            # two-stage) reference boxes; 0 * tgt keeps the embeddings in the graph
+            gh, gw = clip_features.shape[1:3]
+            x0, y0, x1, y1 = box_cxcywh_to_xyxy(
+                torch.sigmoid(refpoints_unsig)).clamp(0.0, 1.0).unbind(-1)
+            q_boxes = torch.stack([x0 * gw, y0 * gh, x1 * gw, y1 * gh], -1)  # the map's pixels
+            rois = roi_align(clip_features.detach().float(), q_boxes, output_size=1,
+                             sampling_ratio=2, method="auto")
+            tgt = self.clip_query_proj(rois[:, :, 0, 0, :]) + 0.0 * tgt
+
         # ---- decoder with iterative box refinement ----------------------
         ref = torch.sigmoid(refpoints_unsig)  # [B, QT, 4]
         references = [ref]
@@ -674,7 +748,7 @@ class DINO(nn.Module):
             if grad and c.use_checkpoint:
                 tgt = remat(layer, *args, saved=DOTS)
             else:
-                tgt = layer(*args)
+                tgt = layer(*args, generator=gen)
             # refinement uses the un-normed layer output; the heads the normed one
             delta = self.bbox_embed(tgt).float()
             new_ref = torch.sigmoid(delta + inverse_sigmoid(ref))
@@ -690,20 +764,33 @@ class DINO(nn.Module):
         logit_stack = self._class_logits(hs_stack, text_embed)
 
         out: Dict[str, Any] = {}
-        clip_logits = None
+        clip_logits = ch_stack = cl_stack = None
         if c.use_visual_distill:
-            clip_hs = l2_normalize(self.clip_visual_proj(hs_stack[-1]).float())
-            out["pred_clip_embed"] = clip_hs[:, num_dn:]
+            # every layer's CLIP outputs when two_stage_cls (training) or
+            # distill_aux_layers reads them, else the last layer's
+            need_all = (c.two_stage_cls and train) or c.distill_aux_layers
+            sel = hs_stack if need_all else hs_stack[-1:]
+            ch_stack = l2_normalize(self.distill_proj()(sel).float())
+            out["pred_clip_embed"] = ch_stack[-1, :, num_dn:]
             if text_embed is not None:
                 t = l2_normalize(text_embed.float())
-                clip_logits = torch.exp(self.logit_scale) * (clip_hs @ t.t())
+                cl_stack = torch.exp(self.logit_scale) * (ch_stack @ t.t())
+                clip_logits = cl_stack[-1]
                 out["pred_clip_logits"] = clip_logits[:, num_dn:]
+        if c.two_stage_cls and train and cl_stack is not None:
+            # the detached CLIP class probabilities join every layer's logits
+            logit_stack = logit_stack + inverse_sigmoid(torch.softmax(cl_stack.detach(), -1))
         out["pred_logits"] = logit_stack[-1, :, num_dn:]
         out["pred_boxes"] = coord_stack[-1, :, num_dn:]
         out["aux_outputs"] = [
             {"pred_logits": lg[:, num_dn:], "pred_boxes": cd[:, num_dn:]}
             for lg, cd in zip(logit_stack[:-1], coord_stack[:-1])
         ]
+        if c.distill_aux_layers and ch_stack is not None:
+            for lid, aux in enumerate(out["aux_outputs"]):
+                aux["pred_clip_embed"] = ch_stack[lid, :, num_dn:]
+                if cl_stack is not None:
+                    aux["pred_clip_logits"] = cl_stack[lid, :, num_dn:]
         if num_dn:
             out["dn_outputs"] = {
                 "pred_logits": logit_stack[-1, :, :num_dn],

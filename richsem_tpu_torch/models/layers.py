@@ -55,6 +55,17 @@ def xavier_uniform_(w: torch.Tensor, g: torch.Generator) -> None:
     w.copy_((2.0 * u - 1.0) * limit)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``nn.Dropout(rate)``: each element kept with probability ``1 - rate`` and
+    scaled by its inverse, the mask drawn from ``generator`` on ``x``'s device
+    (a uniform below ``1 - rate`` keeps); ``generator`` None (inference, or
+    deterministic) or ``rate`` 0 returns ``x``."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), x.new_zeros(()))
+
+
 def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``jnp.clip``: the same values as ``clamp``, and the same gradient, which
     is 1/2 at a value equal to a bound (``clamp`` gives 1 there)."""
@@ -308,15 +319,18 @@ class MSDeformAttn(nn.Module):
 class MultiHeadAttention(nn.Module):
     """``nn.MultiHeadDotProductAttention`` with ``dtype``: q/k/v/out projections and
     the attention in ``dtype``, q scaled by 1/sqrt(head_dim) before the product;
-    ``mask`` True means attend."""
+    ``mask`` True means attend. With a ``generator`` the attention weights take
+    dropout at ``dropout_rate`` (flax's ``dropout_rate``, in training)."""
 
-    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, device=None):
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, device=None,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
         for name in ("query", "key", "value", "out"):
             self.add_module(name, Dense(dim, dim, dtype=dtype, device=device))
 
-    def forward(self, inputs_q, inputs_k, inputs_v, mask=None):
+    def forward(self, inputs_q, inputs_k, inputs_v, mask=None, generator=None):
         b, lq, d = inputs_q.shape
         h = self.num_heads
         q = self.query(inputs_q).reshape(b, lq, h, d // h)
@@ -326,7 +340,7 @@ class MultiHeadAttention(nn.Module):
         w = torch.einsum("bqhd,bkhd->bhqk", q, k)
         if mask is not None:
             w = w.masked_fill(~mask, torch.finfo(w.dtype).min)
-        w = torch.softmax(w, dim=-1)
+        w = dropout(torch.softmax(w, dim=-1), self.dropout_rate, generator)
         out = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, lq, d)
         return self.out(out)
 
@@ -358,19 +372,24 @@ class InputProj(nn.Module):
 
 
 class FFN(nn.Module):
-    """Feed-forward block with residual + LayerNorm (linear1/linear2 in ``compute_dtype``)."""
+    """Feed-forward block with residual + LayerNorm (linear1/linear2 in
+    ``compute_dtype``): relu or flax's ``nn.gelu`` (the tanh form, one pass),
+    and with a ``generator`` dropout after the activation and after linear2."""
 
     def __init__(self, d_model: int, d_ffn: int, activation: str = "relu",
-                 compute_dtype: torch.dtype = torch.float32, device=None):
+                 compute_dtype: torch.dtype = torch.float32, device=None,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.act = {"relu": torch.relu,
                     "gelu": lambda t: F.gelu(t, approximate="tanh")}[activation]
         self.linear1 = Dense(d_model, d_ffn, dtype=compute_dtype, device=device)
         self.linear2 = Dense(d_ffn, d_model, dtype=compute_dtype, device=device)
         self.norm = LayerNorm(d_model, 1e-5, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.linear2(self.act(self.linear1(x)))
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        h = dropout(self.act(self.linear1(x)), self.dropout_rate, generator)
+        h = dropout(self.linear2(h), self.dropout_rate, generator)
         return self.norm(x + h)
 
     def init_weights(self, g: torch.Generator) -> None:

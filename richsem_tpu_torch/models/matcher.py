@@ -2,15 +2,19 @@
 
 ``match_cost_matrix`` builds the ``HungarianMatcher`` cost (focal class cost
 at each GT's label + L1 + GIoU) as a padded ``[B, G, nq]`` tensor; ``match``
-solves it with the auction of :mod:`richsem_tpu_torch.ops.lap`, or takes each
-row's argmin (``SimpleMinsumMatcher``). Matching is not differentiated.
+solves it with the auction of :mod:`richsem_tpu_torch.ops.lap` (K4 on the
+card), exactly on the host with SciPy (``HungarianMatcherCPU``, which a CUDA
+graph cannot hold), or takes each row's argmin (``SimpleMinsumMatcher``). The
+many-to-one ``OptMatcher`` is :mod:`richsem_tpu_torch.models.ota_matcher`,
+which the criterion calls itself. Matching is not differentiated.
 """
 
 from __future__ import annotations
 
 import torch
 
-from richsem_tpu_torch.ops.lap import batched_min_cost_assignment, greedy_assignment
+from richsem_tpu_torch.ops.lap import (batched_min_cost_assignment, greedy_assignment,
+                                      scipy_assignment)
 from richsem_tpu_torch.utils import boxes as box_ops
 
 
@@ -67,7 +71,6 @@ def match(
         return batched_min_cost_assignment(cost, gt_valid)
     if matcher_type == "SimpleMinsumMatcher":
         return greedy_assignment(cost, gt_valid)
-    if matcher_type in ("HungarianMatcherCPU", "OptMatcher"):
-        raise NotImplementedError(
-            f"matcher_type {matcher_type!r} is not ported yet (ROADMAP.md queue 1, item 11)")
+    if matcher_type == "HungarianMatcherCPU":
+        return scipy_assignment(cost, gt_valid)
     raise ValueError(f"unknown matcher_type {matcher_type!r}")

@@ -21,6 +21,11 @@ unassigned after the coarsest attempt takes its best free object greedily.
   is false, which is what the vmapped loop does. Its loop is host-driven (it
   reads whether any element still runs every round) and adds its rounds to
   ``batched_min_cost_assignment.rounds``.
+
+:func:`scipy_assignment` is ``HungarianMatcherCPU``'s exact solver: SciPy's
+``linear_sum_assignment`` on a host copy of the cost, as JAX's
+``pure_callback`` runs it (``lap.py:243-270``). Its host read cannot sit in a
+CUDA graph: it raises while the current stream captures.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from richsem_tpu_torch.ops import _build
@@ -249,3 +255,24 @@ def greedy_assignment(cost: torch.Tensor, row_valid: torch.Tensor) -> torch.Tens
     """Row-argmin matcher, collisions allowed (``SimpleMinsumMatcher``)."""
     idx = torch.where(row_valid[..., None], cost, float("inf")).argmin(-1)
     return torch.where(row_valid, idx, -1)
+
+
+@torch.no_grad()
+def scipy_assignment(cost: torch.Tensor, row_valid: torch.Tensor) -> torch.Tensor:
+    """Exact min-cost assignment on the host: ``cost [B, P, O]``, ``row_valid
+    [B, P]`` -> column per row ``[B, P]`` on ``cost``'s device (-1 where
+    invalid), each image's valid rows through ``linear_sum_assignment``."""
+    from scipy.optimize import linear_sum_assignment
+
+    if cost.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("HungarianMatcherCPU reads the cost on the host, which a CUDA graph "
+                           "cannot hold: take this step eagerly")
+    c = cost.float().cpu().numpy()
+    valid = row_valid.cpu().numpy()
+    out = np.full(c.shape[:2], -1, np.int64)
+    for b in range(c.shape[0]):
+        rows = np.nonzero(valid[b])[0]
+        if len(rows):
+            r, col = linear_sum_assignment(c[b, rows])
+            out[b, rows[r]] = col
+    return torch.from_numpy(out).to(cost.device)

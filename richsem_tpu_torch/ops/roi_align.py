@@ -17,8 +17,11 @@ the product runs in float32 with TF32 off, as JAX runs it at
 ``Precision.HIGHEST``. ``torch.bmm`` is the product: a plain matrix product
 outside any kernel.
 
-The ``gather`` method and a static ``sampling_ratio`` are not ported
-(ROADMAP.md queue 1, item 11).
+A static ``sampling_ratio`` (``n`` samples a bin and axis, every one at
+weight ``1 / n``, as the visual-query crop of ``use_clip_visual_query``
+takes them) uses the same matrix with ``nmax = n``. ``method="auto"`` is the
+matmul path on a map of at most ``MATMUL_MAX_GRID`` cells, as in JAX; the
+``gather`` method is not ported (ROADMAP.md queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -27,12 +30,19 @@ import math
 
 import torch
 
+MATMUL_MAX_GRID = 2048  # JAX's _MATMUL_MAX_GRID: "auto" takes the matmul path up to here
 
-def _axis_weights(start, bin_sz, extent, size: int, nmax: int, o: int) -> torch.Tensor:
+
+def _axis_weights(start, bin_sz, extent, size: int, nmax: int, o: int,
+                  adaptive: bool = True) -> torch.Tensor:
     """-> [B, R, o, size]: the interpolation weights of one axis, each bin's
-    samples folded with their average."""
+    samples folded with their average (``adaptive``: ``ceil(extent / o)``
+    samples, else ``nmax``)."""
     dev = start.device
-    ng = torch.clamp(torch.ceil(extent / o), 1.0, float(nmax))  # [B, R]
+    if adaptive:
+        ng = torch.clamp(torch.ceil(extent / o), 1.0, float(nmax))  # [B, R]
+    else:
+        ng = torch.full_like(extent, float(nmax))
     j = torch.arange(nmax, dtype=torch.float32, device=dev)
     active = j < ng[..., None]  # [B, R, nmax]
     frac = (j + 0.5) / ng[..., None]
@@ -40,8 +50,8 @@ def _axis_weights(start, bin_sz, extent, size: int, nmax: int, o: int) -> torch.
     coord = start[..., None, None] + bin_sz[..., None, None] * (
         bins[:, None] + frac[..., None, :])  # [B, R, o, nmax]
     samp_w = torch.where(active, 1.0 / ng[..., None], 0.0)
-    # an extent <= 0 runs no sample in detectron2 and gives 0 / max(count, 1)
-    samp_w = samp_w * (extent > 0.0)[..., None]
+    if adaptive:  # an extent <= 0 runs no sample in detectron2: 0 / max(count, 1)
+        samp_w = samp_w * (extent > 0.0)[..., None]
     c0 = torch.floor(coord)
     d = coord - c0
     c0i = c0.long()
@@ -63,20 +73,25 @@ def roi_align(
 ) -> torch.Tensor:
     """Crop-and-resize ``boxes`` from ``features`` -> ``[B, R, o, o, C]`` in the
     features' dtype."""
-    if method != "matmul" or sampling_ratio != 0:
-        raise NotImplementedError(
-            f"roi_align(method={method!r}, sampling_ratio={sampling_ratio}) is not "
-            "ported to richsem_tpu_torch yet (ROADMAP.md queue 1, item 11); the "
-            "teacher uses method='matmul', sampling_ratio=0")
     b, h, w, c = features.shape
+    if method == "auto" and h * w <= MATMUL_MAX_GRID:
+        method = "matmul"
+    if method != "matmul":
+        raise NotImplementedError(
+            f"roi_align(method={method!r}) on a {h}x{w} map is not ported to "
+            "richsem_tpu_torch yet (ROADMAP.md queue 1, item 11); the port has the "
+            "matmul path")
     r = boxes.shape[1]
     o = output_size
     bx = boxes.float() * spatial_scale
     ext_w = bx[..., 2] - bx[..., 0]
     ext_h = bx[..., 3] - bx[..., 1]
     # a box never exceeds the map, so ceil(map / o) bounds the adaptive count
-    ay = _axis_weights(bx[..., 1] - 0.5, ext_h / o, ext_h, h, max(1, math.ceil(h / o)), o)
-    ax = _axis_weights(bx[..., 0] - 0.5, ext_w / o, ext_w, w, max(1, math.ceil(w / o)), o)
+    ada = sampling_ratio == 0
+    ny = max(1, math.ceil(h / o)) if ada else sampling_ratio
+    nx = max(1, math.ceil(w / o)) if ada else sampling_ratio
+    ay = _axis_weights(bx[..., 1] - 0.5, ext_h / o, ext_h, h, ny, o, ada)
+    ax = _axis_weights(bx[..., 0] - 0.5, ext_w / o, ext_w, w, nx, o, ada)
     wmat = torch.einsum("briy,brjx->brijyx", ay, ax).reshape(b, r * o * o, h * w)
     wmat = wmat.to(features.dtype)
     prev = torch.backends.cuda.matmul.allow_tf32

@@ -318,6 +318,19 @@ class _Average:
 average_ = _Average()
 
 
+def union_(mask: torch.Tensor, d: Dist) -> torch.Tensor:
+    """The union over the ranks of a bool ``mask``: one all-reduce (MAX) of its
+    int32 copy. The many-to-one criterion's federated classes (the classes its
+    queries were assigned) read it."""
+    buf = mask.to(torch.int32)
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=d.group)
+    union_.calls += 1
+    return buf.bool()
+
+
+union_.calls = 0  # its collectives, a set's federated classes each
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))

@@ -78,15 +78,21 @@ def draw_batch(batch_size: int, canvas: Tuple[int, int] = CANVAS) -> Dict[str, n
             "orig_size": np.asarray([[640, 480]] * batch_size, np.int32)}
 
 
-def build_eval(cfg, device):
-    """-> (model, eval_step): the detector from seed 0 and its inference step."""
+def build_eval(cfg, device, teacher=None):
+    """-> (model, eval_step): the detector from seed 0 and its inference step;
+    under ``use_clip_visual_query`` with the teacher (``teacher``, or the
+    random bf16 RN50 one from seed 2, as ``bench.py:build_train`` seeds it)."""
     import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
     from richsem_tpu_torch.models import build_model
+    from richsem_tpu_torch.models.build import build_clip_teacher
     from richsem_tpu_torch.train.engine import make_eval_step
 
     model, _, _ = build_model("richsem", cfg, device=device,
                               generator=torch.Generator(device=device).manual_seed(0))
-    return model, make_eval_step(model, cfg)
+    if teacher is None and getattr(cfg, "use_clip_visual_query", False):
+        teacher = build_clip_teacher(cfg, dtype=torch.bfloat16, device=device,
+                                     generator=torch.Generator(device=device).manual_seed(2))
+    return model, make_eval_step(model, cfg, teacher)
 
 
 def bench_point(batch_size: int, canvas, eval_step, text: torch.Tensor, device: torch.device,

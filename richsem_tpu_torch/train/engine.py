@@ -29,6 +29,7 @@ canvas, by which the normalized boxes are scaled for the RoI crops.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -46,9 +47,9 @@ from richsem_tpu_torch.models.criterion import (
     set_criterion,
     weighted_loss,
 )
-from richsem_tpu_torch.models.dn import cdn_draws, prepare_cdn
+from richsem_tpu_torch.models.dn import cdn_draws, cdn_pad, prepare_cdn
 from richsem_tpu_torch.models.postprocess import postprocess
-from richsem_tpu_torch.parallel.dist import STAT_KEYS, Dist, average_, tensor_stats
+from richsem_tpu_torch.parallel.dist import STAT_KEYS, Dist, average_, tensor_stats, union_
 from richsem_tpu_torch.train.optim import AdamW, ema_init, ema_update, frozen_leaves
 
 # JAX's metric keys (engine.py:301-311), and the DN distillation term
@@ -60,48 +61,64 @@ def _use_dn(cfg) -> bool:
     return bool(cfg.use_dn and cfg.dn_number > 0)
 
 
+def dn_group_mode(cfg) -> bool:
+    """CDN's group-count branch: ``0 < dn_number < 50`` (unless a test forces
+    the budget branch with ``dn_force_budget``), as JAX's ``make_loss_fn``."""
+    return 0 < cfg.dn_number < 50 and not getattr(cfg, "dn_force_budget", False)
+
+
 def step_draws(cfg, batch_size: int, generator: torch.Generator,
-               device="cuda") -> Dict[str, Any]:
-    """One step's random draws: ``dn`` (the four CDN tensors, with DN on) and
+               device="cuda", gt_slots: int = 0) -> Dict[str, Any]:
+    """One step's random draws: ``dn`` (the four CDN tensors, with DN on, for
+    the pad of ``gt_slots`` GT slots an image in the group-count branch) and
     ``fed_uniforms [16, C]`` (with the federated loss on)."""
     draws: Dict[str, Any] = {}
     if _use_dn(cfg):
+        if dn_group_mode(cfg) and gt_slots < 1:
+            raise ValueError("the CDN group-count branch sizes its draws by the GT slots: "
+                             "pass gt_slots")
+        pad = cdn_pad(cfg.dn_number, gt_slots, dn_group_mode(cfg))
         draws["dn"] = cdn_draws(batch_size, cfg.dn_number, cfg.num_classes, generator,
-                                device=device)
+                                device=device, pad=pad)
     if cfg.use_fed_loss:
         draws["fed_uniforms"] = torch.rand((16, cfg.num_classes), generator=generator,
                                            device=device)
     return draws
 
 
-def make_loss_fn(model, cfg, clip_model=None, world_size: int = 1
+def make_loss_fn(model, cfg, clip_model=None, world_size: int = 1, dist: Optional[Dist] = None
                  ) -> Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
-    """-> ``loss_fn(batch, draws, text_embed=None) -> (total, losses)``.
+    """-> ``loss_fn(batch, draws, text_embed=None, dropout_generator=None) ->
+    (total, losses)``.
 
     ``clip_model`` is the frozen teacher (``models/build.py:build_clip_teacher``),
-    which ``use_visual_distill`` needs. The loss reads the global batch's
+    which ``use_visual_distill`` needs; under ``use_clip_visual_query`` its
+    spatial map also feeds the detector's content queries. Dropout in training
+    draws its masks from ``dropout_generator``. The loss reads the global batch's
     statistics (:data:`STAT_KEYS`): those the batch carries from the ranks'
     host collective (``parallel/dist.py:step_stats``), which ``world_size``
     above 1 requires, else the batch's own. It is this rank's share of the
     loss of the global batch (each batch-global normaliser over
-    ``world_size``)."""
-    if getattr(cfg, "use_clip_visual_query", False):
-        raise NotImplementedError(
-            "use_clip_visual_query is not ported to richsem_tpu_torch yet (ROADMAP.md "
-            "queue 1, item 11)")
+    ``world_size``). Under ``OptMatcher`` with the federated loss, the classes
+    its queries were assigned are united over the ranks of ``dist``
+    (``parallel/dist.py:union_``), a second collective of the step."""
     use_teacher = bool(getattr(cfg, "use_visual_distill", False))
     if use_teacher and clip_model is None:
         raise ValueError("use_visual_distill needs the CLIP teacher: pass clip_model "
                          "(models/build.py:build_clip_teacher)")
     distill_type = cfg.distill_type if use_teacher else ""
     objective = getattr(cfg, "clip_distill_objective", "gt")
+    distill_aux = getattr(cfg, "distill_aux_layers", False)
+    if distill_aux and objective != "gt":
+        raise NotImplementedError("distill_aux_layers requires clip_distill_objective='gt'")
+    use_clip_query = use_teacher and getattr(cfg, "use_clip_visual_query", False)
     weight_dict = build_weight_dict(cfg)
     use_dn = _use_dn(cfg)
+    group_mode = use_dn and dn_group_mode(cfg)
+    union = None
+    if dist is not None and dist.active:
+        union = functools.partial(union_, d=dist)
     monitor_offsets = getattr(cfg, "monitor_msda_offsets", False)
-    if use_dn and 0 < cfg.dn_number < 50 and not getattr(cfg, "dn_force_budget", False):
-        raise NotImplementedError(
-            "the CDN group-count branch (dn_number < 50) is not ported yet "
-            "(ROADMAP.md queue 1, item 11)")
     # the teacher's weak labels rewrite extra images' boxes on the device, past
     # the host's statistics
     weak_labels = use_teacher and bool(getattr(cfg, "use_imagenet_pusedo_labels", False))
@@ -150,7 +167,8 @@ def make_loss_fn(model, cfg, clip_model=None, world_size: int = 1
                              f"{STAT_KEYS} in the batch (parallel/dist.py:step_stats)")
         return tensor_stats(batch, cfg)
 
-    def loss_fn(batch, draws, text_embed=None):
+    def loss_fn(batch, draws, text_embed=None, dropout_generator=None):
+        spatial = None
         if use_teacher:
             batch, spatial = teacher_targets(batch, text_embed)
         stats = global_stats(batch)
@@ -160,7 +178,7 @@ def make_loss_fn(model, cfg, clip_model=None, world_size: int = 1
                 batch["labels"], batch["boxes"], batch["valid"], draws["dn"],
                 stats["gt_max"], dn_number=cfg.dn_number, label_noise_ratio=cfg.dn_label_noise_ratio,
                 box_noise_scale=cfg.dn_box_noise_scale, num_queries=cfg.num_queries,
-                check_pos_dn=cfg.check_pos_dn,
+                check_pos_dn=cfg.check_pos_dn, group_mode=group_mode,
             )
             dn_args = dict(dn_labels=dn_labels, dn_boxes_unsig=dn_boxes_unsig,
                            dn_attn_mask=dn_attn)
@@ -168,7 +186,8 @@ def make_loss_fn(model, cfg, clip_model=None, world_size: int = 1
                                         dn_meta, gt_clip_logits=batch.get("clip_logits"),
                                         gt_clip_valid=batch.get("clip_valid"))
         outputs = model(batch["images"], batch["pad_mask"], text_embed=text_embed,
-                        train=True, **dn_args)
+                        clip_features=spatial if use_clip_query else None, train=True,
+                        dropout_generator=dropout_generator, **dn_args)
         if use_teacher and objective in ("pred", "pred_all"):
             # the teacher rescoring the predicted boxes (richsem.py:492-519)
             _, outputs["teacher_clip_logits"], _ = clip_teacher_box_targets(
@@ -177,7 +196,7 @@ def make_loss_fn(model, cfg, clip_model=None, world_size: int = 1
         targets = {k: batch[k] for k in ("labels", "boxes", "valid", "clip_logits",
                                          "clip_embed", "clip_valid") if k in batch}
         losses = set_criterion(
-            outputs, targets, GlobalStats.of(stats, world_size), num_classes=cfg.num_classes,
+            outputs, targets, GlobalStats.of(stats, world_size, union), num_classes=cfg.num_classes,
             fed_uniforms=draws.get("fed_uniforms"), focal_alpha=cfg.focal_alpha,
             cost_class=cfg.set_cost_class, cost_bbox=cfg.set_cost_bbox,
             cost_giou=cfg.set_cost_giou, matcher_type=cfg.matcher_type,
@@ -187,7 +206,7 @@ def make_loss_fn(model, cfg, clip_model=None, world_size: int = 1
             clip_distill_objective=objective,
             use_dynamic_distill_weight=getattr(cfg, "use_dynamic_distill_weight", False),
             dn_meta=dn_meta, enc_cls_agn=getattr(cfg, "enc_cls_agn", False),
-            distill_aux_layers=getattr(cfg, "distill_aux_layers", False),
+            distill_aux_layers=distill_aux,
         )
         weight_mask = None
         if batch.get("is_extra") is not None:
@@ -221,16 +240,23 @@ def create_train_state(model, optimizer: AdamW, use_ema: bool = False) -> TrainS
     return TrainState(0, model, optimizer, ema_init(model) if use_ema else None)
 
 
-def eval_forward(model, cfg, batch, text_embed=None) -> Dict[str, torch.Tensor]:
+def eval_forward(model, cfg, batch, text_embed=None, clip_model=None) -> Dict[str, torch.Tensor]:
     """The eval step's body: inference forward + PostProcess. It runs as it is
-    on the CPU; on the card a CUDA graph of it is replayed (:class:`EvalStep`)."""
-    outputs = model(batch["images"], batch["pad_mask"], text_embed=text_embed)
+    on the CPU; on the card a CUDA graph of it is replayed (:class:`EvalStep`).
+    With ``use_clip_visual_query`` the teacher's spatial map of the images
+    (``clip_model``) feeds the content queries, as in training."""
+    clip_features = None
+    if getattr(cfg, "use_clip_visual_query", False):
+        clip_features = clip_spatial_features(clip_model, batch["images"])
+    outputs = model(batch["images"], batch["pad_mask"], text_embed=text_embed,
+                    clip_features=clip_features)
     return postprocess(
         outputs["pred_logits"], outputs["pred_boxes"], batch["orig_size"],
         num_select=cfg.num_select, nms_iou_threshold=cfg.nms_iou_threshold,
     )
 
 
+DROPOUT_SEED = 1 << 40  # dropout's generator seeds apart from the draws' (TrainStep)
 GRAPH_INPUTS = ("images", "pad_mask", "orig_size")  # the batch's fields the step reads
 
 
@@ -285,6 +311,7 @@ class _Graphs:
     def __init__(self):
         self.graphs: Dict[tuple, _Graph] = {}
         self._pool = None
+        self.generators: Tuple[torch.Generator, ...] = ()
 
     def reset(self) -> None:
         """Drop every graph (and with the last one, the pool's memory)."""
@@ -303,11 +330,15 @@ class _Graphs:
 
     def _capture_into(self, key, what: str, body: Callable[[], Dict[str, torch.Tensor]]):
         """Capture ``body()`` into a new graph of the shared pool -> (graph, its
-        outputs, the launches it holds); a failed capture raises with ``key``."""
+        outputs, the launches it holds); a failed capture raises with ``key``.
+        ``self.generators`` (dropout's) are registered with the graph, so that
+        a replay draws from their state at the replay."""
         try:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             graph, out = torch.cuda.CUDAGraph(), {}
+            for gen in self.generators:
+                graph.register_generator_state(gen)
 
             def capture():
                 with torch.cuda.graph(graph, pool=self._pool):
@@ -339,7 +370,8 @@ def _side_stream_run(fn: Callable[[], Any]) -> Any:
 
 class EvalStep(_Graphs):
     """``eval_step(batch, text_embed=None)``: inference forward + PostProcess
-    (:func:`eval_forward`).
+    (:func:`eval_forward`), with the teacher's spatial pass under
+    ``use_clip_visual_query`` (``clip_model``).
 
     On the card it keeps one ``torch.cuda.CUDAGraph`` for each
     :func:`graph_key`, as JAX compiles its jitted step once a shape. The first
@@ -354,14 +386,17 @@ class EvalStep(_Graphs):
     (their deltas at capture). On the CPU the body runs as it is.
     """
 
-    def __init__(self, model, cfg):
+    def __init__(self, model, cfg, clip_model=None):
         super().__init__()
-        self.model, self.cfg = model, cfg
+        self.model, self.cfg, self.clip_model = model, cfg, clip_model
+
+    def _body(self, batch, text_embed):
+        return eval_forward(self.model, self.cfg, batch, text_embed, self.clip_model)
 
     def __call__(self, batch, text_embed=None) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
             if not _on_card(batch):
-                return eval_forward(self.model, self.cfg, batch, text_embed)
+                return self._body(batch, text_embed)
             key = graph_key(batch, text_embed)
             g = self.graphs.get(key) or self._capture(key, batch, text_embed)
             for k, buf in g.inputs.items():
@@ -376,9 +411,9 @@ class EvalStep(_Graphs):
         t0 = time.perf_counter()
         inputs = {k: batch[k].clone() for k in GRAPH_INPUTS}
         text = None if text_embed is None else text_embed.clone()
-        _side_stream_run(lambda: eval_forward(self.model, self.cfg, inputs, text))
-        graph, out, launches = self._capture_into(
-            key, "eval step", lambda: eval_forward(self.model, self.cfg, inputs, text))
+        _side_stream_run(lambda: self._body(inputs, text))
+        graph, out, launches = self._capture_into(key, "eval step",
+                                                  lambda: self._body(inputs, text))
         g = _Graph(graph, inputs, text, out, launches, (time.perf_counter() - t0) * 1e3)
         self.graphs[key] = g
         return g
@@ -451,6 +486,14 @@ class TrainStep(_Graphs):
     warm-up runs it eagerly, the capture records it and launches nothing, and
     a replay runs the recorded one, so ranks may warm up and replay in the
     same step.
+
+    Dropout in training (``cfg.dropout > 0``) draws its masks from the step's
+    own generator, seeded in the host part from ``(seed, state.step)`` and
+    the rank, and registered with each graph, so each replay draws anew.
+
+    ``HungarianMatcherCPU`` reads the cost on the host, which a CUDA graph
+    cannot hold: on the card such a step raises, naming the matcher, and the
+    caller takes :meth:`eager` steps.
     """
 
     def __init__(self, model, cfg, seed: int = 0, device="cuda", clip_model=None,
@@ -458,18 +501,30 @@ class TrainStep(_Graphs):
         super().__init__()
         self.model, self.cfg, self.seed, self.device = model, cfg, seed, device
         self.dist = dist or Dist()
-        self.loss_fn = make_loss_fn(model, cfg, clip_model, world_size=self.dist.world)
+        self.loss_fn = make_loss_fn(model, cfg, clip_model, world_size=self.dist.world,
+                                    dist=self.dist)
         self.buffers = [b for _, b in frozen_leaves(model)]
         self.reduce_bytes = 0  # the averaged buffer's bytes, once a step has run
+        self.dropout_generator = None
+        if getattr(cfg, "dropout", 0.0) > 0:
+            self.dropout_generator = torch.Generator(device=device)
+            self.generators = (self.dropout_generator,)
 
-    def draws(self, state: TrainState, batch_size: int) -> Dict[str, Any]:
+    def _seed_dropout(self, state: TrainState) -> None:
+        """Seed dropout's generator for this step (and rank)."""
+        if self.dropout_generator is not None:
+            self.dropout_generator.manual_seed(
+                (self.seed * 1_000_003 + state.step) + DROPOUT_SEED * (1 + self.dist.rank))
+
+    def draws(self, state: TrainState, batch_size: int, gt_slots: int = 0) -> Dict[str, Any]:
         """The step's draws, from a generator seeded with ``(seed, state.step)``:
-        those of the global batch of ``batch_size`` images a rank, of which the
-        rank keeps its own rows, so that N ranks draw what one process with
-        the global batch draws."""
+        those of the global batch of ``batch_size`` images a rank (of
+        ``gt_slots`` GT slots each), of which the rank keeps its own rows, so
+        that N ranks draw what one process with the global batch draws."""
         g = torch.Generator(device=self.device).manual_seed(self.seed * 1_000_003 + state.step)
         d = self.dist
-        draws = step_draws(self.cfg, batch_size * d.world, g, device=self.device)
+        draws = step_draws(self.cfg, batch_size * d.world, g, device=self.device,
+                           gt_slots=gt_slots)
         if d.world > 1 and "dn" in draws:
             rows = slice(d.rank * batch_size, (d.rank + 1) * batch_size)
             draws["dn"] = {k: v[rows] for k, v in draws["dn"].items()}
@@ -513,7 +568,9 @@ class TrainStep(_Graphs):
         for b in self.buffers:  # gradients of the frozen tensors enter the global norm
             b.requires_grad_(True)
         try:
-            total, losses = self.loss_fn(batch, draws, text_embed)
+            kw = {} if self.dropout_generator is None else {
+                "dropout_generator": self.dropout_generator}
+            total, losses = self.loss_fn(batch, draws, text_embed, **kw)
             total.backward()
         finally:
             for b in self.buffers:
@@ -533,8 +590,9 @@ class TrainStep(_Graphs):
     def eager(self, state: TrainState, batch, text_embed=None, draws=None):
         """One step run as it is: the host part around :meth:`body`."""
         if draws is None:
-            draws = self.draws(state, batch["labels"].shape[0])
+            draws = self.draws(state, *batch["labels"].shape)
         state.optimizer.prepare()
+        self._seed_dropout(state)
         metrics = self.body(state, batch, draws, text_embed)
         state.optimizer.advance()
         state.step += 1
@@ -543,8 +601,12 @@ class TrainStep(_Graphs):
     def __call__(self, state: TrainState, batch, text_embed=None, draws=None):
         if not _on_card(batch):
             return self.eager(state, batch, text_embed, draws)
+        if self.cfg.matcher_type == "HungarianMatcherCPU":  # its host read: no graph
+            raise RuntimeError(
+                f"train step: matcher_type {self.cfg.matcher_type!r} reads the cost on the "
+                "host, which a CUDA graph cannot hold; take eager steps (TrainStep.eager)")
         if draws is None:
-            draws = self.draws(state, batch["labels"].shape[0])
+            draws = self.draws(state, *batch["labels"].shape)
         key = train_graph_key(batch, text_embed, state.ema is not None)
         g = self.graphs.get(key)
         if g is None:
@@ -558,6 +620,7 @@ class TrainStep(_Graphs):
         if g.text is not None:
             g.text.copy_(text_embed)
         state.optimizer.prepare()
+        self._seed_dropout(state)
         g.graph.replay()
         add_launches(_step_counters(), g.launches)
         state.optimizer.advance()
@@ -604,18 +667,18 @@ def _step_counters() -> Dict[str, Any]:
     return dict(_launch_counters(), grad_average=average_)
 
 
-def make_eval_step(model, cfg) -> EvalStep:
+def make_eval_step(model, cfg, clip_model=None) -> EvalStep:
     """Inference forward + PostProcess, a CUDA graph per shape on the card.
 
     The returned ``eval_step(batch, text_embed=None)`` takes ``batch`` with
     ``images [B,H,W,3]``, ``pad_mask [B,H,W]`` (True on padding) and
     ``orig_size [B,2]`` (h, w), and returns ``scores``, ``labels`` and
     ``boxes`` of ``[B, num_select]`` (boxes ``[B, num_select, 4]``, xyxy in
-    image coordinates). See :class:`EvalStep`.
+    image coordinates). Under ``use_clip_visual_query`` the teacher
+    (``clip_model``) runs its spatial pass in the step, as in JAX's
+    ``make_eval_step``. See :class:`EvalStep`.
     """
-    if getattr(cfg, "use_clip_visual_query", False):
-        raise NotImplementedError(
-            "use_clip_visual_query eval is not ported to richsem_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 11)"
-        )
-    return EvalStep(model, cfg)
+    if getattr(cfg, "use_clip_visual_query", False) and clip_model is None:
+        raise ValueError("use_clip_visual_query eval needs the CLIP teacher at inference "
+                         "(pass clip_model to make_eval_step)")
+    return EvalStep(model, cfg, clip_model)

@@ -255,8 +255,8 @@ def _eval_rounds(val_loader, d: Dist) -> Iterator:
 
 
 def evaluate(cfg, model, val_loader, val_ds, text_embed=None, logger=None, device="cuda",
-             save_results_dir: Optional[str] = None, dist: Optional[Dist] = None
-             ) -> Dict[str, float]:
+             save_results_dir: Optional[str] = None, dist: Optional[Dist] = None,
+             clip_model=None) -> Dict[str, float]:
     """Eval loop + AP summary (engine.py:149-330 equivalent) -> the evaluator's
     metrics, ``eval_ms_per_batch`` (host clock, loader included) and
     ``eval_graphs``, the CUDA graphs the step captured (one a batch shape; 0
@@ -274,7 +274,7 @@ def evaluate(cfg, model, val_loader, val_ds, text_embed=None, logger=None, devic
     from richsem_tpu_torch.data.evaluation import CocoEvaluator, LvisEvaluator
 
     d = dist or Dist()
-    eval_step = make_eval_step(model, cfg)
+    eval_step = make_eval_step(model, cfg, clip_model)
     if cfg.dataset_file.startswith("lvis"):
         evaluator = LvisEvaluator(val_ds.index, max_dets=cfg.num_select)
     else:
@@ -321,13 +321,13 @@ def evaluate(cfg, model, val_loader, val_ds, text_embed=None, logger=None, devic
 
 
 def test_submission(cfg, model, val_loader, text_embed=None, device="cuda",
-                    dist: Optional[Dist] = None) -> Optional[list]:
+                    dist: Optional[Dist] = None, clip_model=None) -> Optional[list]:
     """Submission mode: COCO-format result records (engine.py:333-447
     ``test`` + ``convert_to_xywh`` parity), one set an image id. Under a
     process group each rank runs its shard in equal rounds and rank 0 gathers
     the records; the other ranks return None."""
     d = dist or Dist()
-    eval_step = make_eval_step(model, cfg)
+    eval_step = make_eval_step(model, cfg, clip_model)
     records, seen = [], set()
     for batch in prefetch_to_device(_eval_rounds(val_loader, d), device):
         _, (scores, labels, boxes) = _predictions(eval_step(batch, text_embed),
@@ -494,7 +494,8 @@ def train_loop(cfg, device=None) -> Dict:
         d, (state.step, state.optimizer.count, start_epoch))
 
     if cfg.test:
-        res = test_submission(cfg, model, val_loader, text_embed, device=device, dist=d)
+        res = test_submission(cfg, model, val_loader, text_embed, device=device, dist=d,
+                              clip_model=clip_model)
         out_path = os.path.join(cfg.output_dir or ".", "results.json")
         if d.lead:
             with open(out_path, "w") as f:
@@ -506,7 +507,8 @@ def train_loop(cfg, device=None) -> Dict:
     if cfg.eval:
         stats = evaluate(cfg, model, val_loader, val_ds, text_embed, logger, device,
                          save_results_dir=(cfg.output_dir or ".")
-                         if getattr(cfg, "save_results", False) else None, dist=d)
+                         if getattr(cfg, "save_results", False) else None, dist=d,
+                         clip_model=clip_model)
         if cfg.output_dir and d.lead:
             with open(os.path.join(cfg.output_dir, "eval.json"), "w") as f:
                 json.dump(dict(stats, step=int(state.step)), f)
@@ -566,14 +568,14 @@ def train_loop(cfg, device=None) -> Dict:
 
         if (epoch + 1) % cfg.eval_interval == 0:
             stats = evaluate(cfg, model, val_loader, val_ds, text_embed, logger, device,
-                             dist=d)
+                             dist=d, clip_model=clip_model)
             ap = stats.get("AP", float("nan"))
             if best.update(ap, epoch) and ckpt:
                 save(metrics={"AP": ap}, epoch=epoch)
             if cfg.use_ema and state.ema is not None:
                 with swapped_params(model, state.ema):
                     ema_stats = evaluate(cfg, model, val_loader, val_ds, text_embed, logger,
-                                         device, dist=d)
+                                         device, dist=d, clip_model=clip_model)
                 best.update(ema_stats.get("AP", float("nan")), epoch, is_ema=True)
                 epoch_stats.update({f"ema_{k}": v for k, v in ema_stats.items()})
             epoch_stats.update(stats)

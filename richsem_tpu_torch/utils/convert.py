@@ -25,6 +25,13 @@ top-level arrays           the same name           as is (``level_embed``, ``tgt
 A depthwise kernel (flax ``[kh, kw, 1, C]``, ``feature_group_count=C``) takes
 the convolution rule and becomes PyTorch's ``[C, 1, kh, kw]``.
 
+The semantic-branch knobs' leaves take the same rules: ``share_vl_proj``'s
+``vl_proj/layer{0..3}`` (dense; neither ``class_embed`` nor
+``clip_visual_proj`` has leaves then), ``enc_cls_agn``'s top-level
+``enc_cls_kernel`` and ``enc_cls_bias``, and ``use_clip_visual_query``'s
+``clip_query_proj`` (dense, no bias); ``distill_aux_layers`` reuses the
+distillation projection for every layer and adds none.
+
 Flax's attention divides the query by sqrt(head_dim) at run time; the port does
 the same in ``MultiHeadAttention``, so no weight is rescaled. Real RichSem
 checkpoints reach the port through ``tools/convert_detector.py`` (reference

@@ -98,7 +98,7 @@ def annotate(name: str) -> Iterator[None]:
 HAND_WRITTEN = ("msda_fwd_kernel", "msda_bwd_kernel", "encoder_tail_fwd_kernel",
                 "row_pass_kernel", "dw_gemm_kernel", "colsum_kernel", "msda_sep_fwd_kernel",
                 "msda_sep_bwd_kernel", "auction_kernel", "sumsq_kernel", "sumsq_finish_kernel",
-                "adamw_kernel", "vpu_f32_kernel", "vpu_bf16_kernel",
+                "adamw_kernel", "nms_kernel", "vpu_f32_kernel", "vpu_bf16_kernel",
                 "mxu_kernel", "mxu_reduce_kernel", "grid_kernel", "repeat_f32_kernel",
                 "repeat_bf16_kernel", "cell_kernel", "cell_reduce_kernel", "tile_kernel",
                 "chain_kernel", "fma_kernel")

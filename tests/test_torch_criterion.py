@@ -231,10 +231,14 @@ def test_dn_sets_past_their_slots_match_jax():
     _losses_and_grads_match_jax(c)
 
 
-@pytest.mark.parametrize("kw", [{"distill_type": "clip_logits", "distill_aux_layers": True},
-                                {"matcher_type": "OptMatcher"}])
+@pytest.mark.parametrize("kw", [{"targets": "masks"}, {"outputs": "pred_masks"}])
 def test_unported_branches_raise(case, kw):
+    """The mask losses (ROADMAP queue 1, item 11) raise, whichever side brings
+    masks; the many-to-one layout and distill_aux_layers are ported
+    (``tests/test_torch_ota_matcher.py``)."""
+    outputs = {k: torch.from_numpy(v) for k, v in _set(np.random.default_rng(0), Q).items()}
+    targets = dict(case["t"])
+    side = outputs if "outputs" in kw else targets
+    side[kw.get("outputs", kw.get("targets"))] = torch.zeros(B, 4, 8, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        crit.set_criterion({k: torch.from_numpy(v) for k, v in _set(np.random.default_rng(0),
-                                                                     Q).items()},
-                           case["t"], case["stats"], num_classes=C, **kw)
+        crit.set_criterion(outputs, targets, case["stats"], num_classes=C)

@@ -214,6 +214,11 @@ def test_no_dn_or_clip_features_in_the_eval_slice(models):
     with pytest.raises(ValueError, match="together"):
         model(x, m, dn_labels=torch.zeros(1, 4, dtype=torch.long),
               text_embed=torch.from_numpy(text_embed))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(x, m, clip_features=torch.zeros(1, 2, 2, 8),
-              text_embed=torch.from_numpy(text_embed))
+    # CLIP query features feed only use_clip_visual_query (ported: see
+    # tests/test_torch_variants.py); without it they change nothing, as in JAX
+    with torch.no_grad():
+        a = model(x, m, clip_features=torch.zeros(1, 2, 2, 8),
+                  text_embed=torch.from_numpy(text_embed))
+        b = model(x, m, text_embed=torch.from_numpy(text_embed))
+    assert torch.equal(a["pred_logits"], b["pred_logits"])
+    assert torch.equal(a["pred_boxes"], b["pred_boxes"])

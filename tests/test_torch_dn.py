@@ -15,7 +15,7 @@ import torch
 from richsem_tpu.models.criterion import expand_dn_targets as jax_expand
 from richsem_tpu.models.dn import prepare_cdn as jax_prepare_cdn
 from richsem_tpu_torch.models.criterion import expand_dn_targets
-from richsem_tpu_torch.models.dn import cdn_draws, prepare_cdn
+from richsem_tpu_torch.models.dn import cdn_draws, cdn_pad, prepare_cdn
 
 C = 37
 
@@ -89,8 +89,15 @@ def test_cdn_draws_shapes_and_ranges():
 
 @pytest.mark.parametrize("kw", [{"group_mode": True}, {"check_pos_dn": True}])
 def test_unported_branches_raise(kw):
+    """The two branches that raised here are ported (held against JAX in
+    tests/test_torch_variants.py): they run on draws sized by ``cdn_pad``, the
+    group-count branch with ``2 * dn_number`` groups in a pad of
+    ``4 * dn_number * G`` slots."""
     labels, boxes, valid = _targets(0, (2,), 4)
-    draws = cdn_draws(1, 10, C, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prepare_cdn(torch.from_numpy(labels).long(), torch.from_numpy(boxes),
-                    torch.from_numpy(valid), draws, torch.tensor(2), dn_number=10, **kw)
+    group = kw.get("group_mode", False)
+    pad = cdn_pad(10, 4, group)
+    draws = cdn_draws(1, 10, C, torch.Generator().manual_seed(0), device="cpu", pad=pad)
+    out = prepare_cdn(torch.from_numpy(labels).long(), torch.from_numpy(boxes),
+                      torch.from_numpy(valid), draws, torch.tensor(2), dn_number=10, **kw)
+    assert out[0].shape == (1, pad) == ((1, 160) if group else (1, 20))
+    assert int(out[3]["num_groups"]) == (20 if group else 5)

@@ -6,8 +6,9 @@ imports, the tiny
 model builds on the CPU, serves one batch and takes one training step (CDN,
 matching, the federated loss, the clipped AdamW), then one flagship step with
 a tiny CLIP teacher (RoIAlign, the distillation losses) and the separable
-decoder sampler, and the six kernels' launch counters stay at 0 (CPU tensors
-run the plain versions). In another such interpreter the data path reads PNGs
+decoder sampler, then a step and an eval batch of the semantic variant (the
+five semantic-branch knobs, OptMatcher, NMS), and the seven kernels' launch
+counters stay at 0 (CPU tensors run the plain versions). In another such interpreter the data path reads PNGs
 and runs a two-image loader epoch, the trainer's entry point takes a step on
 the CPU, and the probes run their plain versions.
 """
@@ -45,6 +46,9 @@ MODULES = [
     "richsem_tpu_torch.models.dn",
     "richsem_tpu_torch.models.matcher",
     "richsem_tpu_torch.models.criterion",
+    "richsem_tpu_torch.models.ota_matcher",
+    "richsem_tpu_torch.ops.nms",
+    "richsem_tpu_torch.tools.gemm_sites",
     "richsem_tpu_torch.models.clip",
     "richsem_tpu_torch.models.clip.model",
     "richsem_tpu_torch.models.clip.tokenizer",
@@ -146,9 +150,27 @@ step = make_train_step(model, fcfg, seed=0, device="cpu", clip_model=teacher)
 m = step(state, dict(tb, size=torch.tensor([[128, 192], [100, 150]])),
          torch.randn((12, 16), generator=g))
 assert bool(m["finite"]) and float(m["loss_distill"]) > 0 and float(m["loss_distill_dn"]) > 0
+
+from richsem_tpu_torch.ops import nms
+vcfg = Config.fromfile("configs/richsem/richsem_4scale_lvis.py")
+vcfg.update(hidden_dim=64, nheads=4, enc_layers=2, dec_layers=2, dim_feedforward=128,
+            num_queries=20, num_classes=12, dn_labelbook_size=12, fed_num_sample_cats=4,
+            clip_embed_dim=16, clip_spatial_dim=256, distill_max_boxes=2, num_select=50,
+            compute_dtype="float32", two_stage_cls=True, distill_aux_layers=True,
+            use_clip_visual_query=True, share_vl_proj=True, enc_cls_agn=True,
+            check_pos_dn=True, matcher_type="OptMatcher", nms_iou_threshold=0.5)
+model, _, _ = build_model("richsem", vcfg, device="cpu", generator=torch.Generator().manual_seed(0))
+state = create_train_state(model, build_optimizer(model, vcfg))
+step = make_train_step(model, vcfg, seed=0, device="cpu", clip_model=teacher)
+text = torch.randn((12, 16), generator=g)
+m = step(state, dict(tb, size=torch.tensor([[128, 192], [100, 150]])), text)
+assert bool(m["finite"]) and float(m["loss_distill"]) > 0
+out = make_eval_step(model, vcfg, teacher)(batch, text)
+assert out["scores"].shape == (2, 50) and (out["scores"] == -1).any()
 for name in (ms_deform_attn.ms_deform_attn, ms_deform_attn.ms_deform_attn_backward,
              fused_ffn.encoder_tail, fused_ffn.encoder_tail_backward,
-             ms_deform_attn_sep.ms_deform_attn_sep, ms_deform_attn_sep.ms_deform_attn_sep_backward):
+             ms_deform_attn_sep.ms_deform_attn_sep, ms_deform_attn_sep.ms_deform_attn_sep_backward,
+             nms.nms_mask):
     assert name.launches == 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "richsem_tpu", "cv2")
              and sys.modules[m] is not None)

@@ -118,6 +118,10 @@ def test_transformer_data_flow():
 
 
 def test_postprocess_rejects_nms():
-    with pytest.raises(NotImplementedError, match="NMS"):
-        postprocess(torch.zeros(1, 3, 2), torch.zeros(1, 3, 4), torch.ones(1, 2),
-                    num_select=2, nms_iou_threshold=0.5)
+    """NMS, refused here before, is ported (held against JAX in
+    tests/test_torch_nms.py): of two equal boxes the lower-scored one's score
+    becomes -1."""
+    logits = torch.tensor([[[2.0, -9.0], [1.0, -9.0], [-9.0, -9.0]]])
+    out = postprocess(logits, torch.full((1, 3, 4), 0.5), torch.ones(1, 2),
+                      num_select=2, nms_iou_threshold=0.5)
+    assert out["scores"][0, 0] > 0 and float(out["scores"][0, 1]) == -1.0

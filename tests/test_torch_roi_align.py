@@ -61,8 +61,11 @@ def test_matmul_adaptive_matches_jax(dtype):
 
 
 def test_unported_methods_raise():
-    feats = torch.zeros(1, H, W, C)
+    """The gather method raises, asked for or chosen by ``auto`` on a map of
+    more than 2,048 cells; a static sampling ratio runs the matmul path
+    (``tests/test_torch_variants.py`` holds it against JAX)."""
     boxes = torch.zeros(1, 1, 4)
-    for kw in ({"method": "gather", "sampling_ratio": 2}, {"sampling_ratio": 2}):
+    for feats, kw in ((torch.zeros(1, H, W, C), {"method": "gather", "sampling_ratio": 2}),
+                      (torch.zeros(1, 48, 48, C), {"method": "auto", "sampling_ratio": 2})):
         with pytest.raises(NotImplementedError, match="item 11"):
             roi_align(feats, boxes, O, SCALE, **kw)

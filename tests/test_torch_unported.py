@@ -1,23 +1,19 @@
 """The port refuses what it has not ported, and names the ROADMAP item that
-holds it: the knobs and activation of the detector, the CLIP teacher's ViT
-tower and NMS in the post-processing (queue 1, item 11), and the teacher's
+holds it: the CLIP teacher's ViT tower (queue 1, item 11) and the teacher's
 weak labels under data parallelism (item 11). A backbone name the variant
 tables do not hold raises JAX's errors.
 
-``two_stage_cls`` with the distillation branch on changes the function the
-JAX model trains (the CLIP logits join every decoder layer's logits), so the
-port raises on it; the shipped recipes set it False, and without the
-distillation branch it is gated off as in JAX.
+``two_stage_cls`` is kept only beside the distillation branch, as in JAX; the
+semantic-branch knobs, the gelu tail and NMS are ported
+(``tests/test_torch_variants.py``, ``tests/test_torch_nms.py``).
 """
 
 import pytest
-import torch
 
 from richsem_tpu.config import Config as JaxConfig
 from richsem_tpu.models.dino import DINOConfig as JaxDINOConfig
 from richsem_tpu_torch.config import Config
 from richsem_tpu_torch.models.dino import DINO, DINOConfig
-from richsem_tpu_torch.models.postprocess import postprocess
 
 FLAGSHIP = "configs/richsem/richsem_4scale_lvis.py"
 
@@ -27,13 +23,6 @@ def _flagship(**overrides):
     for k, v in overrides.items():
         setattr(cfg, k, v)
     return cfg
-
-
-def test_two_stage_cls_with_distillation_raises():
-    cfg = DINOConfig.from_config(_flagship(two_stage_cls=True))
-    assert cfg.two_stage_cls and cfg.use_visual_distill
-    with pytest.raises(NotImplementedError, match=r"two_stage_cls.*queue 1, item 11"):
-        DINO(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("distill", [False, True])
@@ -49,11 +38,6 @@ def test_two_stage_cls_gating_matches_jax(distill):
     assert DINOConfig.from_config(Config.fromfile(FLAGSHIP)).two_stage_cls is False
 
 
-def _nms():
-    postprocess(torch.zeros(1, 4, 3), torch.full((1, 4, 4), 0.5),
-                torch.tensor([[64, 64]]), num_select=2, nms_iou_threshold=0.5)
-
-
 def _clip_vit_teacher():
     from richsem_tpu_torch.models.build import build_clip_teacher
 
@@ -62,10 +46,7 @@ def _clip_vit_teacher():
 
 @pytest.mark.parametrize("what,call", [
     ("backbone", _clip_vit_teacher),
-    ("knob", lambda: DINO(DINOConfig(share_vl_proj=True), device="cpu")),
-    ("activation", lambda: DINO(DINOConfig(activation="gelu"), device="cpu")),
-    ("nms", _nms),
-], ids=["backbone", "knob", "activation", "nms"])
+], ids=["backbone"])
 def test_unported_messages_name_item_11(what, call):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1, item 11\)"):
         call()

@@ -93,6 +93,36 @@ def train_steps(cfg_items: dict, weights: dict, batches: list, jax_draws: list,
     return out
 
 
+def variant_step(cfg_items: dict, weights: dict, clip_items: dict, clip_weights: dict,
+                 batch: dict, jax_draws: dict, text: np.ndarray, threads: int = 1) -> dict:
+    """One step of the semantic variant (``tests/test_torch_ddp_variants.py``):
+    the detector from ``weights``, the tiny CLIP teacher from ``clip_items``
+    and ``clip_weights``, this rank's rows of ``batch`` and of JAX's draws. ->
+    the step's metrics and the state's digest."""
+    import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
+    from richsem_tpu_torch.config import Config
+    from richsem_tpu_torch.models import build_model
+    from richsem_tpu_torch.models.clip.model import CLIP, CLIPConfig
+    from richsem_tpu_torch.train.engine import create_train_state, make_train_step
+    from richsem_tpu_torch.train.optim import build_optimizer
+
+    torch.set_num_threads(threads)
+    d = pdist.init_distributed("cpu")
+    cfg = Config(dict(cfg_items))
+    model, _, _ = build_model("richsem", cfg, device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in weights.items()})
+    teacher = CLIP(CLIPConfig(**clip_items), device="cpu")
+    teacher.load_state_dict({k: torch.from_numpy(v) for k, v in clip_weights.items()})
+    teacher.eval().requires_grad_(False)
+    state = create_train_state(model, build_optimizer(model, cfg, steps_per_epoch=2))
+    step = make_train_step(model, cfg, device="cpu", clip_model=teacher, dist=d)
+    n = len(batch["images"]) // d.world
+    m = step(state, rank_batch(batch, d, cfg), torch.from_numpy(text),
+             draws=rank_draws(jax_draws, d, n))
+    return {"metrics": {k: v.numpy().copy() for k, v in m.items()},
+            "digest": state_digest(state), "unions": pdist.union_.calls}
+
+
 def collective_count(cfg_items: dict, canvases: list, threads: int = 1) -> dict:
     """Steps on this rank's canvases (``canvases[step][rank]``) with the card's
     path played on the CPU: ``engine._on_card`` True, the warm-up run in

@@ -137,8 +137,11 @@ Phases, each printed as it completes:
     guarded by the launch counts; then again with ``BENCH_FUSED_OPT=1``, AdamW
     in ``fused_adamw``'s order), ``tools/bench_eval.py`` at its single point
     (5 and 30 batches, one guarded profiled batch) and
-    ``tools/bench_input_pipeline.py`` at 100 images, with the train bench's
-    img/s as its chip rate. Each JSON line is printed; the value, the median,
+    ``tools/bench_input_pipeline.py`` at 100 images (the JAX tool's corpus as
+    JPEG at quality 90, decoded by the port's host codec,
+    ``csrc/jpeg_host.c``), with the train bench's img/s as its chip rate,
+    printing img/s, ``ratio_to_chip`` and the codec's decode ms an image on
+    one host thread. Each JSON line is printed; the value, the median,
     min and max, the busy ms, the idle share in [0, 1], the card and the
     launches a step (K1 12, K1-bwd 12, K2 6, K2-bwd 6, K4 7, K5 1, K6 1;
     eval K1 12, K2 6) are checked, and the train line's auction rounds and K4 device ms and
@@ -239,10 +242,44 @@ Phases, each printed as it completes:
     n_valid * eps); then dropout in a graph at a cut width (one encoder
     and one decoder layer, 256 x 384): the replay against one eager step,
     and two replays a step apart drawing different masks.
+23. The ViT-B/32 recipe (``richsem_4scale_lvis.py`` with ``clip_model=
+    "ViT-B/32"``; run after phase 22), bf16, bs2, random weights from a
+    seed, the random bf16 ViT-B/32 teacher and a 1204 x 512 text bank from
+    its text tower over seeded token ids (the BPE merges are not in the
+    repository): (a) serving with ``use_clip_visual_query`` at 896 x 1344,
+    the teacher's spatial pass (28 x 42 patches and the class token, 12
+    layers of width 768) in the eval graph: 3 replays, each against its
+    eager body bit for bit, K1 12 and K2 6 a batch, ms/batch, img/s, peak
+    memory; (b) one eager eval batch at 1344 x 2048, whose 42 x 64 teacher
+    map (2,688 cells) takes RoIAlign's gather path through ``auto``: its
+    crops against the matmul path's on the same map and boxes, TF32 off,
+    within 1e-5 of the largest magnitude; (c) training with
+    ``use_visual_distill=False`` (the bank feeds the classifier): the train
+    graph, 5 replays, finite losses, K1 12, K1-bwd 12, K2 6, K2-bwd 6, K4 7,
+    K5 1, K6 1 a step, then the replay against an eager step from one state,
+    batch and draws with the plain versions of the model's kernels and
+    PyTorch's deterministic algorithms, every metric and the parameters,
+    moments and EMA after the update bit for bit
+    (``deterministic_replay_check``; K4-K6 stay, being deterministic, and
+    no ``graph_vs_eager`` spread is read); (d) a train step under
+    ``use_visual_distill`` raises at ``attnpool``, as JAX's does.
+24. The teacher's weak labels as the one rank of an NCCL group (world size
+    1, as phase 17): the CLIP flagship with the RN50 teacher,
+    ``use_imagenet_pusedo_labels``, ``clip_pusedo_th`` 0.05 and
+    ``clip_pusedo_topk`` 4, bs2 at 896 x 1344 with bench.py's batch (300 GT
+    slots, 16 valid) whose first image is an extra one: the train graph, 5
+    replays (finite losses, the launches of phase 10), each step one
+    gradient all-reduce and one gather of the rewritten batch's statistics
+    (``parallel/dist.py:reduce_stats_``), counted by their wrappers and the
+    NCCL kernels of a replay's guarded profile printed; the reduced
+    statistics equal to the group-free ``tensor_stats`` of the same
+    rewritten batch; the replay against an eager step as 23 (c). The group
+    is destroyed at the end.
 
 ``python3 chip_smoke.py kernels`` stops after the kernel phases (1-5, 8, 9, 12,
 15 on its random cases, 16 and K7 on its constructed cases).
-``python3 chip_smoke.py variants`` runs phases 1-5, 8, 9, 21 and 22. ``python3 chip_smoke.py backbones`` runs the
+``python3 chip_smoke.py variants`` runs phases 1-5, 8, 9, 21 and 22;
+``python3 chip_smoke.py teacher`` phases 1-5, 8, 9, 23 and 24. ``python3 chip_smoke.py backbones`` runs the
 kernel phases 1-5, 8 and 9, then phases 18-20 only; ``python3 chip_smoke.py
 knobs`` those kernel phases, then phase 20 only.
 
@@ -278,7 +315,8 @@ K7 (its ``launches`` from phase 21's eval batches),
 each with ``launches`` from the flagship train step (phase 10, K3 and
 K3-bwd from phase 11), ``trainer_launches`` from phase 13,
 ``ddp_launches`` and ``ddp_replay_busy_ms`` from phase 17 and
-``swin_launches`` from phase 18 (K1 and K2 also ``swin_eval_launches``), and the three probe
+``swin_launches`` from phase 18 (K1 and K2 also ``swin_eval_launches``,
+and from phase 23 ``vit_eval_launches``), and the three probe
 sources, each with the numbers of one headline call at the top, every call
 under ``calls`` (each with ``device_ms`` beside the CUDA-event ``ms``, and
 ``library_device_ms``), and ``launches`` summed over its kernels in the
@@ -1236,25 +1274,41 @@ def launch_counters():
 
 
 @contextlib.contextmanager
-def plain_versions():
-    """The plain versions in place of every kernel, at the modules' call sites."""
-    from richsem_tpu_torch.models import dino, layers, matcher
+def plain_model_kernels():
+    """The plain versions in place of the model's kernels (K1 and K3, with the
+    autograd backward of their plain versions, and K2), at the modules' call
+    sites. K4, K5 and K6 stay: each is deterministic (phases 15 and 16 run
+    them twice bit for bit) and graph-safe, where the plain auction reads the
+    host. K1-bwd's atomics are the step's order-dependent sums (F-P6)."""
+    from richsem_tpu_torch.models import dino, layers
     from richsem_tpu_torch.ops import fused_ffn as k2
-    from richsem_tpu_torch.ops import lap
     from richsem_tpu_torch.ops import ms_deform_attn as k1
     from richsem_tpu_torch.ops import ms_deform_attn_sep as k3
 
     layers.ms_deform_attn, layers.ms_deform_attn_sep = (k1.ms_deform_attn_plain,
                                                         k3.ms_deform_attn_sep_plain)
     dino.encoder_tail = k2.encoder_tail_plain
-    matcher.batched_min_cost_assignment = (
-        lambda c, v, max_iters=3000, eps_rel=1e-4: lap._auction(-c, v, max_iters, eps_rel)[0])
     try:
         yield
     finally:
         layers.ms_deform_attn, layers.ms_deform_attn_sep = (k1.ms_deform_attn,
                                                             k3.ms_deform_attn_sep)
         dino.encoder_tail = k2.encoder_tail
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The plain versions in place of every kernel, at the modules' call sites:
+    the model's (``plain_model_kernels``) and the auction's."""
+    from richsem_tpu_torch.models import matcher
+    from richsem_tpu_torch.ops import lap
+
+    matcher.batched_min_cost_assignment = (
+        lambda c, v, max_iters=3000, eps_rel=1e-4: lap._auction(-c, v, max_iters, eps_rel)[0])
+    try:
+        with plain_model_kernels():
+            yield
+    finally:
         matcher.batched_min_cost_assignment = lap.batched_min_cost_assignment
 
 
@@ -2420,12 +2474,13 @@ def phase_probes():
 
 
 def same_state(a: dict, b: dict) -> bool:
-    """Two ``state_to_dict``s equal bit for bit, leaf for leaf."""
+    """Two ``state_to_dict``s (or ``state_copy``s) equal bit for bit, leaf for leaf."""
     import torch
 
     def leaves(d, prefix=""):
-        for k, v in (d or {}).items():
-            yield from (leaves(v, f"{prefix}{k}.") if isinstance(v, dict)
+        items = enumerate(d) if isinstance(d, list) else (d or {}).items()
+        for k, v in items:
+            yield from (leaves(v, f"{prefix}{k}.") if isinstance(v, (dict, list))
                         else [(f"{prefix}{k}", v)])
 
     a, b = dict(leaves(a)), dict(leaves(b))
@@ -2603,8 +2658,10 @@ def phase_bench():
     """Phase 14: the port's three benches in this process, at their defaults: the
     flagship train step (``richsem_tpu_torch/bench.py``), the eval step at its
     single point (``tools/bench_eval.py``) and the host input pipeline at 100
-    images (``tools/bench_input_pipeline.py``, the train bench's img/s as its
-    chip rate). Each JSON line is printed and its fields checked."""
+    images (``tools/bench_input_pipeline.py``: the JAX tool's corpus as JPEG at
+    quality 90, read by the port's codec; the train bench's img/s as its chip
+    rate; the codec's decode ms an image on one thread). Each JSON line is
+    printed and its fields checked."""
     import torch
 
     from richsem_tpu_torch import bench
@@ -2642,8 +2699,13 @@ def phase_bench():
     line = bench_input_pipeline.bench_line(PIPELINE_IMAGES, chip_rate=lines["train"]["value"])
     print(json.dumps(line), flush=True)
     print(f"  input pipeline bench: {time.perf_counter() - t:.1f} s", flush=True)
-    if not (line["value"] > 0 and line["images"] > 0 and line["ratio_to_chip"] > 0):
-        fail("the input-pipeline bench line holds a value out of range")
+    if not (line["value"] > 0 and line["images"] > 0 and line["ratio_to_chip"] > 0
+            and line["decode_ms"] > 0 and "JPEG corpus" in line["metric"]):
+        fail("the input-pipeline bench line holds a value out of range, or did not read JPEG")
+    print(f"  input pipeline on the JPEG corpus (quality 90): {line['value']:.2f} img/s on "
+          f"{line['threads']} threads, ratio_to_chip {line['ratio_to_chip']:.3f} against this "
+          f"run's train line ({lines['train']['value']:.3f} img/s); the codec decodes "
+          f"{line['decode_ms']:.3f} ms an image on one host thread", flush=True)
     print("phase 14: the train, eval and input-pipeline benches ran", flush=True)
 
 
@@ -3867,6 +3929,412 @@ def phase_variant_b():
     print(f"phase 22: variant B eager steps ok ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+# ---- the ViT-B/32 teacher (phase 23) and the weak labels as a rank (phase 24) --
+VIT = "ViT-B/32"
+LARGE_CANVAS = (1344, 2048)  # phase 23 (b): a 42 x 64 teacher map, past 2,048 cells
+ROI_GATHER_TOL = 1e-5  # phase 23 (b): gather crops vs matmul crops, of the largest magnitude
+WEAK_LABELS = dict(use_imagenet_pusedo_labels=True, clip_pusedo_th=0.05, clip_pusedo_topk=4)
+
+
+def deterministic_replay_check(make_step, state, batch, text_embed, what):
+    """A replay against an eager step, bit for bit before and after the update,
+    with the plain versions of the model's kernels and PyTorch's deterministic
+    algorithms (``plain_model_kernels``, ``deterministic``), under which steps
+    repeat (phase 20): a new step from ``make_step()`` captures its graph (its
+    warm-up step and capture run from the saved state), then one replay and one
+    eager step, each from that state with one batch and set of draws; every
+    metric and the parameters, moments and EMA after the update must be equal.
+    Leaves the state as it found it."""
+    import torch
+
+    saved = state_copy(state)
+    t = time.perf_counter()
+    with plain_model_kernels(), deterministic():
+        step = make_step()
+        draws = step.draws(state, *batch["labels"].shape)
+        step(state, batch, text_embed, draws=draws)  # warm-up (eager) and capture
+        runs = []
+        for run in (step, step.eager):
+            state_put(state, saved)
+            m = run(state, batch, text_embed, draws=draws)
+            torch.cuda.synchronize()
+            runs.append(({k: v.clone() for k, v in m.items()}, state_copy(state)))
+        state_put(state, saved)
+        step.reset()
+    (mr, sr), (me, se) = runs
+    metrics = [k for k in me if not torch.equal(mr[k], me[k])]
+    same = same_state(sr, se)
+    print(f"  {what}: replay vs eager step, plain model kernels + deterministic algorithms "
+          f"({time.perf_counter() - t:.1f} s): metrics equal {len(me) - len(metrics)}/{len(me)} "
+          f"(loss {float(mr['loss']):.6f}, grad_norm {float(mr['grad_norm']):.9g}); "
+          f"parameters, moments and EMA after the update equal bit for bit: {same}",
+          flush=True)
+    if metrics or not same:
+        fail(f"the {what} replay differs from its eager step under deterministic algorithms: "
+             f"metrics {metrics}, state equal {same}")
+    del runs, step
+    free_memory()
+
+
+def vit_teacher_and_text(cfg):
+    """The random-weight bf16 ViT-B/32 teacher (seed 2) and its 1204 x 512
+    text bank, the text tower over seeded token ids: a start token, 2-18
+    random word ids, the end token (the largest id) and zeros (the BPE merges
+    are not in the repository)."""
+    import torch
+
+    from richsem_tpu_torch.models.build import build_clip_teacher
+
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    teacher = build_clip_teacher(cfg, dtype=torch.bfloat16, device=DEVICE, generator=g)
+    c = teacher.cfg
+    n, ctx = cfg.num_classes, c.context_length
+    ids = torch.randint(1, c.vocab_size - 2, (n, ctx), generator=g, device=DEVICE)
+    ends = torch.randint(3, 20, (n,), generator=g, device=DEVICE)
+    pos = torch.arange(ctx, device=DEVICE)
+    ids = torch.where(pos[None] < ends[:, None], ids, 0)
+    ids[:, 0] = c.vocab_size - 2
+    ids[torch.arange(n, device=DEVICE), ends] = c.vocab_size - 1
+    with torch.no_grad():
+        text = torch.cat([teacher.encode_text(ids[i:i + 256]) for i in range(0, n, 256)])
+    return teacher, text
+
+
+def train_replays(cfg, want, teacher, text_embed, batch_of, dist=None, what="train"):
+    """The train graph of ``cfg`` from seed 0: one warm-up step (eager, then the
+    capture) and ``N_STEPS`` replays on batches from ``batch_of(g)``: finite
+    losses, the launches of the nine kernels a step (``want``; K5 and K6 None:
+    from the optimizer's tables), ms/step, img/s, peak memory. -> (model,
+    state, step, the batches, launches a step)."""
+    import torch
+
+    import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
+    from richsem_tpu_torch.models import build_model
+    from richsem_tpu_torch.train.engine import create_train_state, make_train_step
+    from richsem_tpu_torch.train.optim import build_optimizer
+
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    t0 = time.perf_counter()
+    model, _, _ = build_model("richsem", cfg, device=DEVICE, generator=g)
+    state = create_train_state(model, build_optimizer(model, cfg, steps_per_epoch=1000),
+                               use_ema=cfg.use_ema)
+    step = make_train_step(model, cfg, seed=0, device=DEVICE, clip_model=teacher, dist=dist)
+    batches = [batch_of(g) for _ in range(N_STEPS + 1)]
+    m = step(state, batches[-1], text_embed)
+    torch.cuda.synchronize()
+    (graph,) = step.graphs.values()
+    print(f"  {what}: setup + warm-up step {time.perf_counter() - t0:.1f} s, loss "
+          f"{float(m['loss']):.4f}; warm-up + capture {graph.capture_ms:.1f} ms, pool "
+          f"{step.pool_bytes / 1e9:.3f} GB", flush=True)
+    want = tuple(want[:7]) + tuple(
+        n if n is not None else t for n, t in zip(want[7:], adamw_launches(state.optimizer)))
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], []
+    for batch in batches[:N_STEPS]:
+        t = time.perf_counter()
+        metrics.append(step(state, batch, text_embed))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    launches = [c.launches // N_STEPS for c in counters]
+    for i, m in enumerate(metrics):
+        terms = ", ".join(f"{k} {float(m[k]):.4f}" for k in ("loss", "grad_norm", "loss_ce",
+                                                             "loss_bbox", "loss_distill")
+                          if k in m)
+        print(f"  step {i}: {terms}", flush=True)
+        if not (bool(m["finite"]) and math.isfinite(float(m["grad_norm"]))):
+            fail(f"{what} step {i}: the loss or grad_norm is not finite")
+    ms = statistics.median(times)
+    print(f"  {what} (CUDA graph replays): {', '.join(f'{t:.2f}' for t in times)} ms/step; "
+          f"median {ms:.2f} ms/step = {BATCH * 1e3 / ms:.3f} img/s; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated; launches a step "
+          + ", ".join(f"{k} {n}" for k, n in zip(COUNTED, launches)) + f" (expect {list(want)})",
+          flush=True)
+    if tuple(launches) != want or any(c.launches % N_STEPS for c in counters):
+        fail(f"the {what} replays did not launch the kernels as expected")
+    n_ops = {}
+    dev = profile_once(lambda: step(state, batches[1], text_embed), top=6, also=ALL_OPS,
+                       counts=n_ops)
+    print(f"  {what}: a replay's device time {_ms(dev.get('all'))} ms over {n_ops.get('all')} "
+          f"operations", flush=True)
+    return model, state, step, batches, launches
+
+
+def phase_vit(recs):
+    """Phase 23: the ViT-B/32 recipe (``richsem_4scale_lvis.py`` with
+    ``clip_model="ViT-B/32"``) at full width, bf16, bs2, random weights (seed
+    0), the random bf16 ViT-B/32 teacher and its 1204 x 512 text bank
+    (``vit_teacher_and_text``).
+    (a) Serving, with ``use_clip_visual_query`` (and ``use_visual_distill``,
+        which the knob requires): the eval graph at 896 x 1344 runs the
+        teacher's spatial pass (28 x 42 patches and the class token through 12
+        layers of width 768) in the step; 3 replays, each against its eager
+        body bit for bit; K1 12 and K2 6 a batch; ms/batch, img/s, peak GB.
+    (b) One eager eval batch at 1344 x 2048, whose 42 x 64 map takes RoIAlign's
+        gather path (``method="auto"``, sampling ratio 2): its crops against the
+        matmul path's on the same map and boxes, TF32 off, within
+        ``ROI_GATHER_TOL`` of the largest magnitude; K1 12 and K2 6.
+    (c) Training with ``use_visual_distill=False`` (the teacher's bank feeds the
+        classifier): the train graph, 5 replays, finite losses, K1 12, K1-bwd
+        12, K2 6, K2-bwd 6, K4 7, K5 1, K6 1 a step; the replay against an
+        eager step bit for bit before and after the update under the plain
+        model kernels and deterministic algorithms.
+    (d) Training under ``use_visual_distill`` raises where JAX's step does, at
+        ``attnpool``, which the ViT lacks."""
+    import torch
+
+    import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
+    from richsem_tpu_torch.models import build_model, dino
+    from richsem_tpu_torch.models.clip_align import clip_spatial_features
+    from richsem_tpu_torch.ops import fused_ffn as k2
+    from richsem_tpu_torch.ops import ms_deform_attn as k1
+    from richsem_tpu_torch.ops import roi_align as ra
+    from richsem_tpu_torch.train.engine import eval_forward, make_eval_step, make_train_step
+
+    free_memory()
+    t0 = time.perf_counter()
+    cfg = flagship_cfg(clip_model=VIT, use_clip_visual_query=True)
+    teacher, text_embed = vit_teacher_and_text(cfg)
+    print(f"  ViT-B/32 teacher: {sum(p.numel() for p in teacher.parameters()) / 1e6:.1f} M "
+          f"parameters, bf16 tower; text bank {tuple(text_embed.shape)} ("
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    model, _, _ = build_model("richsem", cfg, device=DEVICE, generator=g)
+    if model.clip_query_proj.weight.shape[1] != 512:
+        fail("the visual queries' projection does not take the ViT's 512-wide map")
+    batches = [eval_batch(g, CANVAS) for _ in range(N_BATCHES + 1)]
+    step = make_eval_step(model, cfg, teacher)
+    step(batches[-1], text_embed)  # warm-up and capture
+    torch.cuda.synchronize()
+    (graph,) = step.graphs.values()
+    print(f"  (a) eval warm-up + capture {graph.capture_ms:.1f} ms, pool "
+          f"{step.pool_bytes / 1e9:.3f} GB", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    k1.ms_deform_attn.launches = k2.encoder_tail.launches = 0
+    times, results = [], []
+    for batch in batches[:N_BATCHES]:
+        t = time.perf_counter()
+        results.append(step(batch, text_embed))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    got = (k1.ms_deform_attn.launches, k2.encoder_tail.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for r in results:
+        check_eval_out(r, cfg)
+    want = ((cfg.enc_layers + cfg.dec_layers) * N_BATCHES, cfg.enc_layers * N_BATCHES)
+    ms_batch = statistics.median(times)
+    print(f"  (a) eval (CUDA graph replays, the ViT's spatial pass in the step): "
+          f"{', '.join(f'{t:.2f}' for t in times)} ms/batch; median {ms_batch:.2f} ms/batch = "
+          f"{BATCH * 1e3 / ms_batch:.3f} img/s; peak {peak_gb:.2f} GB allocated; launches K1 "
+          f"{got[0]}, K2 {got[1]} (expect {want})", flush=True)
+    if got != want:
+        fail("the ViT-B/32 eval path did not launch K1 12 and K2 6 times a batch")
+    for i, batch in enumerate(batches[:N_BATCHES]):
+        graphed = step(batch, text_embed)
+        with torch.inference_mode():
+            eager = eval_forward(model, cfg, batch, text_embed, teacher)
+        torch.cuda.synchronize()
+        same = all(torch.equal(graphed[k], eager[k]) for k in ("scores", "labels", "boxes"))
+        print(f"  (a) replay {i} equals its eager body bit for bit: {same}", flush=True)
+        if not same:
+            fail("the ViT-B/32 eval graph differs from its eager body")
+    recs[0]["vit_eval_launches"], recs[2]["vit_eval_launches"] = (n // N_BATCHES for n in got)
+    n_ops = {}
+    dev = profile_once(lambda: step(batches[0], text_embed), top=8, also=ALL_OPS, counts=n_ops)
+    with torch.inference_mode():
+        alone = profile_once(lambda: clip_spatial_features(teacher, batches[0]["images"]),
+                             top=3, also=ALL_OPS)
+    print(f"  (a) a replay's device time {_ms(dev.get('all'))} ms over {n_ops.get('all')} "
+          f"operations; the ViT's spatial pass alone (eager, bs2 896x1344) "
+          f"{_ms(alone.get('all'))} ms", flush=True)
+    del step, results, graphed, eager, graph
+    free_memory()
+
+    # (b) one eager batch at 1344 x 2048: the gather path, against the matmul path
+    t = time.perf_counter()
+    seen, kept = [], dino.roi_align
+
+    def record(features, boxes, **kw):
+        out = kept(features, boxes, **kw)
+        seen.append((features.clone(), boxes.clone(), dict(kw), out.clone()))
+        return out
+
+    dino.roi_align = record
+    k1.ms_deform_attn.launches = k2.encoder_tail.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with torch.inference_mode():
+            big = eval_forward(model, cfg, eval_batch(g, LARGE_CANVAS), text_embed, teacher)
+        torch.cuda.synchronize()
+    finally:
+        dino.roi_align = kept
+    check_eval_out(big, cfg)
+    (feats, boxes, kw, crops), = seen
+    h, w = feats.shape[1:3]
+    if h * w <= ra.MATMUL_MAX_GRID or kw.get("method") != "auto":
+        fail(f"the large canvas's {h}x{w} map did not take the gather path through 'auto'")
+    with torch.inference_mode():
+        gathered = ra.roi_align(feats, boxes, **dict(kw, method="gather"))
+        matmul = ra.roi_align(feats, boxes, **dict(kw, method="matmul"))
+    torch.cuda.synchronize()
+    scale = float(matmul.abs().max())
+    err = float((gathered - matmul).abs().max())
+    print(f"  (b) eager eval at {LARGE_CANVAS[0]}x{LARGE_CANVAS[1]}: {time.perf_counter() - t:.1f}"
+          f" s, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, K1 "
+          f"{k1.ms_deform_attn.launches}, K2 {k2.encoder_tail.launches}; the teacher's map "
+          f"{h}x{w} ({h * w} cells > {ra.MATMUL_MAX_GRID}): {tuple(crops.shape)} crops of "
+          f"{tuple(boxes.shape)} boxes by the gather path (the step's own equal to a direct "
+          f"call: {torch.equal(crops, gathered)}); against the matmul path (TF32 off) max abs "
+          f"{err:.3e} of largest {scale:.3e} (bound {ROI_GATHER_TOL:g} of it)", flush=True)
+    if not torch.equal(crops, gathered) or err > ROI_GATHER_TOL * scale:
+        fail("the gather path's crops differ from the matmul path's")
+    if (k1.ms_deform_attn.launches, k2.encoder_tail.launches) != (12, 6):
+        fail("the large-canvas eval batch did not launch K1 12 and K2 6 times")
+    del seen, feats, boxes, crops, gathered, matmul, big, model
+    free_memory()
+
+    # (c) training without the distillation: the bank feeds the classifier
+    tcfg = flagship_cfg(clip_model=VIT, use_visual_distill=False)
+    model, state, step, batches, _ = train_replays(
+        tcfg, (12, 12, 6, 6, 0, 0, 7, None, None), teacher, text_embed, train_batch,
+        what="(c) ViT-B/32 recipe train")
+    step.reset()
+    free_memory()
+    deterministic_replay_check(
+        lambda: make_train_step(model, tcfg, seed=0, device=DEVICE, clip_model=teacher),
+        state, batches[0], text_embed, "(c) ViT-B/32 recipe train")
+    del model, state, step
+    free_memory()
+
+    # (d) the distillation needs attnpool, which the ViT lacks: JAX raises there
+    dcfg = flagship_cfg(clip_model=VIT)
+    try:
+        eager_step(dcfg, teacher, text_embed, batches[0])
+    except NotImplementedError as e:
+        print(f"  (d) a train step under use_visual_distill raises as JAX's: {e}", flush=True)
+        if "attnpool is the RN path" not in str(e):
+            fail(f"the ViT distillation step raised another error: {e}")
+    else:
+        fail("a train step with the ViT teacher under use_visual_distill did not raise")
+    del batches
+    free_memory()
+    print(f"phase 23: the ViT-B/32 recipe served, trained and refused as JAX "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def phase_weak_labels(recs):
+    """Phase 24: the CLIP flagship with the RN50 teacher and its weak labels
+    (``use_imagenet_pusedo_labels``, ``clip_pusedo_th`` 0.05,
+    ``clip_pusedo_topk`` 4) as the one rank of an NCCL group (world size 1, as
+    phase 17), bf16, bs2 at 896 x 1344 with bench.py's batch (300 GT slots, 16
+    valid) whose first image is an extra one: the train graph, 5 replays, each
+    with the gradient all-reduce and the statistics gather of the rewritten
+    batch (``parallel/dist.py:reduce_stats_``), counted by their wrappers and
+    in a replay's profile; the reduced statistics against the group-free
+    ``tensor_stats`` of the same rewritten batch, exactly; finite losses; the
+    replay against an eager step as phase 23 (c)."""
+    import torch
+    import torch.distributed as dist
+
+    from richsem_tpu_torch.bench import guarded_profile
+    from richsem_tpu_torch.parallel import dist as pdist
+    from richsem_tpu_torch.train import engine
+    from richsem_tpu_torch.train.engine import make_loss_fn, make_train_step
+
+    free_memory()
+    t0 = time.perf_counter()
+    env = {k: os.environ.get(k) for k in pdist.LAUNCH_ENV}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(pdist.free_port()))
+    try:
+        d = pdist.init_distributed(DEVICE)
+        if not (d.active and d.backend == "nccl" and d.world == 1):
+            fail("phase 24 did not start a one-rank NCCL group")
+        cfg = flagship_cfg(**WEAK_LABELS)
+        teacher, text_embed, _ = teacher_and_text(cfg)
+
+        def batch_of(g):
+            b = train_batch(g)
+            b["is_extra"] = torch.arange(BATCH, device=DEVICE) == 0
+            return b
+
+        model, state, step, batches, _ = train_replays(
+            cfg, (12, 12, 6, 6, 0, 0, 7, None, None), teacher, text_embed, batch_of, dist=d,
+            what="weak labels, one NCCL rank")
+        (graph,) = step.graphs.values()  # the collectives its capture recorded, a replay's
+        per_step = [graph.launches["grad_average"], graph.launches["stats_gather"]]
+        prof, retakes = guarded_profile(lambda: step(state, batches[0], text_embed))
+        n_nccl, nccl_ms = nccl_ops(prof) if prof is not None else (0, float("nan"))
+        print(f"  collectives a replay (its capture's record): gradient all-reduce "
+              f"{per_step[0]}, statistics gather {per_step[1]}; a replay's profile: "
+              f"{n_nccl} NCCL kernels, {nccl_ms:.4f} ms ({retakes} retakes), busy "
+              f"{getattr(prof, 'busy_ms', float('nan')):.2f} ms", flush=True)
+        if per_step != [1, 1] or n_nccl < 1:
+            fail("the weak-label step did not hold one gradient all-reduce and one statistics "
+                 "gather, or its replay's profile shows no NCCL kernel")
+
+        # the reduced statistics against the group-free ones of the same rewritten batch
+        seen, reduce = [], type(pdist.reduce_stats_).__call__
+
+        def record(self, stats, dd, c):
+            out = reduce(self, stats, dd, c)
+            seen.append({k: v.clone() for k, v in out.items()})
+            return out
+
+        free, tensor_stats = [], engine.tensor_stats
+
+        def record_free(b, c):
+            out = tensor_stats(b, c)
+            free.append({k: v.clone() for k, v in out.items()})
+            return out
+
+        draws = step.draws(state, *batches[0]["labels"].shape)
+        saved = state_copy(state)
+        type(pdist.reduce_stats_).__call__ = record
+        try:
+            step.eager(state, batches[0], text_embed, draws=draws)
+        finally:
+            type(pdist.reduce_stats_).__call__ = reduce
+        state_put(state, saved)
+        engine.tensor_stats = record_free
+        try:
+            with torch.no_grad():
+                make_loss_fn(model, cfg, teacher)(batches[0], draws, text_embed)
+        finally:
+            engine.tensor_stats = tensor_stats
+        torch.cuda.synchronize()
+        (a,), (b,) = seen, free
+        same = [k for k in b if torch.equal(a[k].to(b[k].dtype), b[k])]
+        valid0 = int(batches[0]["valid"].sum())
+        print(f"  reduced statistics vs the group-free tensor_stats of the rewritten batch: "
+              f"{len(same)}/{len(b)} equal; gt_total {int(a['gt_total'])} (the host batch's "
+              f"{valid0}), gt_max {int(a['gt_max'])}, classes {int(a['gt_classes'].sum())}, "
+              f"extra_any {bool(a['extra_any'])}", flush=True)
+        if len(same) != len(b):
+            fail(f"the reduced statistics differ from the group-free ones: "
+                 f"{sorted(set(b) - set(same))}")
+        step.reset()
+        free_memory()
+        deterministic_replay_check(
+            lambda: make_train_step(model, cfg, seed=0, device=DEVICE, clip_model=teacher,
+                                    dist=d),
+            state, batches[0], text_embed, "weak labels, one NCCL rank")
+        del model, state, step, batches, prof, graph
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        free_memory()
+    print(f"phase 24: the teacher's weak labels as one NCCL rank ({time.perf_counter() - t0:.1f}"
+          f" s)", flush=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -3925,6 +4393,11 @@ def main() -> None:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
+    if sys.argv[1:] == ["teacher"]:
+        phase_vit(recs)
+        phase_weak_labels(recs)
+        print(f"total {time.perf_counter() - t0:.1f} s")
+        return
     if sys.argv[1:] == ["knobs"]:
         phase_knobs()
         print(f"total {time.perf_counter() - t0:.1f} s")
@@ -3963,6 +4436,8 @@ def main() -> None:
         phase_variant_a(k7_rec)
         phase_variant_b()
         torch.cuda.empty_cache()
+        phase_vit(recs)
+        phase_weak_labels(recs)
         phase_ddp(recs, smi)
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)

@@ -8,9 +8,19 @@ place on every machine:
 * :func:`imread_rgb` decodes PNG with ``zlib`` and numpy: 8-bit gray, gray +
   alpha, RGB, RGBA and palette images, non-interlaced, every filter type. PNG is
   lossless, so the pixels are ``cv2.imread``'s (alpha dropped, gray repeated).
-  Other formats, and PNG variants this decoder does not read (interlaced, 16-bit,
-  under 8 bits), go through OpenCV when it imports and raise a ``ValueError``
-  naming the format and the missing decoder when it does not.
+  JPEG goes through the host codec (``csrc/jpeg_host.c``, :func:`decode_jpeg`),
+  which computes libjpeg-turbo's pixels bit for bit, and the APP1 Exif
+  orientation is applied as ``cv2.imread(..., IMREAD_COLOR)`` applies it. A
+  JPEG variant the codec does not read (progressive, arithmetic, lossless,
+  12-bit, four components) raises ``NotImplementedError`` naming the file and
+  the variant; a stream that ends early or is corrupt raises ``ValueError``
+  with the file and the byte offset, where OpenCV warns and pads it (ROADMAP
+  F-P11). Other formats, and PNG variants this decoder does not read
+  (interlaced, 16-bit, under 8 bits), go through OpenCV when it imports and
+  raise a ``ValueError`` naming the format and the missing decoder when it
+  does not.
+* :func:`encode_jpeg` writes baseline 4:2:0 JPEG as libjpeg-turbo's defaults
+  do at a quality (``cv2.imencode``'s bytes decode to the same pixels).
 * :func:`resize` reproduces ``cv2.resize`` on uint8 images: ``INTER_LINEAR``
   (half-pixel centres, edge clamp, OpenCV's 11-bit fixed-point weights and its
   vectorised rounding) and ``INTER_AREA`` (for shrinking, OpenCV's overlap
@@ -20,6 +30,7 @@ place on every machine:
 
 from __future__ import annotations
 
+import ctypes
 import math
 import os
 import struct
@@ -180,17 +191,139 @@ def encode_png(img: np.ndarray, filters=0, level: int = 1) -> bytes:
             + _chunk(b"IEND", b""))
 
 
+# ---------------------------------------------------------------------------
+# JPEG
+# ---------------------------------------------------------------------------
+_MSG = 240
+
+
+def _codec() -> ctypes.CDLL:
+    """``csrc/jpeg_host.c``, built with the host C compiler at first use."""
+    from richsem_tpu_torch.ops import _build
+
+    lib = _build.load_host("jpeg_host")
+    if not getattr(lib, "_typed", False):
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.jpeg_header.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                    ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+                                    ctypes.c_char_p, ctypes.c_int]
+        lib.jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+                                    ctypes.c_char_p, ctypes.c_int]
+        lib.jpeg_encode.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                    ctypes.POINTER(u8p), ctypes.POINTER(ctypes.c_size_t)]
+        lib.jpeg_free.argtypes = [ctypes.c_void_p]
+        lib._typed = True
+    return lib
+
+
+def _raise(code: int, msg: bytes, name: str):
+    text = f"{name}: {msg.decode(errors='replace')}"
+    if code == 1:
+        raise NotImplementedError(f"{text}: the port's JPEG decoder reads baseline and "
+                                  "extended sequential Huffman JPEG only")
+    raise ValueError(text)
+
+
+def _exif_orientation(data: bytes) -> int:
+    """The Exif orientation tag (0x0112) of IFD0 in a JPEG's APP1 segment, 1-8;
+    1 when there is none or it is out of range."""
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker = data[pos + 1]
+        if marker in (0xD9, 0xDA):
+            break
+        n = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        body = data[pos + 4:pos + 2 + n]
+        if marker == 0xE1 and body[:6] == b"Exif\x00\x00":
+            tiff = body[6:]
+            try:
+                end = {b"II": "<", b"MM": ">"}[tiff[:2]]
+                ifd = struct.unpack(end + "I", tiff[4:8])[0]
+                count = struct.unpack(end + "H", tiff[ifd:ifd + 2])[0]
+                for i in range(count):
+                    e = ifd + 2 + 12 * i
+                    tag, typ = struct.unpack(end + "HH", tiff[e:e + 4])
+                    if tag == 0x0112 and typ == 3:
+                        v = struct.unpack(end + "H", tiff[e + 8:e + 10])[0]
+                        return v if 1 <= v <= 8 else 1
+            except (KeyError, struct.error):
+                return 1
+            return 1
+        pos += 2 + n
+    return 1
+
+
+def _apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
+    """OpenCV's ``applyExifOrientation``: flips and a transpose per tag 1-8."""
+    flips = {1: (False, None), 2: (False, 1), 3: (False, -1), 4: (False, 0),
+             5: (True, None), 6: (True, 1), 7: (True, -1), 8: (True, 0)}
+    transpose, flip = flips.get(orientation, (False, None))
+    if transpose:
+        img = img.transpose(1, 0, 2)
+    if flip == 1:
+        img = img[:, ::-1]
+    elif flip == 0:
+        img = img[::-1]
+    elif flip == -1:
+        img = img[::-1, ::-1]
+    return np.ascontiguousarray(img)
+
+
+def decode_jpeg(data: bytes, orient: bool = True, name: str = "<bytes>") -> np.ndarray:
+    """JPEG bytes -> RGB uint8 [h, w, 3], libjpeg-turbo's pixels. ``orient``
+    applies the Exif orientation as ``cv2.imread``/``cv2.imdecode`` do;
+    ``orient=False`` is PIL's ``Image.open(...).convert("RGB")``. Raises
+    ``NotImplementedError`` for a variant the decoder does not read and
+    ``ValueError`` for a stream that ends early or is corrupt, each naming
+    ``name``."""
+    lib = _codec()
+    data = bytes(data)
+    msg = ctypes.create_string_buffer(_MSG)
+    h, w = ctypes.c_int(0), ctypes.c_int(0)
+    code = lib.jpeg_header(data, len(data), ctypes.byref(h), ctypes.byref(w), msg, _MSG)
+    if code:
+        _raise(code, msg.value, name)
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    code = lib.jpeg_decode(data, len(data), out.ctypes.data, msg, _MSG)
+    if code:
+        _raise(code, msg.value, name)
+    return _apply_orientation(out, _exif_orientation(data)) if orient else out
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 90) -> bytes:
+    """RGB uint8 [h, w, 3] -> baseline 4:2:0 JPEG bytes at ``quality``, as
+    libjpeg-turbo's defaults write them (``cv2.imencode('.jpg', bgr,
+    [IMWRITE_JPEG_QUALITY, quality])`` decodes to the same pixels)."""
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"encode_jpeg takes uint8 [h, w, 3], got {img.dtype} {img.shape}")
+    lib = _codec()
+    px = np.ascontiguousarray(img)
+    buf = ctypes.POINTER(ctypes.c_uint8)()
+    n = ctypes.c_size_t(0)
+    code = lib.jpeg_encode(px.ctypes.data, px.shape[0], px.shape[1], int(quality),
+                           ctypes.byref(buf), ctypes.byref(n))
+    if code:
+        raise ValueError(f"encode_jpeg failed for a {img.shape} image (code {code})")
+    try:
+        return ctypes.string_at(buf, n.value)
+    finally:
+        lib.jpeg_free(buf)
+
+
 def imread_rgb(path: str) -> Optional[np.ndarray]:
     """Read an image file as RGB uint8 [h, w, 3]: ``cv2.imread`` + ``BGR2RGB``
-    without OpenCV for PNG. None when the file is missing, truncated or corrupt,
-    as ``cv2.imread`` returns."""
+    without OpenCV for PNG and JPEG (the Exif orientation applied). None when
+    the file is missing, and for a truncated or corrupt PNG, as ``cv2.imread``
+    returns; a JPEG that ends early or is corrupt raises (see the module)."""
     if not os.path.isfile(path):
         return None
     with open(path, "rb") as f:
         data = f.read()
     fmt = _format_of(data[:16])
+    if fmt == "JPEG":
+        return decode_jpeg(data, name=path)
     if fmt != "PNG":
-        return _cv2_read(path, fmt, "not PNG")
+        return _cv2_read(path, fmt, "not PNG or JPEG")
     try:
         return decode_png(data)
     except NotImplementedError as e:

@@ -26,7 +26,7 @@ def build_richsem(
     state dict is loaded.
     """
     model = DINO(DINOConfig.from_config(cfg), device=device,
-                 clip_spatial_dim=getattr(cfg, "clip_spatial_dim", 2048)).eval()
+                 clip_spatial_dim=clip_spatial_width(cfg)).eval()
     if generator is not None:
         model.init_weights(generator)
     post_kwargs = dict(
@@ -37,27 +37,38 @@ def build_richsem(
 
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_TOWERS = {"RN50": CLIPConfig.rn50, "ViT-B/32": CLIPConfig.vit_b32}
+
+
+def clip_spatial_width(cfg) -> int:
+    """The width of the teacher's spatial map (``encode_image(ret_sp=True)``),
+    the input of ``use_clip_visual_query``'s ``clip_query_proj``: RN50's map
+    before the attention pool is 2048 wide, ViT-B/32's after ``proj``
+    ``embed_dim`` 512 wide. ``cfg.clip_spatial_dim`` (a tiny test teacher's)
+    takes precedence."""
+    if getattr(cfg, "clip_spatial_dim", None) is not None:
+        return cfg.clip_spatial_dim
+    return 512 if getattr(cfg, "clip_model", "RN50") == "ViT-B/32" else 2048
 
 
 def build_clip_teacher(
     cfg, dtype: Union[None, str, torch.dtype] = None, device="cuda",
     generator: Optional[torch.Generator] = None,
 ) -> CLIP:
-    """The frozen CLIP teacher of ``cfg.clip_model`` (RN50), its vision tower
-    computing in ``dtype`` (None: f32), on ``device`` (the card unless the caller
+    """The frozen CLIP teacher of ``cfg.clip_model`` (``"RN50"`` or
+    ``"ViT-B/32"``), its vision tower computing in ``dtype`` (None: f32) at
+    ``cfg.clip_visual_resolution``, on ``device`` (the card unless the caller
     asks for the CPU), in eval mode with no parameter requiring a gradient.
 
     With ``generator`` the weights are drawn from it (random weights from a
     seed); without, they stay uninitialized until a state dict is loaded
     (``utils/convert.py:clip_params_from_jax``)."""
     name = getattr(cfg, "clip_model", "RN50")
-    if name != "RN50" or not getattr(cfg, "use_cnn_clip", True):
-        raise NotImplementedError(
-            f"the CLIP teacher {name!r} is not ported to richsem_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 11)")
+    if name not in _TOWERS:
+        raise ValueError(f"unknown clip_model {name!r}: the towers are {sorted(_TOWERS)}")
     dtype = _DTYPES[dtype] if isinstance(dtype, str) else dtype
     ccfg = dataclasses.replace(
-        CLIPConfig.rn50(), dtype=dtype,
+        _TOWERS[name](), dtype=dtype,
         image_resolution=getattr(cfg, "clip_visual_resolution", 224))
     teacher = CLIP(ccfg, device=device)
     if generator is not None:

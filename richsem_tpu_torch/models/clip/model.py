@@ -1,10 +1,18 @@
-"""CLIP-RN50, the frozen teacher (counterpart of ``richsem_tpu/models/clip/model.py``).
+"""CLIP (RN50 and ViT-B/32), the frozen teacher (counterpart of
+``richsem_tpu/models/clip/model.py``).
 
 * :class:`ModifiedResNet` -- the 3-conv stem and average pool, anti-aliased
   bottlenecks (an average pool takes the stride) and the
   :class:`AttentionPool2d` head, whose mean-token query gives the image
   embedding. ``encode_image(..., ret_sp=True)`` returns the stride-32 map
   before the pool, which the distillation crops.
+* :class:`VisionTransformer` (``CLIPConfig.vit_b32``) -- a patch convolution
+  without bias, the class token, the positional table resized to the patch
+  grid (:func:`resize_pos_embed`, ``jax.image.resize``'s antialiased
+  bilinear), ``ln_pre``, residual attention blocks, then ``ln_post`` and
+  ``proj`` on the class token, or under ``ret_sp`` on every patch token (a
+  ``[B, gh, gw, embed_dim]`` map, which the visual queries crop). It has no
+  attention pool: ``CLIP.attnpool`` raises for it, as in JAX.
 * The text tower: causal residual attention blocks with QuickGELU, pooled at
   the end-of-text token (the largest token id) through ``text_projection``.
 
@@ -12,9 +20,12 @@ Precision follows the flax modules cast for cast: the vision tower's convs and
 attention-pool projections compute in ``CLIPConfig.dtype`` (bf16 for the
 flagship teacher, as the reference runs it in fp16), the attention-pool
 softmax in f32 cast back, the frozen batch norms in the input's dtype; the
-text tower computes in f32. Module and parameter names follow the flax tree,
-so :func:`richsem_tpu_torch.utils.convert.clip_params_from_jax` is reshapes
-and transposes only. The ViT tower is not ported (ROADMAP.md queue 1, item 11).
+text tower computes in f32. The ViT's patch convolution, attention and MLP
+compute in ``CLIPConfig.dtype``; its residual stream, layer norms and ``proj``
+stay f32, as flax promotes them (the f32 class token joins the bf16 patches).
+Module and parameter names follow the flax tree, so
+:func:`richsem_tpu_torch.utils.convert.clip_params_from_jax` is reshapes and
+transposes only.
 
 Images are channel-last ``[B, H, W, 3]``, CLIP-normalized.
 """
@@ -68,6 +79,11 @@ class CLIPConfig:
     @classmethod
     def rn50(cls) -> "CLIPConfig":
         return cls()
+
+    @classmethod
+    def vit_b32(cls) -> "CLIPConfig":
+        return cls(name="ViT-B/32", embed_dim=512, vision_layers=(12,), vision_width=768,
+                   vision_heads=12, is_vit=True)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -187,15 +203,19 @@ class ModifiedResNet(nn.Module):
 
 
 class ResidualAttentionBlock(nn.Module):
-    """Pre-LN attention block of the text tower (f32)."""
+    """Pre-LN attention block: attention and MLP in ``dtype`` (the text tower's
+    f32, the ViT's ``CLIPConfig.dtype``), the layer norms and the residual in
+    f32."""
 
-    def __init__(self, width: int, heads: int, device=None):
+    def __init__(self, width: int, heads: int, dtype: Optional[torch.dtype] = None,
+                 device=None):
         super().__init__()
+        dtype = dtype or torch.float32
         self.ln_1 = LayerNorm(width, 1e-5, device=device)
-        self.attn = MultiHeadAttention(width, heads, torch.float32, device=device)
+        self.attn = MultiHeadAttention(width, heads, dtype, device=device)
         self.ln_2 = LayerNorm(width, 1e-5, device=device)
-        self.mlp_c_fc = Dense(width, width * 4, dtype=torch.float32, device=device)
-        self.mlp_c_proj = Dense(width * 4, width, dtype=torch.float32, device=device)
+        self.mlp_c_fc = Dense(width, width * 4, dtype=dtype, device=device)
+        self.mlp_c_proj = Dense(width * 4, width, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
         h = self.ln_1(x)
@@ -211,6 +231,89 @@ class ResidualAttentionBlock(nn.Module):
             mod.init_weights(g)
 
 
+class VisionTransformer(nn.Module):
+    """The ViT vision tower: ``[B, H, W, 3]`` -> ``[B, embed_dim]``, or under
+    ``ret_sp`` the patch map ``[B, H/p, W/p, embed_dim]``."""
+
+    def __init__(self, cfg: CLIPConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        width, p = cfg.vision_width, cfg.vision_patch_size
+        self.conv1 = Conv(3, width, p, stride=p, padding="same", bias=False, dtype=cfg.dtype,
+                          device=device)
+        self.class_embedding = nn.Parameter(torch.empty(width, device=device))
+        self.positional_embedding = nn.Parameter(
+            torch.empty((cfg.image_resolution // p) ** 2 + 1, width, device=device))
+        self.ln_pre = LayerNorm(width, 1e-5, device=device)
+        for i in range(cfg.vision_layers[0]):
+            self.add_module(f"block{i}", ResidualAttentionBlock(
+                width, cfg.vision_heads, cfg.dtype, device=device))
+        self.ln_post = LayerNorm(width, 1e-5, device=device)
+        self.proj = nn.Parameter(torch.empty(width, cfg.embed_dim, device=device))
+
+    def blocks(self):
+        return [getattr(self, f"block{i}") for i in range(self.cfg.vision_layers[0])]
+
+    def forward(self, x: torch.Tensor, ret_sp: bool = False) -> torch.Tensor:
+        b = x.shape[0]
+        y = self.conv1(x)  # [B, gh, gw, width] in the tower's dtype
+        gh, gw, width = y.shape[1:]
+        y = y.reshape(b, gh * gw, width)
+        dt = torch.promote_types(self.class_embedding.dtype, y.dtype)  # f32, as flax's concat
+        y = torch.cat([self.class_embedding.to(dt).expand(b, 1, width), y.to(dt)], dim=1)
+        y = self.ln_pre(y + resize_pos_embed(self.positional_embedding, gh, gw))
+        for blk in self.blocks():
+            y = blk(y)
+        if ret_sp:  # ln_post and proj on every token; the map has embed_dim channels
+            return (self.ln_post(y) @ self.proj)[:, 1:].reshape(b, gh, gw, self.cfg.embed_dim)
+        return self.ln_post(y[:, 0]) @ self.proj
+
+    def init_weights(self, g: torch.Generator) -> None:
+        scale = self.cfg.vision_width ** -0.5
+        self.conv1.init_weights(g)
+        normal_(self.class_embedding, g, scale)
+        normal_(self.positional_embedding, g, scale)
+        self.ln_pre.init_weights(g)
+        for blk in self.blocks():
+            blk.init_weights(g)
+        self.ln_post.init_weights(g)
+        normal_(self.proj, g, scale)
+
+
+def _triangle_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """``jax.image.resize``'s bilinear weights along one axis, antialiased (the
+    triangle widened by the shrink factor): ``[n_in, n_out]`` in f32, each
+    column normalised, as ``jax._src.image.scale.compute_weight_mat``."""
+    scale = n_out / n_in
+    inv = 1.0 / scale
+    kscale = max(inv, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv - 0.5
+    pos = torch.arange(n_in, dtype=torch.float32, device=device)
+    w = torch.clamp(1.0 - (sample[None, :] - pos[:, None]).abs() / kscale, min=0.0)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def resize_pos_embed(pos: torch.Tensor, gh: int, gw: int) -> torch.Tensor:
+    """The ViT positional table ``[g*g + 1, C]`` at a ``gh x gw`` patch grid ->
+    ``[1, gh*gw + 1, C]`` (``_resize_pos_embed``): unchanged at ``g x g``, else
+    the grid resized bilinearly with ``jax.image.resize``'s antialiasing, one
+    axis after the other (rows, then columns) in f32."""
+    n = pos.shape[0] - 1
+    g = int(math.isqrt(n))
+    if g * g == n and (gh, gw) == (g, g):
+        return pos[None]
+    grid = pos[1:].float().reshape(g, g, -1)
+    if gh != g:
+        grid = torch.einsum("hwc,hH->Hwc", grid, _triangle_weights(g, gh, pos.device))
+    if gw != g:
+        grid = torch.einsum("hwc,wW->hWc", grid, _triangle_weights(g, gw, pos.device))
+    return torch.cat([pos[:1].float(), grid.reshape(gh * gw, -1)], dim=0)[None]
+
+
 class CLIP(nn.Module):
     """Build with ``CLIP(cfg, device)``, then ``init_weights(generator)`` or load a
     converted state dict; the teacher is used frozen, in eval mode."""
@@ -222,15 +325,11 @@ class CLIP(nn.Module):
             raise RuntimeError(
                 "CLIP builds on 'cuda' unless asked otherwise, and no CUDA device is "
                 "available; pass device='cpu' to build on the CPU")
-        if cfg.is_vit:
-            raise NotImplementedError(
-                "the CLIP ViT tower is not ported to richsem_tpu_torch yet "
-                "(ROADMAP.md queue 1, item 11)")
         self.cfg = cfg
-        self.visual = ModifiedResNet(cfg, device)
+        self.visual = VisionTransformer(cfg, device) if cfg.is_vit else ModifiedResNet(cfg, device)
         for i in range(cfg.transformer_layers):
             self.add_module(f"text_block{i}", ResidualAttentionBlock(
-                cfg.transformer_width, cfg.transformer_heads, device))
+                cfg.transformer_width, cfg.transformer_heads, device=device))
         self.token_embedding = nn.Parameter(
             torch.empty(cfg.vocab_size, cfg.transformer_width, device=device))
         self.positional_embedding = nn.Parameter(
@@ -260,7 +359,10 @@ class CLIP(nn.Module):
         return self.visual(images, ret_sp=ret_sp)
 
     def attnpool(self, spatial: torch.Tensor) -> torch.Tensor:
-        """Pool a stride-32 map, or RoI crops flattened into the batch."""
+        """Pool a stride-32 map, or RoI crops flattened into the batch (RN50
+        only: the ViT tower has no attention pool, and raises as JAX's)."""
+        if self.cfg.is_vit:
+            raise NotImplementedError("attnpool is the RN path (use_cnn_clip)")
         return self.visual.attnpool(spatial)
 
     def encode_text(self, tokens: torch.Tensor) -> torch.Tensor:

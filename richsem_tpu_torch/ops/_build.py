@@ -1,7 +1,11 @@
-"""Build the hand-written CUDA kernels at first use and load them with ctypes.
+"""Build the hand-written CUDA kernels, and the host codec, at first use and
+load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
-``nvcc`` builds it in seconds. The shared library goes to
+``nvcc`` builds it in seconds. The host route builds ``csrc/<name>.c`` (plain
+C that runs on the CPU: the JPEG codec, ``jpeg_host.c``) with the host C
+compiler instead (:func:`build_host`, :func:`load_host`), on every machine,
+the CPU-only one included. The shared library goes to
 ``build/richsem_tpu_torch/<name>-<hash>.so`` at the root of the checkout,
 keyed by a hash of the source, the shared headers (``csrc/*.cuh``) and the
 flags, so an edited kernel or header is rebuilt
@@ -16,7 +20,9 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Sequence
 
@@ -28,7 +34,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+HOST_CC = "cc"
+HOST_FLAGS = ("-O2", "-shared", "-fPIC")
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_HOST_LOCK = threading.Lock()  # the data loader's threads load the codec at once
 
 
 def _nvcc() -> str:
@@ -94,3 +104,43 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         _LIBS[name] = ctypes.CDLL(build(name))
     return _LIBS[name]
+
+
+def host_library_path(name: str) -> str:
+    """Path of the shared library for ``csrc/<name>.c`` at its current source
+    and :data:`HOST_FLAGS`."""
+    h = hashlib.sha256()
+    with open(os.path.join(CSRC_DIR, f"{name}.c"), "rb") as f:
+        h.update(f"{name}.c".encode() + b"\0" + f.read())
+    h.update(" ".join((HOST_CC,) + HOST_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def build_host(name: str) -> str:
+    """Compile ``csrc/<name>.c`` with the host C compiler (``cc -O2 -shared
+    -fPIC``) unless an up-to-date build exists; -> .so path. Raises, naming
+    the compiler, when it is missing or fails."""
+    so = host_library_path(name)
+    if os.path.isfile(so):
+        return so
+    cc = shutil.which(HOST_CC)
+    if cc is None:
+        raise RuntimeError(f"the host C compiler {HOST_CC!r} is not on PATH: cannot build "
+                           f"csrc/{name}.c")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
+    proc = subprocess.run([cc, *HOST_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.c")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{HOST_CC} failed for {name}.c (exit {proc.returncode}):\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.c``; cached per process."""
+    with _HOST_LOCK:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(build_host(name))
+        return _LIBS[name]

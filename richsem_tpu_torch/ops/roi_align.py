@@ -1,5 +1,5 @@
-"""RoIAlign of the CLIP teacher's distillation targets (counterpart of
-``richsem_tpu/ops/roi_align.py``, its ``method="matmul"`` path).
+"""RoIAlign of the CLIP teacher's distillation targets and visual queries
+(counterpart of ``richsem_tpu/ops/roi_align.py``).
 
 detectron2's ``ROIAlign(output_size, spatial_scale, sampling_ratio=0,
 aligned=True)``, as the reference crops the CLIP spatial map: box corners
@@ -19,9 +19,17 @@ outside any kernel.
 
 A static ``sampling_ratio`` (``n`` samples a bin and axis, every one at
 weight ``1 / n``, as the visual-query crop of ``use_clip_visual_query``
-takes them) uses the same matrix with ``nmax = n``. ``method="auto"`` is the
-matmul path on a map of at most ``MATMUL_MAX_GRID`` cells, as in JAX; the
-``gather`` method is not ported (ROADMAP.md queue 1, item 11).
+takes them) uses the same matrix with ``nmax = n``.
+
+``method="gather"`` samples the map directly (``_bilinear_grid_sample``, JAX's
+``roi_align.py:187-219``): the ``n x n`` sample lattice of every bin, each
+sample the sum of its four taps (zero outside the map) in float32, averaged
+over the bin; linear in the map's cells, for maps where ``W`` would not fit.
+Its sample count is a shape, so ``sampling_ratio=0`` raises there, as in JAX.
+``method="auto"`` is the matmul path on a map of at most ``MATMUL_MAX_GRID``
+cells and the gather path past it, as JAX's ``roi_align.py:71-72`` chooses:
+the visual queries on a 1344 x 2048 canvas crop a 42 x 64 map (2,688 cells).
+Both paths are plain PyTorch: JAX's are XLA programs, not Pallas kernels.
 """
 
 from __future__ import annotations
@@ -74,13 +82,12 @@ def roi_align(
     """Crop-and-resize ``boxes`` from ``features`` -> ``[B, R, o, o, C]`` in the
     features' dtype."""
     b, h, w, c = features.shape
-    if method == "auto" and h * w <= MATMUL_MAX_GRID:
-        method = "matmul"
+    if method == "auto":
+        method = "matmul" if h * w <= MATMUL_MAX_GRID else "gather"
+    if method == "gather":
+        return _roi_align_gather(features, boxes, output_size, spatial_scale, sampling_ratio)
     if method != "matmul":
-        raise NotImplementedError(
-            f"roi_align(method={method!r}) on a {h}x{w} map is not ported to "
-            "richsem_tpu_torch yet (ROADMAP.md queue 1, item 11); the port has the "
-            "matmul path")
+        raise ValueError(f"unknown roi_align method {method!r}: 'auto', 'matmul' or 'gather'")
     r = boxes.shape[1]
     o = output_size
     bx = boxes.float() * spatial_scale
@@ -101,3 +108,53 @@ def roi_align(
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     return crops.reshape(b, r, o, o, c).to(features.dtype)
+
+
+def _roi_align_gather(features, boxes, output_size: int, spatial_scale: float,
+                      sampling_ratio: int) -> torch.Tensor:
+    """The gather path: every bin's ``n x n`` bilinear samples from the map,
+    averaged (``roi_align.py:76-104``)."""
+    if sampling_ratio == 0:
+        raise NotImplementedError(
+            "adaptive sampling_ratio=0 is implemented on the matmul path "
+            "only (the gather path's sample count is a shape); use "
+            "method='matmul' or a static sampling_ratio")
+    b, h, w, c = features.shape
+    r, n, o = boxes.shape[1], sampling_ratio, output_size
+    bx = boxes.float() * spatial_scale
+    start_x, start_y = bx[..., 0] - 0.5, bx[..., 1] - 0.5  # [B, R]
+    bin_w = (bx[..., 2] - bx[..., 0]) / o
+    bin_h = (bx[..., 3] - bx[..., 1]) / o
+    dev = features.device
+    frac = (torch.arange(n, dtype=torch.float32, device=dev) + 0.5) / n
+    bins = torch.arange(o, dtype=torch.float32, device=dev)
+    grid = (bins[:, None] + frac[None, :]).reshape(o * n)
+    sx = start_x[..., None] + bin_w[..., None] * grid  # [B, R, o*n]
+    sy = start_y[..., None] + bin_h[..., None] * grid
+    out = _bilinear_grid_sample(features, sy, sx)  # [B, R, o*n, o*n, C]
+    out = out.reshape(b, r, o, n, o, n, c).mean(dim=(3, 5))
+    return out.to(features.dtype)
+
+
+def _bilinear_grid_sample(features: torch.Tensor, y: torch.Tensor, x: torch.Tensor
+                          ) -> torch.Tensor:
+    """``features [B, H, W, C]`` sampled at the outer grid of ``y [B, R, Gy]`` x
+    ``x [B, R, Gx]`` pixel coordinates -> ``[B, R, Gy, Gx, C]`` float32: four
+    taps a sample, each zero outside the map."""
+    b, h, w, c = features.shape
+    gy, gx = y.shape[-1], x.shape[-1]
+    yy = y[..., :, None].expand(*y.shape, gx)
+    xx = x[..., None, :].expand(*x.shape[:-1], gy, gx)
+    feats = features.float().reshape(b, h * w, c)
+    y0, x0 = torch.floor(yy), torch.floor(xx)
+    dy, dx = yy - y0, xx - x0
+    y0i, x0i = y0.long(), x0.long()
+    acc = feats.new_zeros(*yy.shape, c)
+    for cy, wy in ((y0i, 1 - dy), (y0i + 1, dy)):
+        for cx, wx in ((x0i, 1 - dx), (x0i + 1, dx)):
+            valid = (cy >= 0) & (cy < h) & (cx >= 0) & (cx < w)
+            idx = (cy.clamp(0, h - 1) * w + cx.clamp(0, w - 1)).reshape(b, -1)
+            tap = torch.gather(feats, 1, idx[:, :, None].expand(-1, -1, c))
+            wgt = torch.where(valid, wy * wx, 0.0)
+            acc = acc + tap.reshape(*yy.shape, c) * wgt[..., None]
+    return acc

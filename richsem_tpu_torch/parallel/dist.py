@@ -21,6 +21,14 @@ here too:
   before the step (:func:`step_stats`, one small gloo collective), from the
   numpy batch, so that reading them synchronises nothing. They ride in the
   batch as tensors.
+* Where the teacher's weak labels rewrite the extra images' labels and boxes
+  on the card (``use_imagenet_pusedo_labels``), the statistics are those of
+  the rewritten batch, which the host never sees: each rank computes them
+  from its rewritten tensors (:func:`tensor_stats`) and one collective in the
+  step (:data:`reduce_stats_`, captured in the train graph) gathers the
+  ranks' int32 rows and reduces them on the card with the sums, maxima and
+  unions of :func:`step_stats`. JAX computes them in its one jitted program
+  over the sharded batch (``richsem_tpu/train/engine.py:108-127``).
 * Each batch-global normaliser is its global value divided by N, the
   reference's way (``num_boxes / world_size``): the mean over the ranks of
   their losses equals, term by term, the JAX loss on the global batch.
@@ -89,17 +97,21 @@ class Dist:
         return torch.device("cuda", self.local_rank if self.active else (kind.index or 0))
 
 
-_HOST: Dict[int, Any] = {}  # id of the default group -> its gloo twin
+_HOST: Dict[int, Any] = {}  # id of the default group -> (it, its gloo twin)
 
 
 def _host_group(backend: str):
+    """The gloo twin of the running default group, made once a group: the
+    entry holds the group it was made for, so a later group (after a
+    ``destroy_process_group``) never inherits a stale twin."""
     world = dist.group.WORLD
     if backend == "gloo":
         return world
-    if id(world) not in _HOST:
+    entry = _HOST.get(id(world))
+    if entry is None or entry[0] is not world:
         _HOST.clear()
-        _HOST[id(world)] = dist.new_group(backend="gloo")
-    return _HOST[id(world)]
+        _HOST[id(world)] = (world, dist.new_group(backend="gloo"))
+    return _HOST[id(world)][1]
 
 
 def init_distributed(device="cuda") -> Dist:
@@ -269,6 +281,40 @@ def step_stats(d: Dist, batch: Optional[Dict[str, np.ndarray]],
             "dn_total": np.asarray(rows[:, 3].sum(), np.int64),
             "dn_classes": rows[:, 5 + c:].max(0).astype(bool),
             "extra_any": np.asarray(bool(rows[:, 4].max()))}
+
+
+class _ReduceStats:
+    """The statistics collective of a step with the teacher's weak labels:
+    ``reduce_stats_(stats, d, num_classes)`` -> the global statistics of
+    :data:`STAT_KEYS` from each rank's :func:`tensor_stats`, on the card.
+    One all-gather of each rank's int32 row (the counts, the largest count,
+    ``extra_any`` and the two class masks), then the sums, maxima and unions
+    of :func:`step_stats` taken on the device, so that a CUDA graph holds it
+    and nothing is read on the host. ``.launches`` counts its calls, as
+    :data:`average_`'s does."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, stats: Dict[str, torch.Tensor], d: Dist,
+                 num_classes: int) -> Dict[str, torch.Tensor]:
+        head = torch.stack([stats[k].reshape(()).to(torch.int32)
+                            for k in ("gt_total", "gt_max", "dn_total", "extra_any")])
+        row = torch.cat([head, stats["gt_classes"].to(torch.int32),
+                         stats["dn_classes"].to(torch.int32)])
+        rows = torch.empty(d.world * row.numel(), dtype=torch.int32, device=row.device)
+        gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+        gather(rows, row, group=d.group)
+        self.launches += 1
+        rows = rows.view(d.world, -1)
+        c = num_classes
+        return {"gt_total": rows[:, 0].sum(), "gt_max": rows[:, 1].amax().long(),
+                "gt_classes": rows[:, 4:4 + c].amax(0).bool(), "dn_total": rows[:, 2].sum(),
+                "dn_classes": rows[:, 4 + c:].amax(0).bool(),
+                "extra_any": rows[:, 3].amax().bool()}
+
+
+reduce_stats_ = _ReduceStats()
 
 
 def gather_to_lead(d: Dist, obj: Any) -> Optional[List[Any]]:

@@ -13,16 +13,18 @@ flip, normalise; ``configs/richsem/base_data_aug.py``) -> the threaded
 threads and a prefetch of 4, and reports the images/s it sustains on the
 host. No device is involved.
 
-The corpus is the JAX tool's (the same sizes, the same smooth noise and boxes
-from ``numpy.random.default_rng(0)``) with one difference: it is written as
-PNG (``data/image_io.py:encode_png``, upsampled with the port's ``resize``),
-because the port reads JPEG only through OpenCV, which the card's machine
-lacks, until a JPEG decoder is ported (ROADMAP.md queue 1, item 10d). The
-metric says "PNG corpus".
+The corpus is the JAX tool's: the same sizes, the same smooth noise and boxes
+from ``numpy.random.default_rng(0)``, written as JPEG at quality 90 by the
+port's codec (``data/image_io.py:encode_jpeg``, which writes the bytes
+``cv2.imwrite`` writes; the noise is upsampled with the port's ``resize``,
+within one level of ``cv2.resize``), and read back by the port's decoder
+(``decode_jpeg``, ``csrc/jpeg_host.c``). The metric says "JPEG corpus".
 
 Prints ONE JSON line with the JAX tool's keys: the host's img/s, per core,
 the cores, threads and images, the corpus' generation seconds and the ratio
-to a chip's train rate (``--chip-rate``, by default 5.0 img/s).
+to a chip's train rate (``--chip-rate``, by default 5.0 img/s); and beside
+them ``decode_ms``, the codec's decode time an image on one host thread over
+the corpus (every file once, after one warm-up decode).
 """
 
 from __future__ import annotations
@@ -46,12 +48,29 @@ CORPUS_SIZES = [
 ANNS_PER_IMAGE = 11  # LVIS v1 train mean 11.2
 NUM_CLASSES = 1203
 N_WARM = 5  # warm-up batches (first touches), fewer on a small corpus
+JPEG_QUALITY = 90  # the JAX tool's IMWRITE_JPEG_QUALITY
+
+
+def decode_ms(img_dir: str) -> float:
+    """The codec's decode ms an image on this thread: every file of
+    ``img_dir`` once, after one warm-up decode (the codec's build and load)."""
+    from richsem_tpu_torch.data.image_io import decode_jpeg
+
+    blobs = []
+    for name in sorted(os.listdir(img_dir)):
+        with open(os.path.join(img_dir, name), "rb") as f:
+            blobs.append(f.read())
+    decode_jpeg(blobs[0])
+    t0 = time.perf_counter()
+    for b in blobs:
+        decode_jpeg(b)
+    return (time.perf_counter() - t0) * 1e3 / len(blobs)
 
 
 def make_corpus(root: str, n_images: int, seed: int = 0) -> str:
-    """Write ``n_images`` PNGs and a COCO-format annotation file under
-    ``root``. -> the annotation file's path."""
-    from richsem_tpu_torch.data.image_io import INTER_LINEAR, encode_png, resize
+    """Write ``n_images`` JPEGs (quality 90) and a COCO-format annotation file
+    under ``root``. -> the annotation file's path."""
+    from richsem_tpu_torch.data.image_io import INTER_LINEAR, encode_jpeg, resize
 
     rng = np.random.default_rng(seed)
     img_dir = os.path.join(root, "imgs")
@@ -63,9 +82,10 @@ def make_corpus(root: str, n_images: int, seed: int = 0) -> str:
         # smooth noise: decode cost between flat and white noise, like natural images
         base = rng.integers(0, 255, (h // 8, w // 8, 3), np.uint8)
         img = resize(base, (w, h), interpolation=INTER_LINEAR)
-        fname = f"{i:08d}.png"
+        fname = f"{i:08d}.jpg"
         with open(os.path.join(img_dir, fname), "wb") as f:
-            f.write(encode_png(img))
+            # cv2.imwrite takes the array as BGR: the file's RGB is it reversed
+            f.write(encode_jpeg(np.ascontiguousarray(img[..., ::-1]), JPEG_QUALITY))
         images.append({"id": i + 1, "file_name": fname, "height": h, "width": w})
         for _ in range(ANNS_PER_IMAGE):
             x = float(rng.uniform(0, w * 0.7))
@@ -112,6 +132,7 @@ def bench_line(n_images: int = 400, threads: int = 8, batch: int = 2,
         t0 = time.time()
         ann_path = make_corpus(root, n_images)
         gen_s = time.time() - t0
+        dec_ms = decode_ms(os.path.join(root, "imgs"))
         tf = make_train_transform(
             cfg.data_aug_scales, cfg.data_aug_max_size,
             cfg.data_aug_scales2_resize, tuple(cfg.data_aug_scales2_crop),
@@ -139,7 +160,7 @@ def bench_line(n_images: int = 400, threads: int = 8, batch: int = 2,
     cores = len(os.sched_getaffinity(0))
     return {
         "metric": "host input pipeline images/sec (decode+aug+collate, production train "
-                  "transform + canvas buckets; PNG corpus)",
+                  "transform + canvas buckets; JPEG corpus)",
         "value": rate,
         "unit": "images/sec",
         "cores": cores,
@@ -149,6 +170,7 @@ def bench_line(n_images: int = 400, threads: int = 8, batch: int = 2,
         "corpus_gen_s": gen_s,
         "chip_rate": chip_rate,
         "ratio_to_chip": rate / chip_rate,
+        "decode_ms": dec_ms,
     }
 
 

@@ -8,10 +8,14 @@ CLIP-text classifier, visual
 distillation against a tiny random CLIP-RN teacher, CDN, the federated loss
 and EMA, one step on each rank's image of a global batch of N images drawn
 from a seed, through ``parallel/dist.py``: the host statistics, the rank's
-rows of the draws and the gradient all-reduce. Each rank reports its loss
-and a digest of its parameters, which must be finite and equal on every
-rank. ``use_clip_visual_query``, which JAX's dry run turns on, is not ported
-(ROADMAP.md queue 1, item 11) and stays off.
+rows of the draws and the gradient all-reduce. ``use_clip_visual_query`` is
+on, as in JAX's dry run, and so are the teacher's weak labels
+(``use_imagenet_pusedo_labels``): the first image of the global batch is an
+extra one, whose labels and boxes the teacher rewrites on its rank, and the
+step's statistics are those of the rewritten global batch
+(``parallel/dist.py:reduce_stats_``, one more collective in the step). Each
+rank reports its loss and a digest of its parameters, which must be finite
+and equal on every rank.
 
 On the CPU the ranks join over gloo; on the card over NCCL, one process a
 card::
@@ -35,7 +39,8 @@ CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.ab
     __file__)))), "configs", "richsem", "richsem_4scale_lvis.py")
 TINY = dict(hidden_dim=256, nheads=8, enc_layers=2, dec_layers=2, dim_feedforward=2048,
             num_queries=20, num_classes=12, dn_labelbook_size=12, fed_num_sample_cats=4,
-            clip_embed_dim=16, distill_max_boxes=4, use_ema=True, use_clip_visual_query=False)
+            clip_embed_dim=16, distill_max_boxes=4, use_ema=True, use_clip_visual_query=True,
+            clip_spatial_dim=256, use_imagenet_pusedo_labels=True)
 CANVAS, G = (64, 96), 6
 
 
@@ -52,7 +57,7 @@ def global_batch(n: int, num_classes: int, seed: int = 0) -> dict:
             "boxes": boxes.astype(np.float32),
             "valid": np.arange(G)[None] < counts[:, None],
             "size": np.asarray([CANVAS] * n, np.float32),
-            "is_extra": np.zeros(n, bool)}
+            "is_extra": np.arange(n) == 0}
 
 
 def _digest(tensors) -> str:
@@ -109,7 +114,7 @@ def rank_step(device: str = "cuda", threads: int = 1) -> dict:
     return {"rank": d.rank, "world": d.world, "backend": d.backend,
             "loss": float(metrics["loss"]), "finite": bool(metrics["finite"]),
             "loss_distill": float(metrics["loss_distill"]), "digest": digest,
-            "replicas_equal": bool(equal)}
+            "replicas_equal": bool(equal), "stats_gathers": pdist.reduce_stats_.launches}
 
 
 def dryrun(nproc: int, device: str = "cuda", timeout: float = 600.0) -> list:
@@ -136,7 +141,7 @@ def main() -> None:
     for r in dryrun(n, args.device, args.timeout):
         print(json.dumps(r))
     print(f"dryrun_ddp({n}, {args.device}): ok (semantic branch: language + distill + fed + "
-          "EMA; use_clip_visual_query not ported)")
+          "EMA + use_clip_visual_query + weak labels)")
 
 
 if __name__ == "__main__":

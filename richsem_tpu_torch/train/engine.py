@@ -49,7 +49,14 @@ from richsem_tpu_torch.models.criterion import (
 )
 from richsem_tpu_torch.models.dn import cdn_draws, cdn_pad, prepare_cdn
 from richsem_tpu_torch.models.postprocess import postprocess
-from richsem_tpu_torch.parallel.dist import STAT_KEYS, Dist, average_, tensor_stats, union_
+from richsem_tpu_torch.parallel.dist import (
+    STAT_KEYS,
+    Dist,
+    average_,
+    reduce_stats_,
+    tensor_stats,
+    union_,
+)
 from richsem_tpu_torch.train.optim import AdamW, ema_init, ema_update, frozen_leaves
 
 # JAX's metric keys (engine.py:301-311), and the DN distillation term
@@ -97,7 +104,9 @@ def make_loss_fn(model, cfg, clip_model=None, world_size: int = 1, dist: Optiona
     draws its masks from ``dropout_generator``. The loss reads the global batch's
     statistics (:data:`STAT_KEYS`): those the batch carries from the ranks'
     host collective (``parallel/dist.py:step_stats``), which ``world_size``
-    above 1 requires, else the batch's own. It is this rank's share of the
+    above 1 requires, else the batch's own; with the teacher's weak labels on
+    a batch with ``is_extra``, those of the rewritten batch, reduced over the
+    ranks of ``dist`` on the card. It is this rank's share of the
     loss of the global batch (each batch-global normaliser over
     ``world_size``). Under ``OptMatcher`` with the federated loss, the classes
     its queries were assigned are united over the ranks of ``dist``
@@ -122,11 +131,6 @@ def make_loss_fn(model, cfg, clip_model=None, world_size: int = 1, dist: Optiona
     # the teacher's weak labels rewrite extra images' boxes on the device, past
     # the host's statistics
     weak_labels = use_teacher and bool(getattr(cfg, "use_imagenet_pusedo_labels", False))
-    if weak_labels and world_size > 1 and getattr(cfg, "use_imagenet", False):
-        raise NotImplementedError(
-            "the teacher's weak labels under data parallelism are not ported yet: the "
-            "rewritten boxes change the global counts on the card (ROADMAP.md queue 1, "
-            "item 11)")
 
     def teacher_targets(batch, text_embed):
         """-> the batch with ``clip_logits``, ``clip_embed``, ``clip_valid`` (and
@@ -157,10 +161,24 @@ def make_loss_fn(model, cfg, clip_model=None, world_size: int = 1, dist: Optiona
         return batch, spatial
 
     def global_stats(batch):
-        """The global batch's statistics: those the batch carries (the ranks'
-        host collective), else, and where the teacher rewrote the batch, its
-        own (one process)."""
-        if STAT_KEYS[0] in batch and not (weak_labels and "is_extra" in batch):
+        """The global batch's statistics. Where the teacher rewrote extra
+        images' labels and boxes, those of the rewritten batch: this rank's
+        own, reduced over the ranks of ``dist`` on the card
+        (``parallel/dist.py:reduce_stats_``), as JAX computes them inside its
+        jit over the sharded batch. Else those the batch carries (the ranks'
+        host collective), or the batch's own in one process. No statistic
+        sets a shape or a host decision: CDN's pad is static in the GT slots
+        (``models/dn.py:cdn_pad``) and its group-count branch a setting, as
+        under JAX's jit."""
+        if weak_labels and "is_extra" in batch:
+            stats = tensor_stats(batch, cfg)
+            if dist is not None and dist.active:
+                return reduce_stats_(stats, dist, cfg.num_classes)
+            if world_size > 1:
+                raise ValueError("a data-parallel step with the teacher's weak labels needs "
+                                 "its process group (dist) to reduce the statistics")
+            return stats
+        if STAT_KEYS[0] in batch:
             return {k: batch[k] for k in STAT_KEYS}
         if world_size > 1:
             raise ValueError("a data-parallel step needs the global batch statistics "
@@ -663,8 +681,8 @@ def _launch_counters() -> Dict[str, Any]:
 
 
 def _step_counters() -> Dict[str, Any]:
-    """The kernel wrappers' counters and the gradient collective's."""
-    return dict(_launch_counters(), grad_average=average_)
+    """The kernel wrappers' counters and the step's collectives'."""
+    return dict(_launch_counters(), grad_average=average_, stats_gather=reduce_stats_)
 
 
 def make_eval_step(model, cfg, clip_model=None) -> EvalStep:

@@ -17,7 +17,8 @@ MHA ``out`` ``kernel``     ``weight`` [out,h*hd]   ``[h,hd,out]`` -> ``[h*hd,out
 ``mean`` / ``var`` (BN)    ``running_mean|var``    as is
 top-level arrays           the same name           as is (``level_embed``, ``tgt_embed``,
                                                    ``logit_scale``, ``cls_kernel`` ...)
-``positional_embedding``   the same name           as is (the CLIP attention pool's)
+``positional_embedding``   the same name           as is (the CLIP attention pool's and ViT's)
+``class_embedding``, ``proj`` the same name        as is (the CLIP ViT tower's)
 ``rel_pos_bias`` [T,H]     the same name           as is (Swin's window attention)
 ``gamma`` [C]              the same name           as is (ConvNeXt's layer scale)
 =========================  ======================  =================================
@@ -47,7 +48,8 @@ import torch
 
 _RENAME = {"scale": "weight", "mean": "running_mean", "var": "running_var",
            "bias": "bias"}
-_KEPT = ("positional_embedding", "rel_pos_bias", "gamma")  # named leaves kept as they are
+# named leaves kept as they are
+_KEPT = ("positional_embedding", "rel_pos_bias", "gamma", "class_embedding", "proj")
 
 
 def _shape(v) -> Tuple[int, ...]:
@@ -129,10 +131,13 @@ def clip_params_from_jax(
 ) -> Dict[str, torch.Tensor]:
     """The flax tree of ``richsem_tpu.models.clip.CLIP`` (``tools/convert_clip.py``
     makes one from an OpenAI checkpoint) -> state dict of
-    :class:`richsem_tpu_torch.models.clip.CLIP`: the convolutions, frozen batch
-    norms, attention-pool projections and ``positional_embedding`` of the vision
-    tower, the text blocks' ``MultiHeadDotProductAttention`` (``query|key|value``
-    kernels ``[width, heads, head_dim]``, ``out`` ``[heads, head_dim, width]``)
-    and the top-level embeddings, projection and ``logit_scale``, every leaf
-    exactly once, as :func:`params_from_jax`."""
+    :class:`richsem_tpu_torch.models.clip.CLIP`: for RN50 the convolutions,
+    frozen batch norms, attention-pool projections and ``positional_embedding``
+    of the vision tower; for ViT-B/32 its ``conv1`` (no bias),
+    ``class_embedding``, ``positional_embedding``, ``ln_pre``, ``block{i}``
+    (the text blocks' leaves), ``ln_post`` and ``proj``; the text blocks'
+    ``MultiHeadDotProductAttention`` (``query|key|value`` kernels ``[width,
+    heads, head_dim]``, ``out`` ``[heads, head_dim, width]``) and the top-level
+    embeddings, projection and ``logit_scale``, every leaf exactly once, as
+    :func:`params_from_jax`."""
     return params_from_jax(flax_params, expected)

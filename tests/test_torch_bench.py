@@ -260,8 +260,9 @@ def test_input_pipeline_bench_prints_its_keys(capsys):
     bench_input_pipeline.main(["--images", "8", "--threads", "2"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(line) == {"metric", "value", "unit", "cores", "per_core", "threads", "images",
-                         "corpus_gen_s", "chip_rate", "ratio_to_chip"}
-    assert "PNG corpus" in line["metric"] and line["threads"] == 2
+                         "corpus_gen_s", "chip_rate", "ratio_to_chip", "decode_ms"}
+    assert "JPEG corpus" in line["metric"] and line["threads"] == 2
+    assert line["decode_ms"] > 0
     assert line["value"] > 0 and line["images"] > 0 and line["chip_rate"] == 5.0
 
 

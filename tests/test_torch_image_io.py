@@ -5,6 +5,8 @@ held against OpenCV, which the JAX data path calls.
   gray, gray + alpha, RGB and RGBA, each PNG filter type on every row and a
   mix of them, files written by the port's encoder, by OpenCV and (palette)
   by PIL.
+* JPEG equals ``cv2.imread`` with or without OpenCV in the interpreter (the
+  codec's own cases: ``tests/test_torch_jpeg.py``); other formats need it.
 * ``resize`` is within one level of ``cv2.resize`` for ``INTER_LINEAR`` and
   ``INTER_AREA``, up and down, odd sizes; at most 1% of the values differ
   (measured: up to 0.55% for ``INTER_LINEAR`` upscales, where OpenCV's
@@ -75,12 +77,20 @@ def test_missing_and_corrupt_files_read_as_none(tmp_path):
 
 
 def test_other_formats_need_opencv(tmp_path, monkeypatch):
+    """JPEG without cv2 equals cv2: the port decodes it with its own codec in
+    an interpreter without OpenCV. Formats other than PNG and JPEG still need
+    OpenCV and raise without it, naming the format."""
     path = str(tmp_path / "x.jpg")
     cv2.imwrite(path, _img(32, 48, 3))
-    np.testing.assert_array_equal(image_io.imread_rgb(path), _cv2_read(path))
+    ref = _cv2_read(path)
+    np.testing.assert_array_equal(image_io.imread_rgb(path), ref)
+    bmp = str(tmp_path / "x.bmp")
+    cv2.imwrite(bmp, _img(32, 48, 3))
+    np.testing.assert_array_equal(image_io.imread_rgb(bmp), _cv2_read(bmp))
     monkeypatch.setitem(sys.modules, "cv2", None)  # an interpreter without OpenCV
-    with pytest.raises(ValueError, match="JPEG.*cv2"):
-        image_io.imread_rgb(path)
+    np.testing.assert_array_equal(image_io.imread_rgb(path), ref)
+    with pytest.raises(ValueError, match="BMP.*cv2"):
+        image_io.imread_rgb(bmp)
     png = str(tmp_path / "x.png")
     with open(png, "wb") as f:
         f.write(image_io.encode_png(_img(32, 48, 3)))

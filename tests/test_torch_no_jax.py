@@ -1,15 +1,16 @@
-"""The port imports neither JAX, flax nor the JAX package, nor OpenCV.
+"""The port imports neither JAX, flax nor the JAX package, nor OpenCV or PIL.
 
 In a fresh interpreter where ``import jax``, ``import flax``,
-``import richsem_tpu`` and ``import cv2`` all fail, every module of the port
-imports, the tiny
+``import richsem_tpu``, ``import cv2`` and ``import PIL`` all fail, every
+module of the port imports, the tiny
 model builds on the CPU, serves one batch and takes one training step (CDN,
 matching, the federated loss, the clipped AdamW), then one flagship step with
 a tiny CLIP teacher (RoIAlign, the distillation losses) and the separable
 decoder sampler, then a step and an eval batch of the semantic variant (the
 five semantic-branch knobs, OptMatcher, NMS), and the seven kernels' launch
 counters stay at 0 (CPU tensors run the plain versions). In another such interpreter the data path reads PNGs
-and runs a two-image loader epoch, the trainer's entry point takes a step on
+and JPEGs (the host codec, built with the C compiler) and runs a two-image
+loader epoch, the trainer's entry point takes a step on
 the CPU, and the probes run their plain versions.
 """
 
@@ -59,6 +60,9 @@ MODULES = [
     "richsem_tpu_torch.train.main",
     "richsem_tpu_torch.data",
     "richsem_tpu_torch.data.image_io",
+    "richsem_tpu_torch.data.misc_utils",
+    "richsem_tpu_torch.data.sltransforms",
+    "richsem_tpu_torch.utils.box_losses",
     "richsem_tpu_torch.data.coco_api",
     "richsem_tpu_torch.data.transforms",
     "richsem_tpu_torch.data.datasets",
@@ -83,7 +87,7 @@ MODULES = [
     "richsem_tpu_torch.tools.dryrun_ddp",
 ]
 
-BLOCKED = ("jax", "flax", "richsem_tpu", "cv2")
+BLOCKED = ("jax", "flax", "richsem_tpu", "cv2", "PIL")
 
 SCRIPT = """
 import importlib, sys
@@ -172,7 +176,8 @@ for name in (ms_deform_attn.ms_deform_attn, ms_deform_attn.ms_deform_attn_backwa
              ms_deform_attn_sep.ms_deform_attn_sep, ms_deform_attn_sep.ms_deform_attn_sep_backward,
              nms.nms_mask):
     assert name.launches == 0
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "richsem_tpu", "cv2")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "richsem_tpu", "cv2",
+                                                        "PIL")
              and sys.modules[m] is not None)
 assert not bad, bad
 print("OK")
@@ -199,6 +204,13 @@ write_lvis(root, n_train=2, n_val=2, hw=((40, 60), (50, 70)), n_cats=5, max_boxe
            filters=(4,))
 img = imread_rgb(os.path.join(root, "coco", "train2017", "000000000001.png"))
 assert img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3
+from richsem_tpu_torch.data.image_io import decode_jpeg, encode_jpeg
+jpg = os.path.join(root, "x.jpg")
+with open(jpg, "wb") as f:
+    f.write(encode_jpeg(img, 90))
+out = imread_rgb(jpg)
+assert out.shape == img.shape and np.array_equal(out, decode_jpeg(open(jpg, "rb").read()))
+assert np.abs(out.astype(int) - img.astype(int)).mean() < 20
 cfg = Config.fromfile("configs/richsem/dino_4scale_lvis.py")
 cfg.update(data_root=root, dataset_file="lvis", data_aug_scales=[48, 64], data_aug_max_size=96,
            data_aug_scales2_resize=[40], data_aug_scales2_crop=[32, 40],
@@ -220,12 +232,13 @@ assert torch.equal(out, torch.full((4, 8, 128), 2.0))
 assert bench_cell.check_repeat_semantics(device="cpu")[0].tolist() == list(range(8)) * 2
 from richsem_tpu_torch.tools import bench_input_pipeline
 line = bench_input_pipeline.bench_line(8, threads=2)
-assert line["value"] > 0 and "PNG corpus" in line["metric"]
+assert line["value"] > 0 and "JPEG corpus" in line["metric"]
 for fn in (bench_cal.vpu, bench_cal.mxu, bench_cal.grid_overhead, bench_cal.repeat,
            bench_cell.cell, bench_cell.tile, bench_vpu_model.chain, bench_vpu_model.fma,
            bench_vpu_model.fma_chunk):
     assert fn.launches == 0
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "richsem_tpu", "cv2")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "richsem_tpu", "cv2",
+                                                        "PIL")
              and sys.modules[m] is not None)
 assert not bad, bad
 shutil.rmtree(root)  # the trainer's checkpoint is ~300 MB

@@ -1,11 +1,11 @@
-"""The port refuses what it has not ported, and names the ROADMAP item that
-holds it: the CLIP teacher's ViT tower (queue 1, item 11) and the teacher's
-weak labels under data parallelism (item 11). A backbone name the variant
-tables do not hold raises JAX's errors.
+"""What the port refuses as JAX refuses it: a backbone name the variant
+tables do not hold raises JAX's errors, and ``two_stage_cls`` is kept only
+beside the distillation branch, as in JAX.
 
-``two_stage_cls`` is kept only beside the distillation branch, as in JAX; the
-semantic-branch knobs, the gelu tail and NMS are ported
-(``tests/test_torch_variants.py``, ``tests/test_torch_nms.py``).
+The semantic-branch knobs, the gelu tail and NMS are ported
+(``tests/test_torch_variants.py``, ``tests/test_torch_nms.py``), and so are
+the CLIP ViT tower (``tests/test_torch_clip_vit.py``) and the teacher's weak
+labels under data parallelism (``tests/test_torch_weak_labels_ddp.py``).
 """
 
 import pytest
@@ -36,33 +36,6 @@ def test_two_stage_cls_gating_matches_jax(distill):
         setattr(jax_cfg, k, v)
     assert out.two_stage_cls == JaxDINOConfig.from_config(jax_cfg).two_stage_cls == distill
     assert DINOConfig.from_config(Config.fromfile(FLAGSHIP)).two_stage_cls is False
-
-
-def _clip_vit_teacher():
-    from richsem_tpu_torch.models.build import build_clip_teacher
-
-    build_clip_teacher(_flagship(clip_model="ViT-B/32"), device="cpu")
-
-
-@pytest.mark.parametrize("what,call", [
-    ("backbone", _clip_vit_teacher),
-], ids=["backbone"])
-def test_unported_messages_name_item_11(what, call):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1, item 11\)"):
-        call()
-
-
-def test_weak_labels_under_data_parallelism_name_item_11():
-    """The teacher's weak labels rewrite extra images' boxes on the card, so
-    the host's global statistics cannot hold them: a data-parallel step with
-    them refuses, naming the item."""
-    from richsem_tpu_torch.train.engine import make_loss_fn
-
-    cfg = Config.fromfile("configs/richsem/richsem_4scale_lvis.py")
-    cfg.update(use_imagenet_pusedo_labels=True)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1, item 11\)"):
-        make_loss_fn(None, cfg, clip_model=object(), world_size=2)
-    make_loss_fn(None, cfg, clip_model=object(), world_size=1)
 
 
 @pytest.mark.parametrize("name,error", [

@@ -95,10 +95,12 @@ def train_steps(cfg_items: dict, weights: dict, batches: list, jax_draws: list,
 
 def variant_step(cfg_items: dict, weights: dict, clip_items: dict, clip_weights: dict,
                  batch: dict, jax_draws: dict, text: np.ndarray, threads: int = 1) -> dict:
-    """One step of the semantic variant (``tests/test_torch_ddp_variants.py``):
-    the detector from ``weights``, the tiny CLIP teacher from ``clip_items``
-    and ``clip_weights``, this rank's rows of ``batch`` and of JAX's draws. ->
-    the step's metrics and the state's digest."""
+    """One step of the semantic variant (``tests/test_torch_ddp_variants.py``)
+    or of the weak labels (``tests/test_torch_weak_labels_ddp.py``): the
+    detector from ``weights``, the tiny CLIP teacher from ``clip_items`` and
+    ``clip_weights``, this rank's rows of ``batch`` and of JAX's draws. -> the
+    step's metrics, the state's digest, the union collectives, and the
+    statistics the step's statistics collective returned (one entry a call)."""
     import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
     from richsem_tpu_torch.config import Config
     from richsem_tpu_torch.models import build_model
@@ -109,6 +111,15 @@ def variant_step(cfg_items: dict, weights: dict, clip_items: dict, clip_weights:
     torch.set_num_threads(threads)
     d = pdist.init_distributed("cpu")
     cfg = Config(dict(cfg_items))
+    seen = []
+    reduce = type(pdist.reduce_stats_).__call__
+
+    def record(self, stats, dd, num_classes):
+        out = reduce(self, stats, dd, num_classes)
+        seen.append({k: v.numpy().copy() for k, v in out.items()})
+        return out
+
+    type(pdist.reduce_stats_).__call__ = record  # this rank's process only
     model, _, _ = build_model("richsem", cfg, device="cpu")
     model.load_state_dict({k: torch.from_numpy(v) for k, v in weights.items()})
     teacher = CLIP(CLIPConfig(**clip_items), device="cpu")
@@ -120,7 +131,7 @@ def variant_step(cfg_items: dict, weights: dict, clip_items: dict, clip_weights:
     m = step(state, rank_batch(batch, d, cfg), torch.from_numpy(text),
              draws=rank_draws(jax_draws, d, n))
     return {"metrics": {k: v.numpy().copy() for k, v in m.items()},
-            "digest": state_digest(state), "unions": pdist.union_.calls}
+            "digest": state_digest(state), "unions": pdist.union_.calls, "stats": seen}
 
 
 def collective_count(cfg_items: dict, canvases: list, threads: int = 1) -> dict:

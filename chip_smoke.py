@@ -229,10 +229,13 @@ Phases, each printed as it completes:
     with the teacher's spatial pass (3 replays, each against its eager body
     bit for bit; K1 12, K2 6 and K7 1 a batch; ms/batch, img/s, peak
     memory); K7 against its plain version on the eval's own boxes and scores
-    and on ``k7_cases`` (ties, IoUs exactly at the threshold, N 1,024, 33
-    and 1), keep masks equal, with its device and CUDA-event time beside the
-    plain loop's, its bound and the sweep's latency floor; then phase 18's
-    ``run_train`` (K4 0 a step: every matched set goes through simOTA).
+    and on ``k7_cases`` (ties, IoUs exactly at the threshold, a suppression
+    chain across a word boundary, N 1,024, 1,000, 33 and 1), keep masks
+    equal; on the eval's boxes and on N 1,024 its device and CUDA-event time
+    and its rank, IoU, sweep and scatter passes apart (stamps), beside the
+    plain loop's time, its bound and the sweep's latency floor (ceil(N / 32)
+    block steps, one timed alone on one warp); then phase 18's ``run_train``
+    (K4 0 a step: every matched set goes through simOTA).
 22. Variant B, "groups and tail" (``dn_number`` 5: the group-count branch,
     a pad of 4 x 5 x 100 = 2,000 DN slots with 100 GT slots, 16 valid;
     gelu; dropout 0.1; ``HungarianMatcherCPU``): the step on the card
@@ -278,6 +281,8 @@ Phases, each printed as it completes:
 
 ``python3 chip_smoke.py kernels`` stops after the kernel phases (1-5, 8, 9, 12,
 15 on its random cases, 16 and K7 on its constructed cases).
+``python3 chip_smoke.py k7`` runs phase 1, then phase 21's eval part only (the
+eval graph and ``phase_k7`` on the eval's own boxes; ~30 s).
 ``python3 chip_smoke.py variants`` runs phases 1-5, 8, 9, 21 and 22;
 ``python3 chip_smoke.py teacher`` phases 1-5, 8, 9, 23 and 24. ``python3 chip_smoke.py backbones`` runs the
 kernel phases 1-5, 8 and 9, then phases 18-20 only; ``python3 chip_smoke.py
@@ -302,9 +307,11 @@ and ``run_vpu`` in bf16 at phase 12's inputs (device time, bound, hash),
 ``run_repeat`` in f32 and bf16 at phase 12's shapes (event and device time,
 the bound, the hash), K4 on phase 15's correlated case (B 2, P 300 with 16
 valid, O 900: event and device time, rounds, device time a round, a hash of the
-assignment and the stats), and K5 and K6 (both
+assignment and the stats), K5 and K6 (both
 orders) at phase 16's inputs (event and device time, hashes of K5's state
-and of K6's parameters and moments after one call). Compare
+and of K6's parameters and moments after one call), and K7 on phase 21's
+random bs2 x 300 case at threshold 0.7 and on N 1,024 (event and device
+time, a hash of the keep mask). Compare
 two trees in one call on the card, in turns, each in a process of
 its own:
 
@@ -3368,6 +3375,17 @@ def phase_ab(root: str) -> None:
             rec[f"k6_{order}_sha"] = digest([p for _, p in opt.trainable] + opt.mu + opt.nu)
             opt_put(opt, saved)
         del model, opt, leaves, sets, saved
+    # K7 on phase 21's random bs2 x 300 case (the eval's N and threshold) and
+    # on N 1,024 (the same draws)
+    from richsem_tpu_torch.ops import nms
+
+    cases = {c[0]: c[1:] for c in k7_cases(torch.Generator(device=DEVICE).manual_seed(21))}
+    for key, case in (("k7_300", "random bs2 N 300"), ("k7_1024", "N 1024")):
+        boxes, scores, thr = cases[case]
+        fn = lambda: nms._nms_cuda(boxes, scores, thr)  # noqa: E731
+        rec[f"{key}_ms"] = cuda_ms(fn)
+        rec[f"{key}_device_ms"] = device_ms(fn, ["nms_kernel"])["nms_kernel"]
+        rec[f"{key}_sha"] = digest([fn()])
     print(json.dumps(rec), flush=True)
 
 
@@ -3620,11 +3638,34 @@ def variant(name):
                 matcher_type="HungarianMatcherCPU")
 
 
+def k7_chain(device):
+    """K7's word-boundary chain: 70 boxes whose scores fall with the index,
+    given in a shuffled order; those ranked 29-35 each overlap the next at
+    IoU 2/3 and the one after at 3/7, the rest overlap nothing. At 0.5, 29
+    removes 30, 30 is gone and 31 stays and removes 32 across the word
+    boundary, and so on: of the chain, 29, 31, 33 and 35 stay."""
+    import torch
+
+    n = 70
+    r = torch.arange(n, dtype=torch.float32)
+    x = (r % 10) * 100
+    y = (r // 10) * 100
+    chain = (r >= 29) & (r <= 35)
+    x = torch.where(chain, (r - 29) * 2, x)
+    y = torch.where(chain, torch.full_like(y, 2000.0), y)
+    size = torch.where(chain, torch.full_like(x, 10.0), torch.full_like(x, 20.0))
+    boxes = torch.stack([x, y, x + size, y + size], -1)
+    scores = 1 - r / 128
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(5))
+    return boxes[perm][None].to(device), scores[perm][None].to(device)
+
+
 def k7_cases(g):
     """K7's inputs, [B, N, 4] xyxy f32 boxes and [B, N] f32 scores on the card:
     bs2 at the eval's N 300 with scores rounded to 1e-2 (many ties), the
     constructed case of tied scores and IoUs exactly at the threshold (1/3 and
-    1/2, kept: the rule is iou > threshold), N 1,024 (the limit), N 33 and 1."""
+    1/2, kept: the rule is iou > threshold), the word-boundary chain
+    (``k7_chain``), N 1,024 (the limit), 1,000, 33 and 1."""
     import torch
 
     def rand(b, n, thr):
@@ -3640,19 +3681,22 @@ def k7_cases(g):
     return [("random bs2 N 300", *rand(2, 300, NMS_THR)),
             ("ties and IoU at 1/2", tied, tied_scores, 0.5),
             ("ties and IoU at 1/3", tied, tied_scores, 1 / 3),
-            ("N 1024", *rand(2, 1024, 0.5)), ("N 33", *rand(3, 33, 0.5)),
-            ("N 1", *rand(2, 1, 0.5))]
+            ("chain across a word boundary", *k7_chain(DEVICE), 0.5),
+            ("N 1024", *rand(2, 1024, 0.5)), ("N 1000", *rand(2, 1000, 0.5)),
+            ("N 33", *rand(3, 33, 0.5)), ("N 1", *rand(2, 1, 0.5))]
 
 
 def phase_k7(rec, eval_inputs=None):
     """K7 against the plain version on CUDA tensors, keep masks exactly equal,
     on ``k7_cases`` and on the eval's own boxes and scores (``eval_inputs``);
-    then its device time (five profiled calls) and CUDA-event time beside the
-    plain loop's host and device time, on the eval's inputs (or the random
-    case), with its bound (each input read once and the mask written once,
+    then, on the eval's inputs (or the random case) and on N 1,024: its device
+    time (five profiled calls), CUDA-event time and its passes apart (rank,
+    IoU, sweep, scatter: the median of 21 stamped launches,
+    ``ops/nms.py:pass_split``); on the first also the plain loop's host and
+    device time, the bound (each input read once and the mask written once,
     against the IoU pairs' f32 operations at the issue rate) and the sweep's
-    latency floor: N dependent steps at the per-step time of the sweep's loop
-    body alone on one warp (``ops/nms.py:sweep_floor``)."""
+    latency floor: ceil(N / 32) dependent block steps at the time of one block
+    step alone on one warp (``ops/nms.py:block_floor``)."""
     import torch
 
     from richsem_tpu_torch.ops import nms
@@ -3671,34 +3715,49 @@ def phase_k7(rec, eval_inputs=None):
               f"{keep.numel()} at threshold {thr:.4g}", flush=True)
         if not same:
             fail(f"K7 differs from the plain NMS on {name}")
-    name, boxes, scores, thr = cases[0]
-    fn = lambda: nms._nms_cuda(boxes, scores, thr)  # noqa: E731
-    kern = device_ms(fn, ["nms_kernel"])["nms_kernel"]
-    ms = cuda_ms(fn)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(5):
-        nms.nms_mask_plain(boxes, scores, thr)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t) * 1e3 / 5
-    plain_dev = device_ms(lambda: nms.nms_mask_plain(boxes, scores, thr), [], iters=1,
-                          also=ALL_OPS)["all"]
-    b, n = scores.shape
-    bms, by = bound(nbytes(boxes, scores) + b * n, b * n * (n - 1) / 2 * 12, F32_ISSUE_OPS)
-    floor = nms.sweep_floor()
-    latency_ms = n * floor["ns"] / 1e6
-    print(f"  K7 on {name}: device {_ms(kern)} ms a launch, CUDA events {ms:.4f} ms; plain "
-          f"loop: host {plain_ms:.3f} ms, device {_ms(plain_dev)} ms; bound {bms:.6f} ms ({by}); "
-          f"the sweep's floor {floor['cycles']:.1f} cycles = {floor['ns']:.2f} ns a step, "
-          f"{n} dependent steps = {latency_ms:.5f} ms", flush=True)
-    rec.update({"max_abs_err": 0.0, "ms": ms, "device_ms": kern, "plain_ms": plain_ms,
-                "plain_device_ms": plain_dev, "bound_ms": bms, "bound_by": by,
-                "library_ms": None, "latency_bound_ms": latency_ms,
-                "sweep_step_ns": floor["ns"], "case": name})
+        if name.startswith("chain"):
+            ranked = keep[0][torch.sort(-scores[0], stable=True).indices]
+            if ranked[29:36].tolist() != [True, False] * 3 + [True]:
+                fail(f"K7 on the chain kept {ranked[29:36].tolist()} of ranks 29-35")
+    floor = nms.block_floor()
+    timed = [cases[0], next(c for c in cases if c[0] == "N 1024")]
+    for i, (name, boxes, scores, thr) in enumerate(timed):
+        fn = lambda: nms._nms_cuda(boxes, scores, thr)  # noqa: E731
+        kern = device_ms(fn, ["nms_kernel"])["nms_kernel"]
+        ms = cuda_ms(fn)
+        split = nms.pass_split(boxes, scores, thr)
+        b, n = scores.shape
+        latency_ms = (n + 31) // 32 * floor["ns"] / 1e6
+        print(f"  K7 on {name}: device {_ms(kern)} ms a launch, CUDA events {ms:.4f} ms; "
+              "passes (median of 21 stamped launches) "
+              + ", ".join(f"{p} {ns / 1e3:.3f} us = {cyc:.0f} cycles"
+                          for p, (ns, cyc) in split.items())
+              + f"; the sweep's floor {(n + 31) // 32} block steps x {floor['ns']:.2f} ns "
+              f"({floor['cycles']:.1f} cycles) = {latency_ms:.5f} ms", flush=True)
+        passes = {p: v[0] for p, v in split.items()}
+        if i:
+            rec.update({"n1024_device_ms": kern, "n1024_ms": ms, "n1024_passes_ns": passes,
+                        "n1024_latency_bound_ms": latency_ms})
+            continue
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            nms.nms_mask_plain(boxes, scores, thr)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3 / 5
+        plain_dev = device_ms(lambda: nms.nms_mask_plain(boxes, scores, thr), [], iters=1,
+                              also=ALL_OPS)["all"]
+        bms, by = bound(nbytes(boxes, scores) + b * n, b * n * (n - 1) / 2 * 12, F32_ISSUE_OPS)
+        print(f"  K7 on {name}: plain loop: host {plain_ms:.3f} ms, device {_ms(plain_dev)} ms; "
+              f"bound {bms:.6f} ms ({by})", flush=True)
+        rec.update({"max_abs_err": 0.0, "ms": ms, "device_ms": kern, "plain_ms": plain_ms,
+                    "plain_device_ms": plain_dev, "bound_ms": bms, "bound_by": by,
+                    "library_ms": None, "latency_bound_ms": latency_ms,
+                    "block_step_ns": floor["ns"], "case": name, "passes_ns": passes})
     print(f"  K7 phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def phase_variant_a(k7_rec):
+def phase_variant_a(k7_rec, train=True):
     """Phase 21, variant A ("semantic") at the flagship's full width, bf16,
     bs2 on 896 x 1344, random weights (seed 0) and the random bf16 RN50
     teacher: the eval graph (the teacher's spatial pass, K1 12, K2 6 and K7 1
@@ -3707,7 +3766,8 @@ def phase_variant_a(k7_rec):
     train graph (``run_train``: 5 replays, K4 0 a step since every matched set
     goes through simOTA, a replay under set_sync_debug_mode("error"), the
     replay against one eager step, gradients against the plain versions, the
-    f32 CUDA-core GEMMs of a replay)."""
+    f32 CUDA-core GEMMs of a replay). ``train=False`` stops after the eval
+    part (the ``k7`` mode)."""
     import torch
 
     import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
@@ -3778,6 +3838,8 @@ def phase_variant_a(k7_rec):
     free_memory()
     t1 = time.perf_counter()
     print(f"  eval part {t1 - t0:.1f} s", flush=True)
+    if not train:
+        return
     run_train(cfg, (12, 12, 6, 6, 0, 0, 0, None, None), N_STEPS, VARIANT_A_LEAVES,
               clip_model=teacher, text_embed=text_embed, phase="phase 21", against_eager="one")
     print(f"  train part {time.perf_counter() - t1:.1f} s", flush=True)
@@ -4352,6 +4414,10 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     t0 = time.perf_counter()
     smi = phase_build()
+    if sys.argv[1:] == ["k7"]:
+        phase_variant_a({}, train=False)
+        print(f"total {time.perf_counter() - t0:.1f} s")
+        return
     value, cases = k1_cases()
     k1_rec = phase_k1(value, cases)
     k1b_rec = phase_k1_bwd(value, cases)

@@ -222,6 +222,11 @@ Phases, each printed as it completes:
     gradients against the first's, leaf by leaf, printed in every setting);
     then the train bench at ``BENCH_BATCH`` 4 and 8 (the root bench's remat
     knobs on: K2 12 a step), its JSON line, img/s, busy ms and peak memory.
+    First, ROADMAP F-P14 (``fused_tail_route_check``): an encoder layer at
+    the production width with ``enc_fused_tail=False`` launches K2 0 times
+    and gives the modules' composition bit for bit, with the knob on K2
+    once and within phase 4's bound of it; K2 in f32 refuses, naming
+    ``enc_fused_tail=False``.
 21. Variant A, "semantic" (the flagship with ``share_vl_proj``,
     ``enc_cls_agn``, ``two_stage_cls``, ``distill_aux_layers``,
     ``use_clip_visual_query``, ``check_pos_dn``, ``OptMatcher`` and NMS at
@@ -278,11 +283,27 @@ Phases, each printed as it completes:
     statistics equal to the group-free ``tensor_stats`` of the same
     rewritten batch; the replay against an eager step as 23 (c). The group
     is destroyed at the end.
+25. The masks path (run after 24, before 17): ``dino_4scale_lvis.py`` with
+    ``masks=True``, bf16, bs2 at 896 x 1344, random weights (seed 0), for the
+    DETRsegm head and then CondInst (``phase_masks``): the eval graph, which
+    does not run the head, in turns with the same detector without masks
+    (ms/batch of both, K1 12 and K2 6 a batch, the replay against its eager
+    body bit for bit); the forward's ``pred_masks`` (or ``mask_feats`` and
+    ``mask_params``) at their production shapes, finite,
+    ``postprocess_segm`` of the top-300 queries, the head alone (CUDA-event
+    ms and the GB of its peak) and one batch against the plain versions;
+    the train graph with bench.py's batch and ``masks`` (each valid GT
+    box's extent at stride 8; bs1 where bs2 runs out of memory, both peaks
+    printed): 3 replays with ``loss_mask`` and ``loss_dice`` finite and
+    nonzero, the flagship's launches, ms/step and peak GB,
+    ``graph_vs_eager``, a replay's busy ms, and the head's gradients against
+    the plain versions (cosine >= 0.9).
 
 ``python3 chip_smoke.py kernels`` stops after the kernel phases (1-5, 8, 9, 12,
 15 on its random cases, 16 and K7 on its constructed cases).
 ``python3 chip_smoke.py k7`` runs phase 1, then phase 21's eval part only (the
 eval graph and ``phase_k7`` on the eval's own boxes; ~30 s).
+``python3 chip_smoke.py masks`` runs phase 1, then phase 25 only.
 ``python3 chip_smoke.py variants`` runs phases 1-5, 8, 9, 21 and 22;
 ``python3 chip_smoke.py teacher`` phases 1-5, 8, 9, 23 and 24. ``python3 chip_smoke.py backbones`` runs the
 kernel phases 1-5, 8 and 9, then phases 18-20 only; ``python3 chip_smoke.py
@@ -3009,6 +3030,64 @@ def deterministic():
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev[2:]
 
 
+def fused_tail_route_check():
+    """F-P14 on the card: one encoder layer at the production width (d 256, F
+    2048, bf16) on bs2's 24,990 tokens an image, its sampler's output fixed.
+    With ``enc_fused_tail=False`` K2 does not launch and the layer's output is
+    the modules' composition (``ffn(norm1(src + attn))``) bit for bit; with
+    the knob on K2 launches once and agrees with it within phase 4's bf16
+    bound; K2 with an f32 compute dtype on CUDA tensors refuses before any
+    launch, and its message names ``enc_fused_tail=False``."""
+    import torch
+
+    from richsem_tpu_torch.models.dino import DeformableEncoderLayer, DINOConfig
+    from richsem_tpu_torch.ops import fused_ffn as k2
+
+    g = torch.Generator(device=DEVICE).manual_seed(14)
+    layers = {}
+    for fused in (False, True):
+        c = DINOConfig(compute_dtype=torch.bfloat16, enc_fused_tail=fused)
+        layers[fused] = DeformableEncoderLayer(c, device=DEVICE)
+    layers[False].init_weights(g)
+    layers[True].load_state_dict(layers[False].state_dict())
+    n = sum(h * w for h, w in SHAPES)
+    src = torch.randn((BATCH, n, 256), generator=g, device=DEVICE)
+    attn = torch.randn((BATCH, n, 256), generator=g, device=DEVICE)
+    for layer in layers.values():
+        layer.self_attn.forward = lambda *a, **kw: attn
+    out, launches = {}, {}
+    with torch.inference_mode():
+        for fused, layer in layers.items():
+            k2.encoder_tail.launches = 0
+            out[fused] = layer(src, src, None, None, None)
+            launches[fused] = k2.encoder_tail.launches
+        comp = layers[False].ffn(layers[False].norm1(src + attn))
+    torch.cuda.synchronize()
+    same = torch.equal(out[False], comp)
+    err = compare("F-P14: the fused route (K2) against enc_fused_tail=False", out[True],
+                  out[False], 3e-2, 0.0)
+    print(f"  F-P14: enc_fused_tail=False launches K2 {launches[False]} times and gives the "
+          f"composition bit for bit: {same}; the knob on launches K2 {launches[True]} times, "
+          f"max abs err {err:.3e} from it", flush=True)
+    if launches != {False: 0, True: 1} or not same:
+        fail("F-P14: enc_fused_tail does not choose the encoder tail's route")
+    p = {k: v.detach() for k, v in layers[True].named_parameters()}
+    flat = (src.reshape(-1, 256)[:1024], attn.reshape(-1, 256)[:1024])
+    k2.encoder_tail.launches = 0
+    try:
+        k2.encoder_tail(*flat, p["ffn.linear1.weight"], p["ffn.linear1.bias"],
+                        p["ffn.linear2.weight"], p["ffn.linear2.bias"], p["norm1.weight"],
+                        p["norm1.bias"], p["ffn.norm.weight"], p["ffn.norm.bias"], 1e-5,
+                        torch.float32)
+    except NotImplementedError as e:
+        print(f"  F-P14: K2 in f32 refuses: {e}", flush=True)
+        if "enc_fused_tail=False" not in str(e) or k2.encoder_tail.launches:
+            fail("F-P14: K2's f32 refusal does not name enc_fused_tail=False, or launched")
+    else:
+        fail("F-P14: K2 took an f32 compute dtype")
+    del layers, out, comp, src, attn
+
+
 def phase_knobs():
     """Phase 20: the memory knobs on the R50 flagship at bs2 (phase 10's step,
     eager, one state, batch and draws; 562 gradient leaves). With the
@@ -3032,6 +3111,7 @@ def phase_knobs():
     free_memory()
     print(f"  at the start: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated", flush=True)
     t0 = time.perf_counter()
+    fused_tail_route_check()
     cfg0 = flagship_cfg()
     teacher, text_embed, g = teacher_and_text(cfg0)
     batch = train_batch(g)
@@ -4397,6 +4477,420 @@ def phase_weak_labels(recs):
           f" s)", flush=True)
 
 
+MASK_HEADS = ("detr", "cond_inst")
+N_MASK_STEPS = 3  # replays a head's train phase times
+# a head's leaves whose gradients the kernel and plain runs compare
+MASK_LEAVES = {
+    "detr": ("mask_attention.q_proj.weight", "mask_attention.k_proj.weight",
+             "mask_head.lay1_conv.weight", "mask_head.lay2_conv.weight",
+             "mask_head.adapter3.weight", "mask_head.lay5_conv.weight",
+             "mask_head.out_conv.weight"),
+    "cond_inst": ("cond_inst.controller.layer0.weight", "cond_inst.controller.layer2.weight",
+                  "cond_inst.mask_branch.refine0_conv.weight",
+                  "cond_inst.mask_branch.refine2_conv.weight",
+                  "cond_inst.mask_branch.tower3_conv.weight",
+                  "cond_inst.mask_branch.tower_out.weight"),
+}
+
+
+def masks_cfg(head, masks=True):
+    """``dino_4scale_lvis.py`` in bf16 with the masks path (``head``) on or off."""
+    from richsem_tpu_torch.config import Config
+
+    cfg = Config.fromfile(TRAIN_CONFIG)
+    cfg.compute_dtype = "bfloat16"
+    cfg.update(masks=masks, mask_head_type=head)
+    return cfg
+
+
+def mask_train_batch(g, bs):
+    """bench.py's batch (``train_batch``) cut to ``bs`` images, with ``masks
+    [bs, MAX_GT, H/8, W/8]``: each valid GT box's extent at stride 8 in its
+    image (the top-left ``size`` of the canvas), as the collate lays them."""
+    import torch
+
+    batch = {k: v[:bs] for k, v in train_batch(g).items()}
+    h8, w8 = CANVAS[0] // 8, CANVAS[1] // 8
+    size = batch["size"].float()[:, None, :] / 8  # [bs, 1, (h, w)] at stride 8
+    cx, cy, bw, bh = batch["boxes"].float().unbind(-1)
+    x0, x1 = (cx - bw / 2) * size[..., 1], (cx + bw / 2) * size[..., 1]
+    y0, y1 = (cy - bh / 2) * size[..., 0], (cy + bh / 2) * size[..., 0]
+    ys = torch.arange(h8, device=DEVICE).float()[:, None] + 0.5
+    xs = torch.arange(w8, device=DEVICE).float()[None, :] + 0.5
+    inside = ((ys >= y0[..., None, None]) & (ys < y1[..., None, None])
+              & (xs >= x0[..., None, None]) & (xs < x1[..., None, None]))
+    batch["masks"] = inside & batch["valid"][..., None, None]
+    return batch
+
+
+def head_inputs(model, head, fn):
+    """The mask head's inputs in a forward ``fn()``, caught by pre-hooks: for
+    DETRsegm (the queries, C5 and its pad mask) and (C5, C4, C3); for CondInst
+    the three levels and the queries."""
+    mods = ((model.mask_attention, model.mask_head) if head == "detr"
+            else (model.cond_inst.mask_branch, model.cond_inst.controller))
+    seen = []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: seen.append(args)) for m in mods]
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def shared_queries(a, b):
+    """The (image, position in a, position in b) of the tokens two top-900
+    selections (``topk_idx`` [B, nq]) share."""
+    import torch
+
+    eq = a[:, :, None] == b[:, None, :]
+    return torch.nonzero(eq, as_tuple=True)
+
+
+def masks_eval(head, recs_out):
+    """The eval graphs of one head and of the same detector without masks, and
+    the forward's heads: see ``phase_masks``."""
+    import torch
+
+    import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
+    from richsem_tpu_torch.models import build_model
+    from richsem_tpu_torch.models.segmentation import postprocess_segm
+    from richsem_tpu_torch.ops import fused_ffn as k2
+    from richsem_tpu_torch.ops import ms_deform_attn as k1
+    from richsem_tpu_torch.train.engine import eval_forward, make_eval_step
+
+    t0 = time.perf_counter()
+    cfg, bare_cfg = masks_cfg(head), masks_cfg(head, masks=False)
+    model, _, _ = build_model("richsem", cfg, device=DEVICE,
+                              generator=torch.Generator(device=DEVICE).manual_seed(0))
+    bare, _, _ = build_model("richsem", bare_cfg, device=DEVICE,
+                             generator=torch.Generator(device=DEVICE).manual_seed(0))
+    g = torch.Generator(device=DEVICE).manual_seed(1)
+    batches = [eval_batch(g, CANVAS) for _ in range(N_BATCHES + 1)]
+    steps = {"masks": make_eval_step(model, cfg), "no masks": make_eval_step(bare, bare_cfg)}
+    for st in steps.values():
+        st(batches[-1])  # warm-up and capture
+    torch.cuda.synchronize()
+    times = {k: [] for k in steps}
+    launches = []
+    for batch in batches[:N_BATCHES] * 2:  # in turns, each twice
+        for k, st in steps.items():
+            k1.ms_deform_attn.launches = k2.encoder_tail.launches = 0
+            t = time.perf_counter()
+            r = st(batch)
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t) * 1e3)
+            check_eval_out(r, cfg)
+            if k == "masks":
+                launches.append((k1.ms_deform_attn.launches, k2.encoder_tail.launches))
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    graphed = steps["masks"](batches[0])
+    with torch.inference_mode():
+        eager = eval_forward(model, cfg, batches[0])
+    torch.cuda.synchronize()
+    same = all(torch.equal(graphed[k], eager[k]) for k in ("scores", "labels", "boxes"))
+    print(f"  {head} eval (CUDA graph replays, in turns with the same detector without "
+          f"masks): {ms['masks']:.2f} ms/batch ({', '.join(f'{t:.2f}' for t in times['masks'])})"
+          f" against {ms['no masks']:.2f} ({', '.join(f'{t:.2f}' for t in times['no masks'])}); "
+          f"K1, K2 a batch {sorted(set(launches))} (expect [(12, 6)]); the replay equals its "
+          f"eager body bit for bit: {same}; setup + warm-up {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if set(launches) != {(12, 6)} or not same:
+        fail(f"the {head} eval graph: launches {sorted(set(launches))}, replay = eager {same}")
+    recs_out.update(eval_ms=ms["masks"], eval_ms_no_masks=ms["no masks"])
+    del steps, graphed, eager, bare
+    free_memory()
+
+    # the forward's heads, eager, at the production shapes
+    batch = batches[0]
+    with torch.inference_mode():
+        out = model(batch["images"], batch["pad_mask"])
+        args = head_inputs(model, head, lambda: model(batch["images"], batch["pad_mask"]))
+    keys = ("pred_masks",) if head == "detr" else ("mask_feats", "mask_params")
+    shapes = {k: tuple(out[k].shape) for k in keys}
+    finite = all(bool(torch.isfinite(out[k]).all()) for k in keys)
+    if head == "detr":
+        attn_args, conv_args = args
+
+        def run_head():
+            return model.mask_head(model.mask_attention(*attn_args), *conv_args[1:])
+    else:
+        (srcs,), (hs,) = args
+
+        def run_head():
+            return model.cond_inst.mask_features(srcs), model.cond_inst.controller_params(hs)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run_head()
+        torch.cuda.synchronize()
+        head_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        head_ms = cuda_ms(run_head, iters=3, warmup=1)
+    # postprocess_segm on the top-300 queries of the flat top-300 (PostProcess's)
+    c = out["pred_logits"].shape[-1]
+    with torch.inference_mode():
+        prob = torch.sigmoid(out["pred_logits"].float()).flatten(1)
+        q = torch.topk(prob, cfg.num_select, dim=1).indices // c  # [B, 300]
+        if head == "detr":
+            pm = out["pred_masks"]
+            sel = torch.gather(pm, 1, q[..., None, None].expand(-1, -1, *pm.shape[2:]))
+        else:
+            params = torch.gather(out["mask_params"], 1,
+                                  q[..., None].expand(-1, -1, out["mask_params"].shape[-1]))
+            boxes = torch.gather(out["pred_boxes"], 1, q[..., None].expand(-1, -1, 4))
+            sel = model.cond_inst.instance_masks(out["mask_feats"], params, boxes)
+        segm = postprocess_segm(sel, batch["orig_size"], CANVAS)
+    torch.cuda.synchronize()
+    print(f"  {head} forward: {shapes}, finite {finite}; postprocess_segm of the top-"
+          f"{cfg.num_select}: {tuple(segm.shape)}, {float(segm.float().mean()):.4f} of the "
+          f"pixels set; the head alone {head_ms:.2f} ms (CUDA events), {head_gb:.2f} GB above "
+          f"its inputs at its peak", flush=True)
+    want = ({"pred_masks": (BATCH, cfg.num_queries, CANVAS[0] // 8, CANVAS[1] // 8)}
+            if head == "detr" else
+            {"mask_feats": (BATCH, CANVAS[0] // 8, CANVAS[1] // 8, 8),
+             "mask_params": (BATCH, cfg.num_queries, 169)})
+    if shapes != want or not finite or tuple(segm.shape) != (BATCH, cfg.num_select) + CANVAS:
+        fail(f"the {head} forward's mask outputs: {shapes} (want {want}), finite {finite}")
+    recs_out.update(head_ms=head_ms, head_gb=head_gb)
+    del sel, segm, args, run_head
+
+    # one batch with the plain versions in place of the kernels
+    with torch.inference_mode(), plain_model_kernels():
+        ref = model(batch["images"], batch["pad_mask"])
+    torch.cuda.synchronize()
+    bi, ia, ib = shared_queries(out["topk_idx"], ref["topk_idx"])
+    share = len(bi) / out["topk_idx"].numel()
+    cos = {}
+    if head == "detr":
+        a, b = out["pred_masks"][bi, ia], ref["pred_masks"][bi, ib]
+        cos["pred_masks"] = float(torch.nn.functional.cosine_similarity(
+            a.flatten().double(), b.flatten().double(), 0))
+    else:
+        feats_err = float((out["mask_feats"] - ref["mask_feats"]).abs().max())
+        a, b = out["mask_params"][bi, ia], ref["mask_params"][bi, ib]
+        cos["mask_params"] = float(torch.nn.functional.cosine_similarity(
+            a.flatten().double(), b.flatten().double(), 0))
+        print(f"  {head}: mask_feats (from the input projections, before any kernel) with "
+              f"the plain versions: max abs err {feats_err:.3e}", flush=True)
+        if feats_err > 1e-5 * float(ref["mask_feats"].abs().max()):
+            fail("CondInst's mask features depend on the model's kernels")
+    print(f"  {head} vs the plain versions, one batch: two-stage selections share {share:.4f}; "
+          f"on the shared queries cosine {cos}", flush=True)
+    if share < 0.9 or min(cos.values()) < COS_MIN:
+        fail(f"the {head} head with the kernels departs from the plain versions")
+    del out, ref, model
+    free_memory()
+
+
+def is_oom(e: BaseException) -> bool:
+    """Whether ``e`` is the card running out of memory, or a CUDA graph's
+    capture that failed for it."""
+    import torch
+
+    return isinstance(e, torch.cuda.OutOfMemoryError) or isinstance(
+        e.__cause__, torch.cuda.OutOfMemoryError)
+
+
+def masks_train(head, recs_out):
+    """One head's train graph: see ``phase_masks``."""
+    import torch
+
+    import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
+    from richsem_tpu_torch.models import build_model
+    from richsem_tpu_torch.train.engine import (create_train_state, make_loss_fn,
+                                                make_train_step, step_draws)
+    from richsem_tpu_torch.train.optim import build_optimizer
+
+    cfg = masks_cfg(head)
+    tried = []
+    for bs in (BATCH, 1):
+        t0 = time.perf_counter()
+        g = torch.Generator(device=DEVICE).manual_seed(0)
+        model, _, _ = build_model("richsem", cfg, device=DEVICE, generator=g)
+        state = create_train_state(model, build_optimizer(model, cfg, steps_per_epoch=1000))
+        step = make_train_step(model, cfg, seed=0, device=DEVICE)
+        batches = [mask_train_batch(g, bs) for _ in range(N_MASK_STEPS + 1)]
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            m = step(state, batches[-1])  # the eager step, then the graph's capture
+            break
+        except (torch.cuda.OutOfMemoryError, RuntimeError) as e:
+            if not is_oom(e) or bs == 1:
+                raise
+            tried.append((bs, torch.cuda.max_memory_allocated() / 1e9))
+            print(f"  {head} train bs{bs}: out of memory at {tried[-1][1]:.2f} GB allocated "
+                  f"({str(e).splitlines()[0][:120]})", flush=True)
+        del model, state, step, batches
+        free_memory()
+    torch.cuda.synchronize()
+    (capture_ms,) = (gr.capture_ms for gr in step.graphs.values())
+    print(f"  {head} train bs{bs}: setup + warm-up {time.perf_counter() - t0:.1f} s, loss "
+          f"{float(m['loss']):.4f}; warm-up + capture {capture_ms:.1f} ms, pool "
+          f"{step.pool_bytes / 1e9:.3f} GB", flush=True)
+    counters = launch_counters()
+    want = [n * N_MASK_STEPS for n in (12, 12, 6, 6, 0, 0, 7) + adamw_launches(state.optimizer)]
+    for ctr in counters:
+        ctr.launches = 0
+    times, metrics = [], []
+    for batch in batches[:N_MASK_STEPS]:
+        t = time.perf_counter()
+        metrics.append(step(state, batch))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    launches = [ctr.launches for ctr in counters]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for i, m in enumerate(metrics):
+        terms = {k: float(m[k]) for k in ("loss", "loss_mask", "loss_dice", "loss_ce",
+                                          "grad_norm")}
+        print(f"  {head} step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in terms.items()),
+              flush=True)
+        if not (bool(m["finite"]) and all(math.isfinite(v) for v in terms.values())
+                and terms["loss_mask"] > 0 and terms["loss_dice"] > 0):
+            fail(f"the {head} train step {i}: a loss is not finite, or a mask term is zero")
+    ms_step = statistics.median(times)
+    print(f"  {head} train (CUDA graph replays, bs{bs}): {', '.join(f'{t:.2f}' for t in times)}"
+          f" ms/step, median {ms_step:.2f} ms/step = {bs * 1e3 / ms_step:.3f} img/s; peak "
+          f"{peak_gb:.2f} GB allocated (the eager warm-up's and the graph's pool); launches "
+          + ", ".join(f"{k} {n}" for k, n in zip(COUNTED, launches)) + f" (expect {want})",
+          flush=True)
+    if launches != want:
+        fail(f"the {head} train step launched {launches}, not {want}")
+    dev = profile_once(lambda: step(state, batches[1]), top=6, also=ALL_OPS)
+    busy = dev.get("all")
+    print(f"  {head} train: a replay's busy time {busy if busy is None else f'{busy:.2f}'} ms",
+          flush=True)
+    del metrics, m
+    saved = state_copy(state)
+    eager_bs = bs
+    try:
+        graph_vs_eager(step, state, batches[0], what=f"{head} train")
+    except (torch.cuda.OutOfMemoryError, RuntimeError) as e:
+        if not is_oom(e) or bs == 1:
+            raise
+        print(f"  {head}: the eager steps do not fit beside the bs{bs} graph's pool "
+              f"({str(e).splitlines()[0][:120]}); graph_vs_eager at bs1", flush=True)
+        eager_bs = 1
+    step.reset()
+    del step
+    free_memory()
+    if eager_bs != bs:  # the check on a bs1 graph, from the state the bs2 steps left
+        state_put(state, saved)
+        one = {k: v[:1] for k, v in batches[0].items()}
+        step = make_train_step(model, cfg, seed=0, device=DEVICE)
+        step(state, one)  # the bs1 graph's warm-up and capture
+        graph_vs_eager(step, state, one, what=f"{head} train bs1")
+        step.reset()
+        del step
+        free_memory()
+    del saved
+
+    # the eager steps' batch size: the plain versions' step needs more memory still
+    loss_fn = make_loss_fn(model, cfg)
+    draws = step_draws(cfg, eager_bs, torch.Generator(device=DEVICE).manual_seed(7),
+                       device=DEVICE)
+    params = dict(model.named_parameters())
+    batch = {k: v[:eager_bs] for k, v in batches[0].items()}
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        total, _ = loss_fn(batch, draws)
+        total.backward()
+        out = {n: params[n].grad.float().clone() for n in MASK_LEAVES[head]}
+        model.zero_grad(set_to_none=True)
+        return out
+
+    g_k = grads()
+    with plain_versions():
+        g_p = grads()
+    cos = {n: float(torch.nn.functional.cosine_similarity(g_k[n].flatten(), g_p[n].flatten(), 0))
+           for n in MASK_LEAVES[head]}
+    print(f"  {head} head's gradients at bs{eager_bs}, kernels vs plain versions: "
+          + ", ".join(f"{n} {c:.5f}" for n, c in cos.items()), flush=True)
+    if min(cos.values()) < COS_MIN:
+        fail(f"a {head} head gradient with the kernels departs from the plain one")
+    recs_out.update(train_bs=bs, train_ms=ms_step, train_busy_ms=busy, train_peak_gb=peak_gb,
+                    graph_vs_eager_bs=eager_bs, oom=tried)
+    del model, state, g_k, g_p, params, batch, batches
+    free_memory()
+
+
+def conv_yardstick(recs_out):
+    """CondInst's first refine convolution (3x3, 256 -> 128 channels, f32, TF32
+    off) on bs2's stride-8 map, forward and backward: cuDNN's ``F.conv2d``
+    against the branch's im2col product (``models/cond_inst.py:conv_gemm``),
+    CUDA-event ms (why the branch takes the product)."""
+    import torch
+    import torch.nn.functional as F
+
+    from richsem_tpu_torch.models.cond_inst import conv_gemm
+    from richsem_tpu_torch.models.layers import Conv
+
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    h, w = CANVAS[0] // 8, CANVAS[1] // 8
+    conv = Conv(256, 128, 3, padding=1, device=DEVICE)
+    conv.init_weights(g)
+    x = torch.randn((BATCH, h, w, 256), generator=g, device=DEVICE).requires_grad_()
+
+    def cudnn():
+        F.conv2d(x.permute(0, 3, 1, 2), conv.weight, conv.bias, padding=1).sum().backward()
+
+    def gemm():
+        conv_gemm(conv, x).sum().backward()
+
+    with torch.no_grad():
+        a = F.conv2d(x.permute(0, 3, 1, 2), conv.weight, conv.bias, padding=1).permute(0, 2, 3, 1)
+        err = float((conv_gemm(conv, x) - a).abs().max() / a.abs().max())
+    ms = {"cudnn": cuda_ms(cudnn, iters=3, warmup=1), "im2col": cuda_ms(gemm, iters=3, warmup=1)}
+    print(f"  CondInst refine0 [{BATCH}, 256, {h}, {w}] -> 128, 3x3 f32, forward and backward: "
+          f"cuDNN F.conv2d {ms['cudnn']:.2f} ms, the im2col product {ms['im2col']:.2f} ms; "
+          f"outputs within {err:.2e} of the largest", flush=True)
+    if err > 1e-5:
+        fail("the im2col convolution departs from cuDNN's")
+    recs_out["refine0_ms"] = ms
+
+
+def phase_masks():
+    """Phase 25, the masks path: ``dino_4scale_lvis.py`` with ``masks=True``, bf16,
+    896 x 1344, 900 queries, ``dn_number`` 100, random weights (seed 0), for
+    ``mask_head_type`` "detr" (DETRsegm) and then "cond_inst". Each head:
+
+    * eval: the eval graph (which does not run the head) on 3 batches, twice,
+      in turns with the same detector without masks: ms/batch of both, K1 12
+      and K2 6 a batch, the replay against its eager body bit for bit;
+    * the forward's heads, eager: ``pred_masks`` (or ``mask_feats`` and
+      ``mask_params``) at their production shapes, finite;
+      ``postprocess_segm`` of the top-300 queries; the head alone (its
+      inputs caught from a forward): CUDA-event ms and the GB its peak needs;
+      one batch against the plain versions (on the queries the two top-900
+      selections share, cosine >= 0.9; CondInst's mask features, which no
+      kernel precedes, within 1e-5);
+    * train at bs2 with bench.py's batch and ``masks``, each valid GT box's
+      extent at stride 8 (at bs1 if bs2 runs out of memory, both peaks
+      printed): warm-up and capture, 3 replays with ``loss_mask`` and
+      ``loss_dice`` finite and nonzero, the flagship's launches (K1 12, K1-bwd
+      12, K2 6, K2-bwd 6, K4 7, K5 and K6 from the optimizer's tables),
+      ms/step and peak GB, a profiled replay's busy ms, ``graph_vs_eager``
+      (at bs1 where the eager steps do not fit beside the bs2 graph's
+      pool), and the head's gradients against the same step with the plain
+      versions (cosine >= 0.9; at ``graph_vs_eager``'s batch size);
+
+    then ``conv_yardstick``: CondInst's first refine convolution by cuDNN
+    and by the branch's im2col product."""
+
+    t0 = time.perf_counter()
+    out = {}
+    for head in MASK_HEADS:
+        out[head] = {}
+        masks_eval(head, out[head])
+        masks_train(head, out[head])
+    conv_yardstick(out["cond_inst"])
+    print("  masks path: " + json.dumps(out), flush=True)
+    print(f"phase 25: the masks path (DETRsegm and CondInst) ok "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -4416,6 +4910,10 @@ def main() -> None:
     smi = phase_build()
     if sys.argv[1:] == ["k7"]:
         phase_variant_a({}, train=False)
+        print(f"total {time.perf_counter() - t0:.1f} s")
+        return
+    if sys.argv[1:] == ["masks"]:
+        phase_masks()
         print(f"total {time.perf_counter() - t0:.1f} s")
         return
     value, cases = k1_cases()
@@ -4468,6 +4966,7 @@ def main() -> None:
         phase_knobs()
         print(f"total {time.perf_counter() - t0:.1f} s")
         return
+
     if sys.argv[1:] == ["backbones"]:
         phase_swin(recs)
         phase_alt_backbones()
@@ -4504,6 +5003,8 @@ def main() -> None:
         torch.cuda.empty_cache()
         phase_vit(recs)
         phase_weak_labels(recs)
+        torch.cuda.empty_cache()
+        phase_masks()
         phase_ddp(recs, smi)
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)

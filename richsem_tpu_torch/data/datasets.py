@@ -1,7 +1,8 @@
 """Detection datasets: COCO / LVIS / weak-label image folders (counterpart of
 ``richsem_tpu/data/datasets.py``; images decode through
-:func:`richsem_tpu_torch.data.image_io.imread_rgb`, PNG without OpenCV; the mask
-helpers, off the main path, need ``cv2`` and raise without it).
+:func:`richsem_tpu_torch.data.image_io.imread_rgb`, and the instance masks
+rasterise through :func:`richsem_tpu_torch.data.image_io.fill_poly` and
+resize through its ``INTER_NEAREST``, OpenCV's pixels without OpenCV).
 
 Capability parity:
   * ``CocoDetection``-style record loading (datasets/coco.py:407-526):
@@ -31,21 +32,12 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from richsem_tpu_torch.data.coco_api import CocoIndex
-from richsem_tpu_torch.data.image_io import imread_rgb
+from richsem_tpu_torch.data.image_io import INTER_NEAREST, fill_poly, imread_rgb, resize
 from richsem_tpu_torch.data.transforms import Record
 
 
 def _load_image(path: str) -> Optional[np.ndarray]:
     return imread_rgb(path)
-
-
-def _cv2():
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError("instance masks need OpenCV (cv2), which does not import; "
-                          "the detection path (masks=False) does not") from e
-    return cv2
 
 
 class DetectionDataset:
@@ -395,9 +387,7 @@ def _rle_to_mask(segmentation: dict, h: int, w: int) -> np.ndarray:
         val = not val
     mask = flat.reshape((rw, rh)).T  # column-major
     if (rh, rw) != (h, w):
-        mask = _cv2().resize(
-            mask.astype(np.uint8), (w, h), interpolation=_cv2().INTER_NEAREST
-        ).astype(bool)
+        mask = resize(mask.astype(np.uint8), (w, h), INTER_NEAREST).astype(bool)
     return mask
 
 
@@ -405,7 +395,8 @@ def _polygons_to_mask(segmentation, h: int, w: int) -> np.ndarray:
     """COCO segmentation (polygons or RLE) → bool bitmap [h, w].
 
     Replaces pycocotools' annToMask (ConvertCocoPolysToMask,
-    datasets/coco.py:463-526): polygon lists rasterize via cv2.fillPoly;
+    datasets/coco.py:463-526): polygon lists rasterize as ``cv2.fillPoly``
+    does (:func:`~richsem_tpu_torch.data.image_io.fill_poly`);
     dict segmentations (crowd RLE, compressed or uncompressed) decode via
     :func:`_rle_to_mask`.
     """
@@ -419,5 +410,5 @@ def _polygons_to_mask(segmentation, h: int, w: int) -> np.ndarray:
             if len(p) >= 6
         ]
         if polys:
-            _cv2().fillPoly(mask, polys, 1)
+            fill_poly(mask, polys, 1)
     return mask.astype(bool)

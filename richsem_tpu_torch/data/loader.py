@@ -27,6 +27,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from richsem_tpu_torch.data import image_io
 from richsem_tpu_torch.data.transforms import Record
 
 
@@ -77,14 +78,10 @@ def collate(
         image_ids[i] = r["image_id"]
         is_extra[i] = r.get("is_extra", False)
         if with_masks and len(r.get("masks", ())):
-            import cv2
-
             for j in range(n):
                 mj = r["masks"][j].astype(np.uint8)
-                small = cv2.resize(
-                    mj, (max(w // 8, 1), max(h // 8, 1)),
-                    interpolation=cv2.INTER_NEAREST,
-                )
+                small = image_io.resize(mj, (max(w // 8, 1), max(h // 8, 1)),
+                                        image_io.INTER_NEAREST)
                 gt_masks[i, j, : small.shape[0], : small.shape[1]] = small > 0
     out = {
         "images": images,

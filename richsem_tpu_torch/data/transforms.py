@@ -19,8 +19,8 @@ Records are plain dicts of numpy arrays:
 PIL's bilinear resampling is replaced, as in the JAX package, by OpenCV's
 (``INTER_LINEAR``, ``INTER_AREA`` for downscale), here as reproduced by
 :mod:`richsem_tpu_torch.data.image_io` (within one level of ``cv2.resize``), so
-the main path needs no OpenCV. Masks (off the main path) still resize with
-``cv2``, imported where they do.
+no path needs OpenCV: the instance masks resize with its ``INTER_NEAREST``,
+OpenCV's bit for bit.
 """
 
 from __future__ import annotations
@@ -92,14 +92,9 @@ def resize(r: Record, size: int, max_size: Optional[int] = None) -> Record:
     if "area" in r:
         r["area"] = r["area"] * (rw * rh)
     if "masks" in r and len(r["masks"]) and (nh, nw) != (h, w):
-        import cv2
-
         r["masks"] = np.stack(
-            [
-                cv2.resize(m.astype(np.uint8), (nw, nh),
-                           interpolation=cv2.INTER_NEAREST)
-                for m in r["masks"]
-            ]
+            [image_io.resize(m.astype(np.uint8), (nw, nh), image_io.INTER_NEAREST)
+             for m in r["masks"]]
         ).astype(bool)
     if "keypoints" in r and len(r["keypoints"]):
         kp = r["keypoints"].copy()

@@ -31,8 +31,15 @@ focal, box and distillation losses run over the assigned queries
 valid GT count; the DN sets keep their fabricated one-to-one matching.
 ``distill_aux_layers`` distills every aux decoder layer as the final one, and
 ``enc_cls_agn`` matches and supervises the interm set with every label 0
-(its federated classes from split 15). The mask losses raise
-``NotImplementedError`` naming the ROADMAP item.
+(its federated classes from split 15).
+
+The mask losses (``criterion.py:494-558``) supervise the final set's matched
+queries when the targets carry ``masks [B, G, H/8, W/8]``: DETRsegm's
+``pred_masks`` through :func:`~richsem_tpu_torch.models.segmentation.loss_masks`,
+or CondInst's dynamic networks instantiated at the matched queries
+(``mask_feats``, ``mask_params`` and the predicted centres, detached as JAX
+stops their gradient). Under ``OptMatcher`` they raise JAX's
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,17 +49,14 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from richsem_tpu_torch.models.cond_inst import box_centers_px, dynamic_mask_logits
 from richsem_tpu_torch.models.matcher import match
 from richsem_tpu_torch.models.ota_matcher import ota_match
+from richsem_tpu_torch.models.segmentation import dice_loss, loss_masks, mask_focal_loss
 from richsem_tpu_torch.utils import boxes as box_ops
 from richsem_tpu_torch.utils.misc import l2_normalize
 
 Tensor = torch.Tensor
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to richsem_tpu_torch yet (ROADMAP.md queue 1, {item})")
 
 
 def fed_loss_classes(
@@ -233,9 +237,12 @@ def _gather_gt_per_query(gt_of_query: Tensor, gt_field: Tensor, gt_valid: Tensor
 
 def loss_labels_m2o(pred_logits: Tensor, gt_of_query: Tensor, gt_labels: Tensor,
                     gt_valid: Tensor, num_boxes: Tensor, focal_alpha: float = 0.25,
-                    fed_ids: Optional[Tuple[Tensor, Tensor]] = None) -> Dict[str, Tensor]:
+                    fed_ids: Optional[Tuple[Tensor, Tensor]] = None,
+                    total: Optional[Callable[[Tensor], Tensor]] = None) -> Dict[str, Tensor]:
     """The focal (or federated) loss under the many-to-one assignment, over
-    ``num_boxes``; ``class_error`` over the assigned queries."""
+    ``num_boxes``; ``class_error`` over the assigned queries of the global
+    batch: ``total`` (``parallel/dist.py:total_``) sums its two counts over
+    the ranks."""
     c = pred_logits.shape[-1]
     logits = pred_logits.float()
     lbl, assigned = _gather_gt_per_query(gt_of_query, gt_labels, gt_valid)
@@ -251,7 +258,10 @@ def loss_labels_m2o(pred_logits: Tensor, gt_of_query: Tensor, gt_labels: Tensor,
     out = {"loss_ce": focal.sum() / num_boxes}
     with torch.no_grad():
         ok = (pred_logits.argmax(-1) == lbl) & assigned
-        out["class_error"] = 100.0 * (1.0 - ok.sum() / assigned.sum().clamp(min=1))
+        counts = torch.stack([ok.sum(), assigned.sum()])
+        if total is not None:
+            counts = total(counts)
+        out["class_error"] = 100.0 * (1.0 - counts[0] / counts[1].clamp(min=1))
     return out
 
 
@@ -292,17 +302,20 @@ class GlobalStats(NamedTuple):
     dn_classes: Tensor
     ranks: int = 1
     union: Optional[Callable[[Tensor], Tensor]] = None  # a mask's union over the ranks
+    total: Optional[Callable[[Tensor], Tensor]] = None  # counts summed over the ranks
 
     @classmethod
     def of(cls, stats: Dict[str, Tensor], ranks: int = 1,
-           union: Optional[Callable[[Tensor], Tensor]] = None) -> "GlobalStats":
+           union: Optional[Callable[[Tensor], Tensor]] = None,
+           total: Optional[Callable[[Tensor], Tensor]] = None) -> "GlobalStats":
         """From the global batch's statistics (``parallel/dist.py:STAT_KEYS``);
-        ``union`` (``parallel/dist.py:union_``) with ``ranks`` above 1."""
+        ``union`` and ``total`` (``parallel/dist.py:union_``, ``total_``) with
+        ``ranks`` above 1."""
         def share(count):
             return count.float().clamp(min=1.0) / ranks
 
         return cls(share(stats["gt_total"]), stats["gt_classes"], share(stats["dn_total"]),
-                   stats["dn_classes"], ranks, union)
+                   stats["dn_classes"], ranks, union, total)
 
 
 def set_criterion(
@@ -342,15 +355,20 @@ def set_criterion(
     assigned queries over the global batch (``stats.union`` across ranks: a
     valid GT may end without a query), and their table's width counts
     ``min(Q, G)`` slots an image (``criterion.py:58``). The many-to-one
-    ``class_error`` counts this process's assigned queries."""
-    if "masks" in targets or "pred_masks" in outputs or "mask_params" in outputs:
-        raise _not_ported("mask losses", "item 11")
+    ``class_error`` counts the assigned queries of the global batch
+    (``stats.total`` across ranks)."""
     if use_fed_loss and fed_uniforms is None:
         raise ValueError("the federated loss needs fed_uniforms [16, num_classes]")
     gt_labels, gt_boxes, gt_valid = targets["labels"], targets["boxes"], targets["valid"]
     num_boxes = stats.num_boxes
     many_to_one = matcher_type == "OptMatcher"
     b, g = gt_labels.shape
+    if many_to_one and "masks" in targets and ("pred_masks" in outputs
+                                               or "mask_params" in outputs):
+        # JAX's words: the mask losses are only for one-to-one matchers
+        raise NotImplementedError(
+            "mask losses under matcher_type='OptMatcher' (many-to-one) are not "
+            "implemented; use HungarianMatcher/SimpleMinsumMatcher with masks=True")
 
     def run_matcher(out_set, labels=gt_labels):
         if many_to_one:
@@ -416,7 +434,7 @@ def set_criterion(
         """The focal, box and cardinality terms of a set matched by ``col``."""
         if many_to_one:
             d = loss_labels_m2o(out_set["pred_logits"], col, labels, gt_valid, num_boxes,
-                                focal_alpha, fids)
+                                focal_alpha, fids, stats.total)
             d.update(loss_boxes_m2o(out_set["pred_boxes"], col, gt_boxes, gt_valid, num_boxes))
         else:
             d = loss_labels(out_set["pred_logits"], col, labels, gt_valid, num_boxes,
@@ -432,7 +450,10 @@ def set_criterion(
             d["loss_distill"] = distill(out_set, col, fids if use_fed_on_kd else None)
         return d
 
-    losses: Dict[str, Tensor] = dict(one_set(outputs, 0, run_matcher(outputs), has_distill))
+    col = run_matcher(outputs)
+    losses: Dict[str, Tensor] = dict(one_set(outputs, 0, col, has_distill))
+    if "masks" in targets and not many_to_one:
+        losses.update(mask_losses(outputs, col, targets["masks"], gt_valid, num_boxes))
 
     if dn_meta is not None and "dn_outputs" in outputs:
         dn_out = outputs["dn_outputs"]
@@ -479,6 +500,35 @@ def set_criterion(
             d = one_set(interm, 14, run_matcher(interm))
         losses.update({f"{k}_interm": v for k, v in d.items()})
     return losses
+
+
+def mask_losses(outputs: Dict[str, Any], col: Tensor, gt_masks: Tensor, gt_valid: Tensor,
+                num_boxes: Tensor) -> Dict[str, Tensor]:
+    """``loss_mask`` and ``loss_dice`` of the final set's matched queries
+    (``col [B, G]``), for whichever mask head's outputs ``outputs`` holds
+    (none: no term)."""
+    if "pred_masks" in outputs:
+        return loss_masks(outputs["pred_masks"], col, gt_masks, gt_valid, num_boxes)
+    if "mask_params" not in outputs:
+        return {}
+    # CondInst: the dynamic networks of the matched queries only, [B, G] instances
+    feats = outputs["mask_feats"]
+    b, hm, wm = feats.shape[0], feats.shape[1], feats.shape[2]
+    stride = outputs.get("mask_feat_stride", 8)
+    safe = col.clamp(min=0)[..., None]
+    params = torch.gather(outputs["mask_params"], 1,
+                          safe.expand(-1, -1, outputs["mask_params"].shape[-1]))
+    boxes = torch.gather(outputs["pred_boxes"], 1, safe.expand(-1, -1, 4))
+    layout = outputs.get("mask_head_layout", {})
+    logits = dynamic_mask_logits(
+        feats, params, box_centers_px(boxes.detach(), feats, stride),
+        dy_channels=layout.get("dy_channels", 8), layers=layout.get("layers", 3),
+        rel_coord=layout.get("rel_coord", True), mask_feat_stride=stride)
+    m = (gt_valid & (col >= 0)).reshape(-1)
+    n = b * col.shape[1]
+    logits, tgt = logits.reshape(n, hm, wm), gt_masks.reshape(n, hm, wm)
+    return {"loss_mask": mask_focal_loss(logits, tgt, m, num_boxes),
+            "loss_dice": dice_loss(logits, tgt, m, num_boxes)}
 
 
 def dn_slot_indices(dn_meta: Dict[str, Tensor]) -> Tensor:

@@ -42,6 +42,16 @@ ResNet in the backward (the JAX package remats no other backbone);
 products' outputs (K1 and K2 run again); ``enc_selective_remat`` (without
 ``use_checkpoint``) recomputes every encoder layer but keeps the output of
 its K1 call, which does not run again.
+
+With ``masks=True`` the detector carries a mask head on the final layer's
+matching queries: DETRsegm (``mask_head_type="detr"``: ``mask_attention``
+over the stride-32 projection, ``mask_head`` up through strides 16 and 8,
+``pred_masks [B, nq, H/8, W/8]``) or CondInst (``"cond_inst"``:
+``mask_feats`` from the first three projections, the controller's
+``mask_params`` a query, and the dynamic networks' layout). The heads compute
+in f32, as their flax modules (no ``dtype=``) do. A caller that reads no mask
+output (the eval step) passes ``mask_head=False``, and the head does not run,
+as XLA drops it from JAX's eval step.
 """
 
 from __future__ import annotations
@@ -65,9 +75,11 @@ from richsem_tpu_torch.models.layers import (
     dropout,
     normal_,
 )
+from richsem_tpu_torch.models.cond_inst import CondInstHead
 from richsem_tpu_torch.models.convnext import ConvNeXt, ConvNeXtConfig
 from richsem_tpu_torch.models.focalnet import FocalNet, FocalNetConfig
 from richsem_tpu_torch.models.resnet import ResNet
+from richsem_tpu_torch.models.segmentation import MaskHeadSmallConv, MHAttentionMap
 from richsem_tpu_torch.models.swin import SwinConfig, SwinTransformer
 from richsem_tpu_torch.models.transformer_utils import (
     encoder_reference_points,
@@ -223,12 +235,6 @@ class DINOConfig:
 _CLS_BIAS = -math.log((1 - 0.01) / 0.01)  # focal prior
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to richsem_tpu_torch yet (ROADMAP.md queue 1, {item})"
-    )
-
-
 def build_backbone(c: DINOConfig, device) -> Tuple[nn.Module, Tuple[int, ...]]:
     """-> (backbone, its output channels), chosen by name as the JAX ``DINO.setup``
     chooses (``richsem_tpu/models/dino.py:413-463``): ResNet-50/101, Swin,
@@ -277,12 +283,16 @@ class DeformableEncoderLayer(nn.Module):
 
     With an activation other than relu, or dropout in training (a
     ``generator``), the tail is the modules' composition, as JAX's knob
-    variants keep flax's modules (``dino.py:293-301``): K2 does not run."""
+    variants keep flax's modules (``dino.py:293-301``): K2 does not run.
+    Neither does it with ``enc_fused_tail=False``, which runs the same
+    composition, the function of JAX's ``xla_encoder_tail``
+    (``dino.py:316-320``)."""
 
     def __init__(self, c: DINOConfig, device=None):
         super().__init__()
         self.compute_dtype = c.compute_dtype
         self.activation, self.dropout = c.activation, c.dropout
+        self.fused_tail = c.enc_fused_tail
         self.self_attn = MSDeformAttn(
             d_model=c.hidden_dim, n_levels=c.num_feature_levels, n_heads=c.nheads,
             n_points=c.enc_n_points, compute_dtype=c.compute_dtype, impl=c.msda_impl,
@@ -297,7 +307,7 @@ class DeformableEncoderLayer(nn.Module):
                 monitor=None, generator=None):
         attn_out = self.self_attn(src + pos, reference_points, src, spatial_shapes,
                                   pad_mask, monitor=monitor)
-        if self.activation != "relu" or generator is not None:
+        if self.activation != "relu" or generator is not None or not self.fused_tail:
             attn_out = dropout(attn_out, self.dropout, generator)
             return self.ffn(self.norm1(src + attn_out), generator)
         b, s, d = src.shape
@@ -459,8 +469,6 @@ class DINO(nn.Module):
                 "is available; pass device='cpu' to build on the CPU"
             )
         c = self.cfg = cfg
-        if c.masks:
-            raise _not_ported("knob masks", "item 11")
         if c.two_stage_type != "standard":
             raise NotImplementedError(c.two_stage_type)
         self.backbone, chans = build_backbone(c, device)
@@ -520,6 +528,11 @@ class DINO(nn.Module):
         if c.use_clip_visual_query:
             self.clip_query_proj = Dense(clip_spatial_dim, c.hidden_dim, bias=False,
                                          device=device)
+        if c.masks and c.mask_head_type == "cond_inst":
+            self.cond_inst = CondInstHead(c.hidden_dim, device=device)
+        elif c.masks:  # DETRsegm
+            self.mask_attention = MHAttentionMap(c.hidden_dim, c.nheads, device=device)
+            self.mask_head = MaskHeadSmallConv(c.hidden_dim, c.nheads, device=device)
 
     def distill_proj(self) -> nn.Module:
         """The distillation projection: ``vl_proj`` under ``share_vl_proj``."""
@@ -571,6 +584,11 @@ class DINO(nn.Module):
             _init_clip_proj(self.clip_visual_proj, c.clip_embed_dim, g)
         if c.use_clip_visual_query:
             self.clip_query_proj.init_weights(g)
+        if c.masks and c.mask_head_type == "cond_inst":
+            self.cond_inst.init_weights(g)
+        elif c.masks:
+            self.mask_attention.init_weights(g)
+            self.mask_head.init_weights(g)
 
     def _class_logits(self, h, text_embed, enc: bool = False):
         c = self.cfg
@@ -608,6 +626,7 @@ class DINO(nn.Module):
         clip_features: Optional[torch.Tensor] = None,
         train: bool = False,
         dropout_generator: Optional[torch.Generator] = None,
+        mask_head: bool = True,
     ) -> Dict[str, Any]:
         c = self.cfg
         images = images.to(c.compute_dtype)
@@ -618,7 +637,8 @@ class DINO(nn.Module):
         return self.detect(feats, pad_mask, dn_labels=dn_labels,
                            dn_boxes_unsig=dn_boxes_unsig, dn_attn_mask=dn_attn_mask,
                            text_embed=text_embed, clip_features=clip_features,
-                           train=train, dropout_generator=dropout_generator)
+                           train=train, dropout_generator=dropout_generator,
+                           mask_head=mask_head)
 
     def detect(
         self,
@@ -631,6 +651,7 @@ class DINO(nn.Module):
         clip_features: Optional[torch.Tensor] = None,
         train: bool = False,
         dropout_generator: Optional[torch.Generator] = None,
+        mask_head: bool = True,
     ) -> Dict[str, Any]:
         """Input projections -> transformer -> heads, from backbone features.
 
@@ -639,7 +660,8 @@ class DINO(nn.Module):
         queries' outputs under ``dn_outputs``. Dropout in training draws its
         masks from ``dropout_generator``. ``clip_features`` (the teacher's
         spatial map ``[B, h, w, Dv]``) feeds the content queries under
-        ``use_clip_visual_query``."""
+        ``use_clip_visual_query``. With ``masks`` the mask head's outputs join
+        unless ``mask_head`` is False."""
         c = self.cfg
         if (dn_labels is None) != (dn_boxes_unsig is None):
             raise ValueError("dn_labels and dn_boxes_unsig come together")
@@ -812,7 +834,16 @@ class DINO(nn.Module):
             "pred_boxes": init_box_proposal,
         }
         out["topk_idx"] = topk_idx
-        out["hs"] = hs_stack[-1, :, num_dn:]
+        out["hs"] = hs_match = hs_stack[-1, :, num_dn:]
+        if c.masks and mask_head and c.mask_head_type == "cond_inst":
+            out["mask_feats"] = self.cond_inst.mask_features(srcs[:3])
+            out["mask_params"] = self.cond_inst.controller_params(hs_match)
+            out["mask_feat_stride"] = self.cond_inst.mask_feat_stride
+            out["mask_head_layout"] = self.cond_inst.layout()
+        elif c.masks and mask_head:  # DETRsegm on the stride-32, 16 and 8 projections
+            c5 = len(feats) - 1
+            attn_maps = self.mask_attention(hs_match, srcs[c5], masks[c5])
+            out["pred_masks"] = self.mask_head(attn_maps, srcs[c5], srcs[c5 - 1], srcs[c5 - 2])
         if monitor:
             out["offset_beyond_margin"] = torch.stack(monitor).mean()
         return out

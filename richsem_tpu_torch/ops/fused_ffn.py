@@ -80,7 +80,8 @@ def _cuda_args(src, attn_out, w1, b1, w2, b2, s1, sb1, s2, sb2, cdt):
     """Checks and casts for K2 and K2-bwd -> the ten contiguous kernel inputs."""
     if cdt != torch.bfloat16:
         raise NotImplementedError(
-            f"K2 computes in bfloat16 only; got compute dtype {cdt}"
+            f"K2 computes in bfloat16 only; got compute dtype {cdt}: set "
+            "enc_fused_tail=False to run the encoder tail as its modules' composition"
         )
     if src.dtype != torch.float32 or attn_out.dtype != torch.float32:
         raise TypeError("K2 takes float32 src and attn_out")

@@ -377,6 +377,20 @@ def union_(mask: torch.Tensor, d: Dist) -> torch.Tensor:
 union_.calls = 0  # its collectives, a set's federated classes each
 
 
+def total_(counts: torch.Tensor, d: Dist) -> torch.Tensor:
+    """The sum over the ranks of ``counts``: one all-reduce (SUM) of its copy.
+    The many-to-one ``class_error`` reads it for its two counts (the assigned
+    queries whose class is right, and the assigned queries), so that its ratio
+    is the global batch's, as JAX takes it over the data-sharded batch."""
+    buf = counts.clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=d.group)
+    total_.calls += 1
+    return buf
+
+
+total_.calls = 0  # its collectives, a many-to-one set's class_error each
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))

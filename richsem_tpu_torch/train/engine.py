@@ -21,7 +21,8 @@
 
 Batch layout: ``images [B,H,W,3]`` f32, ``pad_mask [B,H,W]`` bool (True on
 padding), ``labels [B,G]`` int, ``boxes [B,G,4]`` normalized cxcywh,
-``valid [B,G]`` bool, ``orig_size [B,2]``, optionally ``is_extra [B]`` bool;
+``valid [B,G]`` bool, ``orig_size [B,2]``, optionally ``is_extra [B]`` bool
+and, with ``masks=True``, ``masks [B,G,H/8,W/8]`` bool (the collate's);
 with the teacher also ``size [B,2]``, the valid (h, w) of each image in the
 canvas, by which the normalized boxes are scaled for the RoI crops.
 """
@@ -49,19 +50,23 @@ from richsem_tpu_torch.models.criterion import (
 )
 from richsem_tpu_torch.models.dn import cdn_draws, cdn_pad, prepare_cdn
 from richsem_tpu_torch.models.postprocess import postprocess
+from richsem_tpu_torch.models.segmentation import exact_f32
 from richsem_tpu_torch.parallel.dist import (
     STAT_KEYS,
     Dist,
     average_,
     reduce_stats_,
     tensor_stats,
+    total_,
     union_,
 )
 from richsem_tpu_torch.train.optim import AdamW, ema_init, ema_update, frozen_leaves
 
-# JAX's metric keys (engine.py:301-311), and the DN distillation term
+# JAX's metric keys (engine.py:301-311), the DN distillation term and, where the
+# batch carries masks, the two mask terms (JAX logs neither)
 METRIC_KEYS = ("loss_ce", "loss_bbox", "loss_giou", "loss_ce_dn", "loss_distill",
-               "loss_distill_dn", "class_error", "cardinality_error", "offset_beyond_margin")
+               "loss_distill_dn", "class_error", "cardinality_error", "offset_beyond_margin",
+               "loss_mask", "loss_dice")
 
 
 def _use_dn(cfg) -> bool:
@@ -110,7 +115,9 @@ def make_loss_fn(model, cfg, clip_model=None, world_size: int = 1, dist: Optiona
     loss of the global batch (each batch-global normaliser over
     ``world_size``). Under ``OptMatcher`` with the federated loss, the classes
     its queries were assigned are united over the ranks of ``dist``
-    (``parallel/dist.py:union_``), a second collective of the step."""
+    (``parallel/dist.py:union_``), a second collective of the step; under
+    ``OptMatcher`` across more than one rank, each matched set's
+    ``class_error`` sums its two counts over the ranks (``total_``)."""
     use_teacher = bool(getattr(cfg, "use_visual_distill", False))
     if use_teacher and clip_model is None:
         raise ValueError("use_visual_distill needs the CLIP teacher: pass clip_model "
@@ -124,9 +131,11 @@ def make_loss_fn(model, cfg, clip_model=None, world_size: int = 1, dist: Optiona
     weight_dict = build_weight_dict(cfg)
     use_dn = _use_dn(cfg)
     group_mode = use_dn and dn_group_mode(cfg)
-    union = None
+    union = sum_counts = None
     if dist is not None and dist.active:
         union = functools.partial(union_, d=dist)
+        if dist.world > 1:
+            sum_counts = functools.partial(total_, d=dist)
     monitor_offsets = getattr(cfg, "monitor_msda_offsets", False)
     # the teacher's weak labels rewrite extra images' boxes on the device, past
     # the host's statistics
@@ -211,10 +220,10 @@ def make_loss_fn(model, cfg, clip_model=None, world_size: int = 1, dist: Optiona
             _, outputs["teacher_clip_logits"], _ = clip_teacher_box_targets(
                 clip_model, batch["images"], outputs["pred_boxes"].detach(),
                 batch["size"].float(), text_embed, clip_model.logit_scale, spatial=spatial)
-        targets = {k: batch[k] for k in ("labels", "boxes", "valid", "clip_logits",
+        targets = {k: batch[k] for k in ("labels", "boxes", "valid", "masks", "clip_logits",
                                          "clip_embed", "clip_valid") if k in batch}
         losses = set_criterion(
-            outputs, targets, GlobalStats.of(stats, world_size, union), num_classes=cfg.num_classes,
+            outputs, targets, GlobalStats.of(stats, world_size, union, sum_counts), num_classes=cfg.num_classes,
             fed_uniforms=draws.get("fed_uniforms"), focal_alpha=cfg.focal_alpha,
             cost_class=cfg.set_cost_class, cost_bbox=cfg.set_cost_bbox,
             cost_giou=cfg.set_cost_giou, matcher_type=cfg.matcher_type,
@@ -262,12 +271,13 @@ def eval_forward(model, cfg, batch, text_embed=None, clip_model=None) -> Dict[st
     """The eval step's body: inference forward + PostProcess. It runs as it is
     on the CPU; on the card a CUDA graph of it is replayed (:class:`EvalStep`).
     With ``use_clip_visual_query`` the teacher's spatial map of the images
-    (``clip_model``) feeds the content queries, as in training."""
+    (``clip_model``) feeds the content queries, as in training. The mask head
+    does not run: its output is not read, as XLA drops it from JAX's step."""
     clip_features = None
     if getattr(cfg, "use_clip_visual_query", False):
         clip_features = clip_spatial_features(clip_model, batch["images"])
     outputs = model(batch["images"], batch["pad_mask"], text_embed=text_embed,
-                    clip_features=clip_features)
+                    clip_features=clip_features, mask_head=False)  # no mask output read
     return postprocess(
         outputs["pred_logits"], outputs["pred_boxes"], batch["orig_size"],
         num_select=cfg.num_select, nms_iou_threshold=cfg.nms_iou_threshold,
@@ -438,8 +448,8 @@ class EvalStep(_Graphs):
 
 
 # the batch's fields the train step reads (loss_fn), where present
-TRAIN_INPUTS = ("images", "pad_mask", "labels", "boxes", "valid", "size", "is_extra",
-                "fed_weight") + STAT_KEYS
+TRAIN_INPUTS = ("images", "pad_mask", "labels", "boxes", "valid", "masks", "size",
+                "is_extra", "fed_weight") + STAT_KEYS
 
 
 def train_graph_key(batch, text_embed=None, ema: bool = False) -> tuple:
@@ -588,8 +598,9 @@ class TrainStep(_Graphs):
         try:
             kw = {} if self.dropout_generator is None else {
                 "dropout_generator": self.dropout_generator}
-            total, losses = self.loss_fn(batch, draws, text_embed, **kw)
-            total.backward()
+            with exact_f32():  # f32 convolutions (the mask heads') without TF32, both ways
+                total, losses = self.loss_fn(batch, draws, text_embed, **kw)
+                total.backward()
         finally:
             for b in self.buffers:
                 b.requires_grad_(False)

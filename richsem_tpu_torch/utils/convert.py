@@ -33,6 +33,13 @@ The semantic-branch knobs' leaves take the same rules: ``share_vl_proj``'s
 ``clip_query_proj`` (dense, no bias); ``distill_aux_layers`` reuses the
 distillation projection for every layer and adds none.
 
+So do the masks path's: DETRsegm's ``mask_attention.q_proj`` (dense) and
+``k_proj`` (a 1x1 conv), ``mask_head.lay{1..5}_conv``, ``adapter4``,
+``adapter3`` and ``out_conv`` (convs) and ``lay{1..5}_gn`` (group norms);
+CondInst's ``cond_inst.controller.layer{0..2}`` (dense) and
+``cond_inst.mask_branch.{refine,tower}{i}_conv``, ``tower_out`` (convs) and
+``*_ln`` (layer norms).
+
 Flax's attention divides the query by sqrt(head_dim) at run time; the port does
 the same in ``MultiHeadAttention``, so no weight is rescaled. Real RichSem
 checkpoints reach the port through ``tools/convert_detector.py`` (reference

@@ -233,12 +233,22 @@ def test_dn_sets_past_their_slots_match_jax():
 
 @pytest.mark.parametrize("kw", [{"targets": "masks"}, {"outputs": "pred_masks"}])
 def test_unported_branches_raise(case, kw):
-    """The mask losses (ROADMAP queue 1, item 11) raise, whichever side brings
-    masks; the many-to-one layout and distill_aux_layers are ported
-    (``tests/test_torch_ota_matcher.py``)."""
+    """The mask losses (ported since ROADMAP queue 1, item 11; held to JAX in
+    ``tests/test_torch_masks_e2e.py``) need masks on both sides: with one side
+    alone there is no mask term, as in JAX; with both they run, and under
+    ``OptMatcher`` they raise JAX's ``NotImplementedError``."""
     outputs = {k: torch.from_numpy(v) for k, v in _set(np.random.default_rng(0), Q).items()}
     targets = dict(case["t"])
     side = outputs if "outputs" in kw else targets
-    side[kw.get("outputs", kw.get("targets"))] = torch.zeros(B, 4, 8, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        crit.set_criterion(outputs, targets, case["stats"], num_classes=C)
+    key = kw.get("outputs", kw.get("targets"))
+    side[key] = torch.zeros(B, 4, 8, 8) if key == "pred_masks" else torch.zeros(B, G, 8, 8,
+                                                                                dtype=torch.bool)
+    losses = crit.set_criterion(outputs, targets, case["stats"], num_classes=C)
+    assert "loss_mask" not in losses and "loss_dice" not in losses
+    outputs["pred_masks"] = torch.zeros(B, Q, 8, 8)
+    targets["masks"] = torch.zeros(B, G, 8, 8, dtype=torch.bool)
+    losses = crit.set_criterion(outputs, targets, case["stats"], num_classes=C)
+    assert torch.isfinite(losses["loss_mask"]) and torch.isfinite(losses["loss_dice"])
+    with pytest.raises(NotImplementedError, match="OptMatcher"):
+        crit.set_criterion(outputs, targets, case["stats"], num_classes=C,
+                           matcher_type="OptMatcher")

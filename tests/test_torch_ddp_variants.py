@@ -13,10 +13,10 @@ JAX: ``make_train_step`` on a 2-device mesh, the batch sharded over ``data``.
 The port: 2 gloo ranks of one image each, with their rows of JAX's draws and
 the host's global statistics. One step: every metric to 1e-5 and
 ``grad_norm`` to 1e-4 (``tests/test_torch_train_step.py``'s first step), the
-replicas equal, one union collective a matched set. ``class_error`` is left
-out: under the many-to-one layout each rank counts its own assigned queries
-(``models/criterion.py:set_criterion``), and the mean of the ranks' ratios is
-not the global ratio JAX takes.
+replicas equal, one union collective a matched set with classes to unite,
+and one sum of ``class_error``'s two counts (``parallel/dist.py:total_``) a
+many-to-one set, so that ``class_error`` is the global batch's ratio, as JAX
+takes it, and is held to 1e-5 like every other metric.
 """
 
 import concurrent.futures
@@ -72,10 +72,11 @@ def test_two_ranks_of_variant_a_track_the_jax_mesh_step():
         r0, r1 = spawned.result()
     assert r0["digest"] == r1["digest"]
     assert r0["unions"] == r1["unions"] == cfg.dec_layers  # the final and the aux sets
+    # the final, the aux and the class-agnostic interm sets
+    assert r0["totals"] == r1["totals"] == cfg.dec_layers + 1
     out = r0["metrics"]
     assert set(ref) <= set(out) and bool(out["finite"]) and float(ref["loss_distill"]) > 0
+    assert "class_error" in ref
     for k in ref:
-        if k == "class_error":
-            continue
         tol = 1e-4 if k == "grad_norm" else 1e-5
         np.testing.assert_allclose(out[k], ref[k], rtol=tol, atol=1e-6, err_msg=k)

@@ -78,3 +78,75 @@ def test_non_cpu_tensor_never_falls_back(data):
                           meta["b2"], meta["s1"], meta["sb1"], meta["s2"],
                           meta["sb2"], EPS, torch.bfloat16)
     assert port.encoder_tail.launches == 0
+
+
+def _encoder_layer(p, cdt, fused_tail):
+    """A DeformableEncoderLayer whose tail holds ``p``'s weights."""
+    from richsem_tpu_torch.models.dino import DeformableEncoderLayer, DINOConfig
+
+    c = DINOConfig(hidden_dim=D, dim_feedforward=F, nheads=4, compute_dtype=cdt,
+                   enc_fused_tail=fused_tail)
+    layer = DeformableEncoderLayer(c, device="cpu")
+    t = {k: torch.from_numpy(v) for k, v in p.items()}
+    with torch.no_grad():
+        layer.norm1.weight.copy_(t["s1"])
+        layer.norm1.bias.copy_(t["sb1"])
+        layer.ffn.linear1.weight.copy_(t["w1"].t())
+        layer.ffn.linear1.bias.copy_(t["b1"])
+        layer.ffn.linear2.weight.copy_(t["w2"].t())
+        layer.ffn.linear2.bias.copy_(t["b2"])
+        layer.ffn.norm.weight.copy_(t["s2"])
+        layer.ffn.norm.bias.copy_(t["sb2"])
+    return layer
+
+
+@pytest.mark.parametrize("cdt,tol", [("float32", 1e-5), ("bfloat16", 1e-4)])
+def test_unfused_route_matches_jax_xla_tail(data, cdt, tol, monkeypatch):
+    """F-P14: ``enc_fused_tail=False`` runs the modules' composition (LN1, then
+    the FFN block), which computes JAX's ``xla_encoder_tail`` (f32 to 1e-5,
+    bf16 to 1e-4 as above), and never calls ``encoder_tail``; the fused route
+    on the CPU (the plain tail) agrees with it."""
+    from richsem_tpu_torch.models import dino
+
+    src, attn, p = data
+    ref = _jax(xla_encoder_tail, src, attn, p, getattr(jnp, cdt))
+    x = torch.from_numpy(src)[None]
+    a = torch.from_numpy(attn)[None]
+    calls = []
+    monkeypatch.setattr(dino, "encoder_tail", lambda *args: calls.append(1) or
+                        port.encoder_tail(*args))
+    outs = {}
+    for fused in (False, True):
+        layer = _encoder_layer(p, getattr(torch, cdt), fused)
+        monkeypatch.setattr(layer.self_attn, "forward", lambda *args, **kw: a)
+        with torch.no_grad():
+            outs[fused] = layer(x, x, None, None, None)[0].numpy()
+        assert len(calls) == int(fused)
+        np.testing.assert_allclose(outs[fused], ref, rtol=tol, atol=tol)
+    np.testing.assert_allclose(outs[False], outs[True], rtol=tol, atol=tol)
+
+
+class _OnCard(torch.Tensor):
+    """A meta tensor that reports a CUDA device: it reaches K2's wrapper
+    checks without a card, and no kernel can run on it."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def test_f32_on_the_card_refuses_naming_the_knob(data):
+    """K2 computes in bf16 only (ROADMAP F-P5): a float32 compute dtype on a
+    CUDA tensor raises before any launch, and the message names the route
+    that takes it, ``enc_fused_tail=False``."""
+    _, _, p = data
+
+    def on_card(*shape):
+        return torch.empty(*shape, device="meta").as_subclass(_OnCard)
+
+    w = {k: on_card(*v.shape) for k, v in p.items()}
+    x = on_card(N, D)
+    with pytest.raises(NotImplementedError, match="enc_fused_tail=False"):
+        port.encoder_tail(x, x, w["w1"].t(), w["b1"], w["w2"].t(), w["b2"], w["s1"],
+                          w["sb1"], w["s2"], w["sb2"], EPS, torch.float32)
+    assert port.encoder_tail.launches == 0

@@ -7,11 +7,14 @@ model builds on the CPU, serves one batch and takes one training step (CDN,
 matching, the federated loss, the clipped AdamW), then one flagship step with
 a tiny CLIP teacher (RoIAlign, the distillation losses) and the separable
 decoder sampler, then a step and an eval batch of the semantic variant (the
-five semantic-branch knobs, OptMatcher, NMS), and the seven kernels' launch
+five semantic-branch knobs, OptMatcher, NMS), a step of each mask head with
+the batch's masks, and the seven kernels' launch
 counters stay at 0 (CPU tensors run the plain versions). In another such interpreter the data path reads PNGs
 and JPEGs (the host codec, built with the C compiler) and runs a two-image
 loader epoch, the trainer's entry point takes a step on
-the CPU, and the probes run their plain versions.
+the CPU, the probes run their plain versions, and the instance masks
+(polygons, RLE, their resize and the collate's targets), the panoptic
+evaluator and the visualizer's PNG run.
 """
 
 import os
@@ -85,6 +88,11 @@ MODULES = [
     "richsem_tpu_torch.parallel",
     "richsem_tpu_torch.parallel.dist",
     "richsem_tpu_torch.tools.dryrun_ddp",
+    "richsem_tpu_torch.models.segmentation",
+    "richsem_tpu_torch.models.cond_inst",
+    "richsem_tpu_torch.data.evaluation.panoptic_eval",
+    "richsem_tpu_torch.utils.glyphs",
+    "richsem_tpu_torch.utils.visualizer",
 ]
 
 BLOCKED = ("jax", "flax", "richsem_tpu", "cv2", "PIL")
@@ -171,6 +179,18 @@ m = step(state, dict(tb, size=torch.tensor([[128, 192], [100, 150]])), text)
 assert bool(m["finite"]) and float(m["loss_distill"]) > 0
 out = make_eval_step(model, vcfg, teacher)(batch, text)
 assert out["scores"].shape == (2, 50) and (out["scores"] == -1).any()
+
+for head in ("detr", "cond_inst"):  # the masks path: a train step with the batch's masks
+    mcfg = Config.fromfile("configs/richsem/dino_4scale_lvis.py")
+    mcfg.update(hidden_dim=64, nheads=4, enc_layers=1, dec_layers=1, dim_feedforward=128,
+                num_queries=20, num_classes=12, dn_labelbook_size=12, fed_num_sample_cats=4,
+                compute_dtype="float32", masks=True, mask_head_type=head)
+    model, weight_dict, _ = build_model("richsem", mcfg, device="cpu",
+                                        generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model, build_optimizer(model, mcfg))
+    masks = torch.rand((2, 3, 16, 24), generator=g) > 0.5
+    m = make_train_step(model, mcfg, seed=0, device="cpu")(state, dict(tb, masks=masks))
+    assert bool(m["finite"]) and weight_dict["loss_mask"] > 0
 for name in (ms_deform_attn.ms_deform_attn, ms_deform_attn.ms_deform_attn_backward,
              fused_ffn.encoder_tail, fused_ffn.encoder_tail_backward,
              ms_deform_attn_sep.ms_deform_attn_sep, ms_deform_attn_sep.ms_deform_attn_sep_backward,
@@ -237,6 +257,28 @@ for fn in (bench_cal.vpu, bench_cal.mxu, bench_cal.grid_overhead, bench_cal.repe
            bench_cell.cell, bench_cell.tile, bench_vpu_model.chain, bench_vpu_model.fma,
            bench_vpu_model.fma_chunk):
     assert fn.launches == 0
+from richsem_tpu_torch.data.datasets import _polygons_to_mask, _rle_to_mask
+from richsem_tpu_torch.data.loader import collate
+from richsem_tpu_torch.data.transforms import normalize, resize
+from richsem_tpu_torch.data.evaluation import PanopticEvaluator, panoptic_map_from_instances
+from richsem_tpu_torch.utils.visualizer import save_detections
+mask = _polygons_to_mask([[2.0, 3.0, 30.5, 4.0, 20.0, 35.0], [40, 40, 59, 41, 50, 49]], 50, 60)
+assert mask.shape == (50, 60) and mask[10, 15] and mask[42, 50] and not mask[0, 0]
+rle = _rle_to_mask({"counts": [3, 4, 5], "size": [4, 3]}, 8, 6)
+assert rle.shape == (8, 6) and rle.sum() == 16
+rec = {"image": img[:50, :60], "boxes": np.asarray([[2, 3, 30, 35]], np.float32),
+       "labels": np.asarray([1]), "area": np.asarray([400.0], np.float32),
+       "iscrowd": np.asarray([0]), "image_id": 0, "orig_size": (50, 60), "masks": mask[None]}
+rec = resize(rec, 37)
+batch = collate([normalize(rec)], [(64, 64)], max_gt=2)
+assert batch["masks"].shape == (1, 2, 8, 8) and batch["masks"][0, 0].any()
+seg, segments = panoptic_map_from_instances(mask[None], np.asarray([3]), np.asarray([0.9]))
+ev = PanopticEvaluator()
+ev.update(seg, segments, seg, segments)
+assert ev.summarize()["PQ"] == 1.0
+save_detections(os.path.join(root, "det.png"), img, np.asarray([[5, 5, 30, 30]]),
+                np.asarray([2]), np.asarray([0.9]), class_names={2: "cat"})
+assert imread_rgb(os.path.join(root, "det.png")).shape == img.shape
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "richsem_tpu", "cv2",
                                                         "PIL")
              and sys.modules[m] is not None)

@@ -99,8 +99,9 @@ def variant_step(cfg_items: dict, weights: dict, clip_items: dict, clip_weights:
     or of the weak labels (``tests/test_torch_weak_labels_ddp.py``): the
     detector from ``weights``, the tiny CLIP teacher from ``clip_items`` and
     ``clip_weights``, this rank's rows of ``batch`` and of JAX's draws. -> the
-    step's metrics, the state's digest, the union collectives, and the
-    statistics the step's statistics collective returned (one entry a call)."""
+    step's metrics, the state's digest, the union collectives, the
+    class_error count collectives, and the statistics the step's statistics
+    collective returned (one entry a call)."""
     import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
     from richsem_tpu_torch.config import Config
     from richsem_tpu_torch.models import build_model
@@ -131,7 +132,8 @@ def variant_step(cfg_items: dict, weights: dict, clip_items: dict, clip_weights:
     m = step(state, rank_batch(batch, d, cfg), torch.from_numpy(text),
              draws=rank_draws(jax_draws, d, n))
     return {"metrics": {k: v.numpy().copy() for k, v in m.items()},
-            "digest": state_digest(state), "unions": pdist.union_.calls, "stats": seen}
+            "digest": state_digest(state), "unions": pdist.union_.calls,
+            "totals": pdist.total_.calls, "stats": seen}
 
 
 def collective_count(cfg_items: dict, canvases: list, threads: int = 1) -> dict:

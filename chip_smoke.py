@@ -20,9 +20,15 @@ Phases, each printed as it completes:
    profiled call at the decoder (device time, since the CUDA-event time of so
    short a call is the host's).
 3. K1-bwd against the autograd gradient of the plain version, same shapes,
-   and a third case at the encoder's shapes with ``bench.py``'s valid extent
-   (800 x 1224 in 896 x 1344: valid ratios below 1 that differ by level), and
-   one profiled call at the encoder and at the decoder.
+   a third case at the encoder's shapes with ``bench.py``'s valid extent
+   (800 x 1224 in 896 x 1344: valid ratios below 1 that differ by level),
+   and ``msda_edge_cases``: F3's 256 x 384 canvas with a 200 x 300 valid
+   extent and every offset on the clamp's edge, and 1,100 unclamped decoder
+   queries piled onto four value rows a level; twenty launches at the
+   encoder's and the decoder's shapes, bf16 and f32, with d_value, d_loc and
+   d_aw bit for bit (``repeat_check``); the device time of a call (its tap
+   kernel, the d_value pass's scan, place and gather kernels and the memset
+   of its counts; five profiled calls) at the encoder and the decoder.
 4. K2 (fused encoder tail) against its plain version at N = 49,980 in bf16:
    the output, and the elements of bf16(x) and of the relu masks that differ
    from the plain version's (at most 1e-5 of the masks may flip); the same
@@ -63,12 +69,15 @@ Phases, each printed as it completes:
    device counter, ms/step, img/s, peak memory allocated and reserved; one
    more replay under ``torch.cuda.set_sync_debug_mode("error")`` (a replay
    may read nothing on the host); the replay against the eager body from one
-   state (``graph_vs_eager``: the state copied aside, three eager steps and
-   a replay on one batch and draws, the state put back before each; the loss
-   and every metric before the update bit for bit, ``grad_norm`` and the
-   parameters within the eager steps' spread, which K1-bwd's atomics open,
-   ROADMAP F-P6, and that spread printed); two runs of five replays from one
-   state and seed (``two_runs``, F-P6 over steps, printed); then the
+   state (``graph_vs_eager``: the state copied aside, one eager step and a
+   replay on one batch and draws, the state put back before each; every
+   metric, ``grad_norm`` included, and the parameters, AdamW moments and EMA
+   after the update bit for bit, ROADMAP F-P6 repaired: K1-bwd and K3-bwd
+   sum d_value in an order-free fixed-point pass, the body runs under
+   cuDNN's deterministic mode and the mask heads' resizes take fixed-order
+   gradients); two runs of five
+   replays from one state and seed, their losses and state bit for bit
+   (``two_runs``); then the
    gradients of a few named leaves against those of the same step with the
    plain versions in place of every kernel (the plain auction too), and one
    profiled replay with its operations, the hand-written kernels it shows
@@ -77,9 +86,10 @@ Phases, each printed as it completes:
    decoder's shapes (1,100 queries) and at odd row counts (B1, Q 37, M 1 and
    3), bf16 and f32; run right after phase 3, on its inputs; five profiled
    calls (the mean device time, ``device_ms``).
-9. K3-bwd against the plain version's explicit backward, same shapes; five
-   profiled calls (the kernel's mean device time, ``device_ms``, and beside it
-   the wrapper's zeroed f32 d_value and its cast to bf16).
+9. K3-bwd against the plain version's explicit backward, same shapes and
+   phase 3's ``msda_edge_cases``; twenty launches at the decoder's shapes,
+   bf16 and f32, bit for bit; the device time of a call (its tap kernel, the
+   d_value pass's kernels and the memset of its counts; five profiled calls).
 10. The flagship train step (``richsem_4scale_lvis.py``: the CLIP-text
     classifier, a random-weight bf16 CLIP-RN50 teacher and a random
     1204 x 1024 text bank as ``bench.py:114-126`` builds them, distillation
@@ -177,9 +187,10 @@ Phases, each printed as it completes:
     environment set (``RANK`` 0, ``WORLD_SIZE`` 1), as the one rank of an
     NCCL group on ``cuda:0``: the backend and device; the steps and launches
     of phase 13's first run (12/12/6/6/7/1/1 a step) and one gradient
-    collective a step; the parameters after the epoch within the spread of
-    the two single-process runs (F-P6, held as ``graph_vs_eager`` holds a
-    replay: twice the largest difference and twice the l2 distance); the
+    collective a step; the parameters after the epoch within twice the
+    largest difference and twice the l2 distance of the two single-process
+    runs, each at least one rounding step of the largest parameter (the runs
+    repeat bit for bit since F-P6's repair); the
     epoch's eval, gathered to rank 0, equal to a single-process ``evaluate``
     of the same parameters; guarded profiles of three replays, each holding
     exactly one NCCL kernel (in a one-rank group NCCL's AVG is its one-rank
@@ -200,10 +211,8 @@ Phases, each printed as it completes:
     capture, 5 replays with the launches checked, K6 2 a step from the
     optimizer's tables, the loss and ``grad_norm`` finite; a replay under
     ``set_sync_debug_mode("error")``; the replay against one eager step
-    from one state, batch and draws, ``graph_vs_one_eager``: the pre-update
-    metrics bit for bit and ``grad_norm`` within ``GRAD_NORM_RTOL``, 1e-4
-    relative, since two eager steps already differ by up to 2.17e-5 (phase
-    20); gradient cosines of backbone
+    from one state, batch and draws, ``graph_vs_eager``: every metric and
+    the state after the update bit for bit; gradient cosines of backbone
     leaves against the plain versions; a profiled replay and its f32
     CUDA-core GEMMs beside phase 10's, ROADMAP F-P10). Each part's seconds.
 19. ConvNeXt-XL (``convnext_xlarge_22k``) and FocalNet-L
@@ -213,13 +222,13 @@ Phases, each printed as it completes:
 20. The memory knobs on the R50 flagship at bs2 (one eager step each, one
     state, batch and draws): the knob-free step twice, then
     ``use_checkpoint``, ``enc_selective_remat`` and ``backbone_remat``
-    alone, each step's pre-update metrics equal to the first knob-free
-    step's bit for bit, its ``grad_norm`` within ``GRAD_NORM_RTOL`` of it
-    and its peak memory below it, K1's and K2's forward launches 24/12,
-    12/12 and 12/6 (``KNOB_LAUNCHES``); the same steps with PyTorch's
-    deterministic algorithms, with the plain versions, and with both, where
-    every gradient must equal the first step's bit for bit (each step's
-    gradients against the first's, leaf by leaf, printed in every setting);
+    alone, each step's metrics (``grad_norm`` too) and every gradient equal
+    to the first knob-free step's bit for bit and its peak memory below it,
+    K1's and K2's forward launches 24/12, 12/12 and 12/6
+    (``KNOB_LAUNCHES``); the same steps with the plain versions and PyTorch's
+    deterministic algorithms, each again equal to its first step bit for bit
+    (each step's gradients against the first's, leaf by leaf, printed in
+    both settings);
     then the train bench at ``BENCH_BATCH`` 4 and 8 (the root bench's remat
     knobs on: K2 12 a step), its JSON line, img/s, busy ms and peak memory.
     First, ROADMAP F-P14 (``fused_tail_route_check``): an encoder layer at
@@ -268,8 +277,8 @@ Phases, each printed as it completes:
     batch and draws with the plain versions of the model's kernels and
     PyTorch's deterministic algorithms, every metric and the parameters,
     moments and EMA after the update bit for bit
-    (``deterministic_replay_check``; K4-K6 stay, being deterministic, and
-    no ``graph_vs_eager`` spread is read); (d) a train step under
+    (``deterministic_replay_check``; K4-K6 stay, being deterministic); (d) a
+    train step under
     ``use_visual_distill`` raises at ``attnpool``, as JAX's does.
 24. The teacher's weak labels as the one rank of an NCCL group (world size
     1, as phase 17): the CLIP flagship with the RN50 teacher,
@@ -283,7 +292,8 @@ Phases, each printed as it completes:
     statistics equal to the group-free ``tensor_stats`` of the same
     rewritten batch; the replay against an eager step as 23 (c). The group
     is destroyed at the end.
-25. The masks path (run after 24, before 17): ``dino_4scale_lvis.py`` with
+25. The masks path (run after 12, before 6, in a process of its own:
+    ``masks_in_child``): ``dino_4scale_lvis.py`` with
     ``masks=True``, bf16, bs2 at 896 x 1344, random weights (seed 0), for the
     DETRsegm head and then CondInst (``phase_masks``): the eval graph, which
     does not run the head, in turns with the same detector without masks
@@ -307,17 +317,26 @@ eval graph and ``phase_k7`` on the eval's own boxes; ~30 s).
 ``python3 chip_smoke.py variants`` runs phases 1-5, 8, 9, 21 and 22;
 ``python3 chip_smoke.py teacher`` phases 1-5, 8, 9, 23 and 24. ``python3 chip_smoke.py backbones`` runs the
 kernel phases 1-5, 8 and 9, then phases 18-20 only; ``python3 chip_smoke.py
-knobs`` those kernel phases, then phase 20 only.
+knobs`` those kernel phases, then phase 20 only. ``python3 chip_smoke.py
+sources`` runs phase 1, then ``phase_sources``: two eager flagship steps
+from one state in both decoder routes under each of
+``SOURCE_SETTINGS`` (the kernels or the plain versions, with or without
+PyTorch's deterministic algorithms and cuDNN's deterministic mode, the
+body's own cuDNN setting taken out), every leaf's gap written to
+``build/sources.log``; two eager steps of every other trained path as
+shipped; and the flagship's train graph timed under each setting.
 
 ``python3 chip_smoke.py ab [DIR]`` only times kernels of the port in DIR
 (default: this checkout), for A/B runs of two trees: it imports
 ``richsem_tpu_torch`` from DIR, builds its kernels from DIR's sources, draws the
 inputs of phases 2-5, 8 and 9 and prints one JSON line with, for K1 (encoder
-and decoder, bf16), K3 and K3-bwd (the decoder, bf16), K1-bwd (encoder), K2
-and K2-bwd (N = 49,980), the CUDA-event time of a call and the kernels'
-device time from ``profile_once`` (mean over 5 calls); for K3-bwd also the
-device time of the wrapper's zeroed f32 d_value and of its cast to bf16; and
-a SHA-256 prefix of the outputs of K1 (both cases), K3, K2 and K2-bwd. It
+and decoder, bf16), K3 and K3-bwd (the decoder, bf16), K1-bwd (encoder and
+decoder), K2 and K2-bwd (N = 49,980), the CUDA-event time of a call and the
+kernels' device time from ``profile_once`` (mean over 5 calls); for K1-bwd
+and K3-bwd the tap kernel's device time, the wrapper's zeroed f32 d_value
+and its cast where a tree has them, and the device time of every operation
+of a call (``all``); and a SHA-256 prefix of the outputs of K1 (both
+cases), K3, K3-bwd, K1-bwd (both), K2 and K2-bwd. It
 then does the same for the probe kernels redesigned for Hopper,
 ``mxu_kernel`` at run_mxu's four shapes, ``fma_kernel`` at fma-1, 2, 4,
 4-2acc and 4-chunk (event and device time, the bound, an output hash),
@@ -604,9 +623,89 @@ def k1_valid_case():
     return k1.compute_sampling_locations(refs, offs, SHAPES, p), aw.reshape(b, s, m, n_lvl, p)
 
 
+N_REPEAT = 20  # launches of K1-bwd and K3-bwd on one input that must agree bit for bit
+F3_CANVAS, F3_VALID = (256, 384), (200, 300)  # ROADMAP F3's canvas and valid extent
+MEMSET_OPS = {"memset": "Memset"}  # the d_value pass's zeroed counts
+
+
+def bwd_kernels(sep: bool):
+    """The __global__ functions of K1-bwd or K3-bwd: the tap kernel, the d_value
+    pass's scan and place kernels, the gather."""
+    from richsem_tpu_torch.utils.profiling import DVALUE_PASS
+
+    if sep:
+        return ("msda_sep_bwd_kernel", *DVALUE_PASS, "msda_sep_bwd_gather_kernel")
+    return ("msda_bwd_kernel", *DVALUE_PASS, "msda_bwd_gather_kernel")
+
+
+def bwd_device_ms(fn, sep: bool):
+    """-> (the device ms of one backward call, all its kernels and the memset
+    of its counts; {operation: ms}), from five profiled calls."""
+    dev = device_ms(fn, bwd_kernels(sep), also=MEMSET_OPS)
+    return total_ms(dev), dev
+
+
+def repeat_check(tag, fn, n=N_REPEAT):
+    """``n`` launches of a backward wrapper ``fn`` on one input: every output
+    (d_value, d_loc, d_aw) equal to the first launch's bit for bit."""
+    import torch
+
+    first = [t.clone() for t in fn()]
+    differ = set()
+    for _ in range(n - 1):
+        for name, a, b in zip(("d_value", "d_loc", "d_aw"), fn(), first):
+            if not torch.equal(a, b):
+                differ.add(name)
+    torch.cuda.synchronize()
+    print(f"  {tag}: {n} launches, d_value, d_loc and d_aw bit for bit equal to the first's: "
+          f"{not differ}", flush=True)
+    if differ:
+        fail(f"{tag}: {n} launches on one input differ in {sorted(differ)}")
+
+
+def msda_edge_cases():
+    """Two inputs of K1-bwd and K3-bwd beside the production ones, each
+    (spatial shapes, value, loc, aw): (a) F3's 256 x 384 canvas with a
+    200 x 300 valid extent (valid ratios that differ by level) and every
+    encoder offset on the clamp's edge, +-5.5 px, each coordinate's sign drawn;
+    (b) 1,100 unclamped decoder queries on the 896 x 1344 pyramid whose taps all
+    lie within 1e-4 of the image's centre, so that every level's taps pile onto
+    four value rows."""
+    import torch
+
+    from richsem_tpu_torch.models.transformer_utils import encoder_reference_points
+    from richsem_tpu_torch.ops import ms_deform_attn as k1
+    from richsem_tpu_torch.utils.misc import resize_mask, valid_ratios
+
+    g = torch.Generator(device=DEVICE).manual_seed(6)
+    b, m, d, n_lvl, p = BATCH, 8, 32, 4, 4
+
+    def aw_of(q):
+        aw = torch.softmax(torch.randn((b, q, m, n_lvl * p), generator=g, device=DEVICE), -1)
+        return aw.reshape(b, q, m, n_lvl, p)
+
+    shapes = tuple((-(-F3_CANVAS[0] // st), -(-F3_CANVAS[1] // st)) for st in (8, 16, 32, 64))
+    s = sum(h * w for h, w in shapes)
+    pad = torch.ones((b, *F3_CANVAS), dtype=torch.bool, device=DEVICE)
+    pad[:, : F3_VALID[0], : F3_VALID[1]] = False
+    vr = torch.stack([valid_ratios(resize_mask(pad, hw)) for hw in shapes], dim=1)
+    refs = encoder_reference_points(shapes, vr)
+    sign = torch.rand((b, s, m, n_lvl, p, 2), generator=g, device=DEVICE) < 0.5
+    offs = torch.where(sign, 5.5, -5.5)
+    cases = {"F3 clamp edge": (shapes, torch.randn((b, s, m, d), generator=g, device=DEVICE),
+                               k1.compute_sampling_locations(refs, offs, shapes, p), aw_of(s))}
+    q, s = 1100, sum(h * w for h, w in SHAPES)
+    loc = 0.5 + 1e-4 * torch.randn((b, q, m, n_lvl, p, 2), generator=g, device=DEVICE)
+    cases["piled decoder"] = (SHAPES, torch.randn((b, s, m, d), generator=g, device=DEVICE), loc,
+                              aw_of(q))
+    return cases
+
+
 def phase_k1_bwd(value, cases):
     """K1-bwd against autograd through the plain version, same inputs and g: the
-    encoder, the decoder and the encoder with bench.py's valid extent."""
+    encoder, the decoder, the encoder with bench.py's valid extent and
+    ``msda_edge_cases``; ``N_REPEAT`` launches at the encoder's and the
+    decoder's shapes, bit for bit."""
     import torch
 
     from richsem_tpu_torch.ops import ms_deform_attn as k1
@@ -616,34 +715,43 @@ def phase_k1_bwd(value, cases):
            "source": "richsem_tpu_torch/csrc/ms_deform_attn_bwd.cu",
            "replaces": "richsem_tpu/ops/ms_deform_attn_pallas2.py:306", "library_ms": None}
     errs = []
-    all_cases = {**cases, "encoder_valid": k1_valid_case()}
-    for case, (loc, aw) in all_cases.items():
+    all_cases = {case: (SHAPES, value, *c) for case, c in cases.items()}
+    all_cases["encoder_valid"] = (SHAPES, value, *k1_valid_case())
+    all_cases.update(msda_edge_cases())
+    for case, (shapes, val, loc, aw) in all_cases.items():
         for dtype in (torch.bfloat16, torch.float32):
-            v = value.to(dtype)
+            v = val.to(dtype)
             b, q, m = loc.shape[:3]
             grad = torch.randn((b, q, m * v.shape[-1]), generator=g, device=DEVICE).to(dtype)
 
             def plain():
                 leaves = [t.detach().requires_grad_() for t in (v, loc, aw)]
-                y = k1.ms_deform_attn_plain(leaves[0], SHAPES, leaves[1], leaves[2])
+                y = k1.ms_deform_attn_plain(leaves[0], shapes, leaves[1], leaves[2])
                 return torch.autograd.grad(y, leaves, grad)
 
+            def kernel():
+                return k1.ms_deform_attn_backward(v, shapes, loc, aw, grad)
+
             ref = plain()
-            out = k1.ms_deform_attn_backward(v, SHAPES, loc, aw, grad)
+            out = kernel()
             torch.cuda.synchronize()
             tag = f"K1-bwd {case} Q={q} {str(dtype)[6:]}"
-            # f32: the atomic adds into d_value and the lane sums run in another
-            # order than autograd's index_put/sum, a few ulps of each sum; bf16:
-            # d_value is rounded to bf16 once, and may land one bf16 step (2^-8
-            # relative) apart where the f32 sums differ in their last bits.
+            # f32: each d_value element is the fixed-point sum of its terms, near
+            # exact, where autograd adds them in f32 in its order, and the lane
+            # sums of d_loc and d_aw run in another order: a few ulps of each
+            # sum; bf16: d_value is rounded to bf16 once, and may land one bf16
+            # step (2^-8 relative) apart where the f32 sums differ in their last
+            # bits.
             rel = 1e-4 if dtype == torch.float32 else 1e-2
             for name, o, r in zip(("d_value", "d_loc", "d_aw"), out, ref):
                 errs.append(compare_rel(f"{tag} {name}", o, r, rel))
-            if dtype == torch.bfloat16:
-                ms = cuda_ms(lambda: k1.ms_deform_attn_backward(v, SHAPES, loc, aw, grad))
+            if case in ("encoder", "decoder"):
+                repeat_check(tag, kernel)
+            if dtype == torch.bfloat16 and case in ("encoder", "decoder", "encoder_valid"):
+                ms = cuda_ms(kernel)
                 plain_ms = cuda_ms(plain, iters=3, warmup=1)
                 # per tap and channel: the sample (8), its x and y derivatives
-                # (10), the three products with g (6), the four scattered adds (8)
+                # (10), the three products with g (6), the four d_value terms (8)
                 bms, by = bound(nbytes(v, loc, aw, grad, *out),
                                 32 * k1_taps(loc) * v.shape[-1], F32_FLOPS)
                 print(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -652,10 +760,14 @@ def phase_k1_bwd(value, cases):
                 rec[f"{key}ms"], rec[f"{key}plain_ms"] = ms, plain_ms
                 rec[f"{key}bound_ms"], rec[f"{key}bound_by"] = bms, by
                 if case != "encoder_valid":  # the decoder's CUDA-event time is the host's
-                    profile_once(lambda: k1.ms_deform_attn_backward(v, SHAPES, loc, aw, grad),
-                                 top=3)
+                    dev_ms, split = bwd_device_ms(kernel, sep=False)
+                    rec[f"{key}device_ms"] = dev_ms
+                    print(f"  {tag}: device {dev_ms} ms a call: "
+                          + ", ".join(f"{k} {v_}" for k, v_ in split.items()), flush=True)
     rec["max_abs_err"] = max(errs)
-    print("phase 3: K1-bwd matches the plain version's autograd gradient", flush=True)
+    rec["repeat_launches"] = N_REPEAT
+    print("phase 3: K1-bwd matches the plain version's autograd gradient and repeats bit for bit",
+          flush=True)
     return rec
 
 
@@ -720,7 +832,9 @@ def phase_k3(value, loc, aw):
 
 
 def phase_k3_bwd(value, loc, aw):
-    """K3-bwd against the plain version's explicit backward, same inputs and g."""
+    """K3-bwd against the plain version's explicit backward, same inputs and g:
+    the decoder, odd row counts and ``msda_edge_cases``; ``N_REPEAT`` launches
+    at the decoder's shapes, bit for bit."""
     import torch
 
     from richsem_tpu_torch.ops import ms_deform_attn_sep as k3
@@ -730,42 +844,57 @@ def phase_k3_bwd(value, loc, aw):
            "source": "richsem_tpu_torch/csrc/ms_deform_attn_sep_bwd.cu",
            "replaces": "richsem_tpu/ops/ms_deform_attn_sep_pallas.py:109", "library_ms": None}
     errs = []
+    edge = msda_edge_cases()
     for dtype in (torch.bfloat16, torch.float32):
         v = value.to(dtype)
         b, q, m = loc.shape[:3]
         grad = torch.randn((b, q, m * v.shape[-1]), generator=g, device=DEVICE).to(dtype)
-        # as K1-bwd: the atomic adds into d_value and the warp sums run in
-        # another order than the dense products; bf16 rounds d_value once, and
-        # may land one step (2^-8 relative) apart
+        # d_value is the fixed-point sum of its terms, near exact, where the
+        # dense products add them in f32; the warp sums of d_loc and d_aw run
+        # in another order; bf16 rounds d_value once, and may land one step
+        # (2^-8 relative) apart
         rel = 1e-4 if dtype == torch.float32 else 2e-2
-        for tag, args in k3_cases(v, loc, aw, dtype, grad):
+        runs = k3_cases(v, loc, aw, dtype, grad)
+        for case, (shapes, val, lc, a) in edge.items():
+            gr = torch.randn((b, lc.shape[1], m * v.shape[-1]), generator=g,
+                             device=DEVICE).to(dtype)
+            runs.append((f"{case} Q={lc.shape[1]} {str(dtype)[6:]}",
+                         (val.to(dtype), shapes, lc, a, gr)))
+        for tag, args in runs:
             out = k3.ms_deform_attn_sep_backward(*args)
             ref = k3.ms_deform_attn_sep_backward_plain(*args)
             torch.cuda.synchronize()
             for name, o, r in zip(("d_value", "d_loc", "d_aw"), out, ref):
                 errs.append(compare_rel(f"K3-bwd {tag} {name}", o, r, rel))
+        tag = f"K3-bwd decoder Q={q} {str(dtype)[6:]}"
+
+        def kernel():
+            return k3.ms_deform_attn_sep_backward(v, SHAPES, loc, aw, grad)
+
+        repeat_check(tag, kernel)
         if dtype == torch.bfloat16:
-            tag = f"K3-bwd decoder Q={q} bf16"
-            out = k3.ms_deform_attn_sep_backward(v, SHAPES, loc, aw, grad)
-            ms = cuda_ms(lambda: k3.ms_deform_attn_sep_backward(v, SHAPES, loc, aw, grad))
+            out = kernel()
+            ms = cuda_ms(kernel)
             plain_ms = cuda_ms(
                 lambda: k3.ms_deform_attn_sep_backward_plain(v, SHAPES, loc, aw, grad),
                 iters=3, warmup=1)
             # per sample and channel, two rows of: r (3), g*r*dhat and its sum
-            # (3), d_r (1), the two d_hxw products and sums (4), the two
-            # scattered products and adds (4)
+            # (3), d_r (1), the two d_hxw products and sums (4), the two d_value
+            # terms and their adds (4)
             bms, by = bound(nbytes(v, loc, aw, grad, *out), 30 * k1_taps(loc) * v.shape[-1],
                             F32_FLOPS)
             print(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"bound {bms:.4f} ms ({by})", flush=True)
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
-            # the kernel alone; the wrapper's zeroed f32 d_value and its cast
-            # to bf16 are printed beside it
-            rec["device_ms"] = device_ms(
-                lambda: k3.ms_deform_attn_sep_backward(v, SHAPES, loc, aw, grad),
-                ["msda_sep_bwd_kernel"], also=SCRATCH_OPS)["msda_sep_bwd_kernel"]
+            # every device operation of a call: the tap kernel, the d_value pass
+            # and its zeroed counts (no f32 scratch, no cast)
+            rec["device_ms"], split = bwd_device_ms(kernel, sep=True)
+            print(f"  {tag}: device {rec['device_ms']} ms a call: "
+                  + ", ".join(f"{k} {v_}" for k, v_ in split.items()), flush=True)
     rec["max_abs_err"] = max(errs)
-    print("phase 9: K3-bwd matches the plain version's explicit backward", flush=True)
+    rec["repeat_launches"] = N_REPEAT
+    print("phase 9: K3-bwd matches the plain version's explicit backward and repeats bit for bit",
+          flush=True)
     return rec
 
 
@@ -1307,7 +1436,7 @@ def plain_model_kernels():
     autograd backward of their plain versions, and K2), at the modules' call
     sites. K4, K5 and K6 stay: each is deterministic (phases 15 and 16 run
     them twice bit for bit) and graph-safe, where the plain auction reads the
-    host. K1-bwd's atomics are the step's order-dependent sums (F-P6)."""
+    host."""
     from richsem_tpu_torch.models import dino, layers
     from richsem_tpu_torch.ops import fused_ffn as k2
     from richsem_tpu_torch.ops import ms_deform_attn as k1
@@ -1386,96 +1515,62 @@ def param_l2(a: dict, b: dict) -> float:
 
 def graph_vs_eager(step, state, batch, text_embed=None, what="train"):
     """The replay against the eager body from one state: that state copied
-    aside, three eager steps (``TrainStep.eager``) and one replay on the same
-    batch and draws, the state put back before each. The loss and every
-    metric computed before the update must equal the first eager step's bit
-    for bit (the forward has no atomics). After the update the eager steps
-    differ among themselves where K1-bwd's and K3-bwd's atomic adds into
-    d_value land in another order (ROADMAP F-P6), so the replay is held to
-    their spread: its ``grad_norm`` within twice the eager values' range of
-    their nearest, each parameter within twice the eager steps' largest
-    difference of the first eager step's, and all of them together within
-    twice the eager steps' largest l2 distance (a range never below one
-    rounding step at the largest value). Prints the spread (F-P6's first
-    measurement) and the replay's distance, with the leaf where the replay's
-    largest difference is the largest share of the eager steps'. Leaves the
-    state as it found it."""
+    aside, one eager step (``TrainStep.eager``) and one replay on the same
+    batch and draws, the state put back before each. Every metric, the loss
+    and ``grad_norm`` included, and the state after the update (parameters,
+    AdamW moments, EMA, counters) must be equal bit for bit: K1-bwd and
+    K3-bwd sum d_value in a fixed-point pass that does not depend on the
+    order of the blocks, and the body runs under PyTorch's deterministic
+    algorithms (ROADMAP F-P6, repaired). Leaves the state as it found it."""
     import torch
 
     draws = step.draws(state, batch["labels"].shape[0])
     saved = state_copy(state)
     runs = []
-    for run in (step.eager, step.eager, step.eager, step):
+    for run in (step.eager, step):
         metrics = run(state, batch, text_embed, draws=draws)
         torch.cuda.synchronize()
-        runs.append((metrics, state_copy(state)))
+        runs.append(({k: v.clone() for k, v in metrics.items()}, state_copy(state)))
         state_put(state, saved)
-    (r, sr), eager = runs[-1], runs[:-1]
-    e1, s1 = eager[0]
-    pre = [k for k in e1 if k != "grad_norm"]
-    same = [k for k in pre if torch.equal(r[k], e1[k])]
-    eager_same = [k for k in pre if all(torch.equal(m[k], e1[k]) for m, _ in eager)]
-    gn = [float(m["grad_norm"]) for m, _ in eager]
-    gr = float(r["grad_norm"])
-    g_range = max(max(gn) - min(gn), ulp(e1["grad_norm"]))
-    pairs = [(a, b) for i, (_, a) in enumerate(eager) for _, b in eager[i + 1:]]
-    spreads = [param_spread(a, b) for a, b in pairs]
-    ee = {n: max(sp[n] for sp in spreads) for n in spreads[0]}
-    big = max(float(p.abs().max()) for p in s1["params"].values())
-    d_max = max(max(ee.values()), ulp(torch.tensor(big)))
-    d_l2 = max(max(param_l2(a, b) for a, b in pairs), d_max)
-    re_, r_l2 = param_spread(sr, s1), param_l2(sr, s1)
-    worst = max(ee, key=lambda n: re_[n] / max(ee[n], d_max * 1e-9))
-    print(f"  {what} graph vs eager body (one state, batch and draws): pre-update metrics "
-          f"bit for bit {len(same)}/{len(pre)} (three eager steps {len(eager_same)}/{len(pre)}); "
-          f"loss {float(r['loss']):.6f}", flush=True)
-    print(f"    three eager steps (F-P6): grad_norm {', '.join(f'{g:.9g}' for g in gn)}; "
-          f"{sum(v > 0 for v in ee.values())}/{len(ee)} leaves differ, largest difference "
-          f"{max(ee.values()):.3e}, l2 {max(param_l2(a, b) for a, b in pairs):.3e}", flush=True)
-    print(f"    replay vs first eager step: grad_norm {gr:.9g}; {sum(v > 0 for v in re_.values())}"
-          f"/{len(re_)} leaves differ, largest difference {max(re_.values()):.3e} (bound "
-          f"{2 * d_max:.3e}), l2 {r_l2:.3e} (bound {2 * d_l2:.3e}); leaf {worst}: "
-          f"{re_[worst]:.3e} against the eager steps' {ee[worst]:.3e}", flush=True)
-    if len(same) != len(pre):
-        fail(f"the {what} graph's pre-update metrics differ from the eager body's: "
-             f"{sorted(set(pre) - set(same))}")
-    if not min(gn) - 2 * g_range <= gr <= max(gn) + 2 * g_range:
-        fail(f"the {what} graph's grad_norm {gr} lies outside the eager steps' {gn}")
-    if max(re_.values()) > 2 * d_max or r_l2 > 2 * d_l2:
-        fail(f"the {what} graph's parameters lie outside the eager steps' spread")
+    (e, se), (r, sr) = runs
+    differ = [k for k in e if not torch.equal(r[k], e[k])]
+    leaves = [n for n in se["params"] if not torch.equal(sr["params"][n], se["params"][n])]
+    same = same_state(sr, se)
+    print(f"  {what} graph vs one eager step (one state, batch and draws): metrics bit for bit "
+          f"{len(e) - len(differ)}/{len(e)}; loss {float(r['loss']):.6f}, grad_norm "
+          f"{float(r['grad_norm']):.9g} vs {float(e['grad_norm']):.9g}; parameters, moments "
+          f"and EMA after the update bit for bit: {same} ({len(leaves)}/{len(se['params'])} "
+          f"parameters differ)", flush=True)
+    if differ or not same:
+        fail(f"the {what} graph differs from the eager step: metrics {differ}, "
+             f"{len(leaves)} parameters ({', '.join(leaves[:8])}), state equal {same}")
 
 
 def two_runs(step, state, batches, text_embed=None, n=5):
-    """F-P6 over several steps: ``n`` replays from one state with one seed,
-    twice, the state put back between; prints how far the parameters and the
-    losses of the two runs lie apart. Leaves the state as it found it."""
+    """``n`` replays from one state with one seed, twice, the state put back
+    between: the losses and the state after them equal bit for bit (F-P6 over
+    steps). Leaves the state as it found it."""
     import torch
 
     saved = state_copy(state)
     ends, losses = [], []
     for _ in range(2):
-        losses.append([float(step(state, b, text_embed)["loss"]) for b in batches[:n]])
+        losses.append([step(state, b, text_embed)["loss"] for b in batches[:n]])
         torch.cuda.synchronize()
         ends.append(state_copy(state))
         state_put(state, saved)
-    d = param_spread(*ends)
-    print(f"    {n} replays twice from one state and seed (F-P6): {sum(v > 0 for v in d.values())}"
-          f"/{len(d)} leaves differ, max {max(d.values()):.3e}; last loss "
-          f"{losses[0][-1]:.6f} vs {losses[1][-1]:.6f}", flush=True)
+    d = [k for k in ends[0]["params"] if not torch.equal(ends[0]["params"][k],
+                                                          ends[1]["params"][k])]
+    same = same_state(*ends) and all(torch.equal(a, b) for a, b in zip(*losses))
+    print(f"    {n} replays twice from one state and seed: losses and state bit for bit: "
+          f"{same} ({len(d)}/{len(ends[0]['params'])} parameters differ); last loss "
+          f"{float(losses[0][-1]):.6f}", flush=True)
+    if not same:
+        fail(f"{n} replays from one state and seed do not repeat bit for bit")
 
 
 REPLAY_BUSY = {}  # the device ms of each train phase's profiled replay
 F32_GEMMS = {}  # the f32 CUDA-core GEMMs of each train phase's replay (ROADMAP F-P10)
-# The replay against one eager step (phase 18) and a knob's eager step against
-# the knob-free one (phase 20): the pre-update metrics bit for bit and
-# grad_norm within this relative bound. Two eager steps from one state differ
-# in their gradients' norm by up to 2.17e-5 on an H100 (phase 20's readings
-# over three runs, through K1-bwd's atomics and PyTorch's nondeterministic
-# operations, F-P6); the bound is some five times that. That the knobs change
-# no number shows exactly in phase 20's run with deterministic reductions.
-GRAD_NORM_RTOL = 1e-4
-
-
 def free_memory() -> None:
     """Collect the garbage (a step's graphs can sit in reference cycles, their
     pool with them), then return the allocator's cached blocks to the card."""
@@ -1508,37 +1603,6 @@ def f32_gemms(fn):
     return sum(n for n, _ in f32), sum(ms for _, ms in f32)
 
 
-def graph_vs_one_eager(step, state, batch, text_embed=None, what="train"):
-    """The replay against one eager step from one state, batch and draws (the
-    state put back after each): the loss and every metric computed before the
-    update bit for bit (the forward has no atomics), ``grad_norm`` within
-    ``GRAD_NORM_RTOL``. No check of the parameters: F-P6 spreads them. Leaves
-    the state as it found it."""
-    import torch
-
-    draws = step.draws(state, batch["labels"].shape[0])
-    saved = state_copy(state)
-    runs = []
-    for run in (step.eager, step):
-        runs.append(run(state, batch, text_embed, draws=draws))
-        torch.cuda.synchronize()
-        state_put(state, saved)
-    e, r = runs
-    pre = [k for k in e if k != "grad_norm"]
-    same = [k for k in pre if torch.equal(r[k], e[k])]
-    ge, gr = float(e["grad_norm"]), float(r["grad_norm"])
-    rel = abs(gr - ge) / ge
-    print(f"  {what} graph vs one eager step (one state, batch and draws): pre-update metrics "
-          f"bit for bit {len(same)}/{len(pre)}; loss {float(r['loss']):.6f}; grad_norm "
-          f"{gr:.9g} vs {ge:.9g}, relative difference {rel:.3e} (bound {GRAD_NORM_RTOL:g})",
-          flush=True)
-    if len(same) != len(pre):
-        fail(f"the {what} graph's pre-update metrics differ from the eager step's: "
-             f"{sorted(set(pre) - set(same))}")
-    if not rel <= GRAD_NORM_RTOL:
-        fail(f"the {what} graph's grad_norm is {rel:.3e} away from the eager step's")
-
-
 def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None, costs=None,
               phase=None, against_eager=None):
     """Build the detector from seed 0, take one warm-up step (eager; it
@@ -1547,12 +1611,12 @@ def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None, cost
     a step, the auction's rounds read from K4's device counter), one more
     replay under ``set_sync_debug_mode("error")`` (nothing may be read on the
     host), the replay against the eager body (``graph_vs_eager``) and two
-    runs of five replays (``two_runs``), compare the gradients of ``leaves``
-    in one step against the same step with the plain versions, and profile
-    one replay (its operations and K4's device ms). ``costs``, if given, gets
-    the cost matrices and masks of the warm-up step's matchings. With
-    ``against_eager="one"`` the replay is held to one eager step instead
-    (``graph_vs_one_eager``) and ``two_runs`` is skipped. K5's and K6's
+    runs of five replays (``two_runs``), both bit for bit, compare the
+    gradients of ``leaves`` in one step against the same step with the plain
+    versions, and profile one replay (its operations and K4's device ms).
+    ``costs``, if given, gets the cost matrices and masks of the warm-up
+    step's matchings. With ``against_eager="one"`` ``two_runs`` is skipped
+    (a step of the run's budget). K5's and K6's
     launches in ``want`` may be None: the optimizer's tables give them
     (``adamw_launches``). With ``phase``, the f32 CUDA-core GEMMs of one more
     replay are counted (``f32_gemms``, ROADMAP F-P10). -> the launches of the
@@ -1646,10 +1710,8 @@ def run_train(cfg, want, n_steps, leaves, clip_model=None, text_embed=None, cost
           f"peak memory {peak_gb:.2f} GB allocated (a replay allocates nothing; the pool "
           f"{step.pool_bytes / 1e9:.3f} GB beside it), {reserved_gb:.2f} GB reserved",
           flush=True)
-    if against_eager == "one":
-        graph_vs_one_eager(step, state, batches[0], text_embed)
-    else:
-        graph_vs_eager(step, state, batches[0], text_embed)
+    graph_vs_eager(step, state, batches[0], text_embed)
+    if against_eager != "one":
         two_runs(step, state, batches, text_embed)
     if list(step.graphs) != [g_key]:
         fail(f"the train step captured {len(step.graphs)} graphs for one batch shape")
@@ -3012,24 +3074,6 @@ def phase_alt_backbones():
     print("phase 19: ConvNeXt-XL and FocalNet-L eval and train steps ok", flush=True)
 
 
-@contextlib.contextmanager
-def deterministic():
-    """PyTorch's deterministic algorithms (a warning names any operation that
-    has none) and cuDNN's deterministic convolutions, as they were after."""
-    import torch
-
-    prev = (torch.are_deterministic_algorithms_enabled(),
-            torch.is_deterministic_algorithms_warn_only_enabled(),
-            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev[2:]
-
-
 def fused_tail_route_check():
     """F-P14 on the card: one encoder layer at the production width (d 256, F
     2048, bf16) on bs2's 24,990 tokens an image, its sampler's output fixed.
@@ -3091,18 +3135,17 @@ def fused_tail_route_check():
 def phase_knobs():
     """Phase 20: the memory knobs on the R50 flagship at bs2 (phase 10's step,
     eager, one state, batch and draws; 562 gradient leaves). With the
-    kernels: the step without a knob twice (their spread, F-P6), then one
-    step with each knob alone: its pre-update metrics equal to the knob-free
-    step's bit for bit, ``grad_norm`` within ``GRAD_NORM_RTOL``, its peak
+    kernels: the step without a knob twice, then one step with each knob
+    alone: every metric (``grad_norm`` too) and every gradient equal to the
+    first knob-free step's bit for bit (ROADMAP F-P6, repaired), its peak
     memory below that step's, K1's and K2's forward launches as
-    ``KNOB_LAUNCHES`` says. The same five steps with the kernels and
-    PyTorch's deterministic algorithms, with the plain versions, and with
-    both, each step's gradients against the first's leaf by leaf: the last
-    has no nondeterministic reduction left, and there every gradient and
-    metric of every step must be equal bit for bit. Then the train bench
-    (``richsem_tpu_torch/bench.py``) at ``BENCH_BATCH`` 4 and 8, where the
-    root bench's knobs turn ``backbone_remat`` and ``enc_selective_remat``
-    on."""
+    ``KNOB_LAUNCHES`` says. The same five steps with the plain versions and
+    PyTorch's deterministic algorithms (``deterministic``), each again equal
+    to its first step bit for bit (each step's gradients against the first's,
+    leaf by leaf, printed in both settings). Then the
+    train bench (``richsem_tpu_torch/bench.py``) at ``BENCH_BATCH`` 4 and 8,
+    where the root bench's knobs turn ``backbone_remat`` and
+    ``enc_selective_remat`` on."""
     import torch
 
     from richsem_tpu_torch import bench
@@ -3122,67 +3165,44 @@ def phase_knobs():
                            device=DEVICE)
         return eager_step(cfg, teacher, text_embed, batch, draws, grads=True)
 
-    def gaps(grads, base):
-        differ, worst, name, norm = grad_gap(grads, base)
-        return (f"gradients: {differ}/{len(base)} leaves differ from the first step's, "
-                f"largest {worst:.3e} of its leaf's magnitude ({name}), global norm "
-                f"{norm:.3e}"), differ
-
-    print("  with the kernels", flush=True)
-    base, errors = None, []
-    for knob in (None, None) + tuple(k for k in KNOB_LAUNCHES if k):
-        t = time.perf_counter()
-        m, launches, peak, (k5, k6), grads = run(knob)
-        w1, w2 = KNOB_LAUNCHES[knob]
-        want = [w1, 12, w2, 6, 0, 0, 7, k5, k6]
-        line = (f"  {knob or 'no knob'}: peak {peak:.2f} GB allocated, loss {float(m['loss']):.6f},"
-                f" grad_norm {float(m['grad_norm']):.6f}; launches "
-                + ", ".join(f"{k} {v}" for k, v in zip(COUNTED, launches)) + f" (expect {want})")
-        if launches != want:
-            fail(f"the step with {knob} launched {launches}, not {want}")
-        if base is None:
-            base = (m, peak, grads)
-            print(line + f"; {time.perf_counter() - t:.1f} s", flush=True)
-            continue
-        pre = [k for k in base[0] if k != "grad_norm"]
-        same = [k for k in pre if torch.equal(m[k], base[0][k])]
-        ge, gk = float(base[0]["grad_norm"]), float(m["grad_norm"])
-        rel = abs(gk - ge) / ge
-        print(line + f"; pre-update metrics equal the first step's bit for bit {len(same)}/"
-              f"{len(pre)}; grad_norm {rel:.3e} from it (bound {GRAD_NORM_RTOL:g}); "
-              f"{gaps(grads, base[2])[0]}; peak {peak - base[1]:+.2f} GB; "
-              f"{time.perf_counter() - t:.1f} s", flush=True)
-        if len(same) != len(pre):
-            fail(f"{knob} changes the pre-update metrics {sorted(set(pre) - set(same))}")
-        if not rel <= GRAD_NORM_RTOL:  # failed after the other settings' spreads
-            errors.append(f"{knob or 'a second step'} moves grad_norm by {rel:.3e}")
-        if knob and not peak < base[1]:
-            fail(f"{knob} does not lower the step's peak memory")
-        del grads
-    del base
-    for plain, det in ((False, True), (True, False), (True, True)):
-        what = (("the plain versions" if plain else "the kernels")
-                + (" and deterministic algorithms" if det else ""))
+    errors = []
+    for plain in (False, True):
+        what = "the plain versions" if plain else "the kernels"
         print(f"  with {what}", flush=True)
         base = None
-        with (plain_versions() if plain else contextlib.nullcontext()), \
-                (deterministic() if det else contextlib.nullcontext()):
+        # the plain versions' autograd gathers add with atomics: PyTorch's
+        # deterministic algorithms with them
+        with plain_versions() if plain else contextlib.nullcontext(), \
+                deterministic() if plain else contextlib.nullcontext():
             for knob in (None, None) + tuple(k for k in KNOB_LAUNCHES if k):
                 t = time.perf_counter()
-                m, _, _, _, grads = run(knob)
+                m, launches, peak, (k5, k6), grads = run(knob)
+                line = (f"  {knob or 'no knob'}: peak {peak:.2f} GB allocated, loss "
+                        f"{float(m['loss']):.6f}, grad_norm {float(m['grad_norm']):.6f}")
+                if not plain:
+                    w1, w2 = KNOB_LAUNCHES[knob]
+                    want = [w1, 12, w2, 6, 0, 0, 7, k5, k6]
+                    line += ("; launches " + ", ".join(f"{k} {v}" for k, v in
+                                                       zip(COUNTED, launches))
+                             + f" (expect {want})")
+                    if launches != want:
+                        fail(f"the step with {knob} launched {launches}, not {want}")
                 if base is None:
-                    base = (m, grads)
-                    print(f"  {knob or 'no knob'}: loss {float(m['loss']):.6f}, grad_norm "
-                          f"{float(m['grad_norm']):.6f}; {time.perf_counter() - t:.1f} s",
-                          flush=True)
+                    base = (m, peak, grads)
+                    print(line + f"; {time.perf_counter() - t:.1f} s", flush=True)
                     continue
-                text, differ = gaps(grads, base[1])
+                differ, worst, name, norm = grad_gap(grads, base[2])
                 same = [k for k in base[0] if torch.equal(m[k], base[0][k])]
-                print(f"  {knob or 'no knob'}: metrics equal the first step's bit for bit "
-                      f"{len(same)}/{len(base[0])} (grad_norm {float(m['grad_norm']):.6f}); "
-                      f"{text}; {time.perf_counter() - t:.1f} s", flush=True)
-                if plain and det and (differ or len(same) != len(base[0])):
-                    errors.append(f"{knob or 'a second step'} changes a gradient with {what}")
+                print(line + f"; metrics equal the first step's bit for bit {len(same)}/"
+                      f"{len(base[0])}; gradients: {differ}/{len(base[2])} leaves differ from "
+                      f"the first step's, largest {worst:.3e} of its leaf's magnitude ({name}), "
+                      f"global norm {norm:.3e}; peak {peak - base[1]:+.2f} GB; "
+                      f"{time.perf_counter() - t:.1f} s", flush=True)
+                if differ or len(same) != len(base[0]):
+                    errors.append(f"{knob or 'a second step'} changes a metric or a gradient "
+                                  f"with {what}")
+                if knob and not plain and not peak < base[1]:
+                    fail(f"{knob} does not lower the step's peak memory")
                 del grads
         del base
     if errors:
@@ -3206,13 +3226,236 @@ def phase_knobs():
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+# The settings under which ``phase_sources`` repeats a step: (name, the plain
+# versions of the model's kernels, PyTorch's deterministic algorithms, cuDNN's
+# deterministic mode)
+SOURCE_SETTINGS = (("the kernels", False, False, False),
+                   ("the plain versions", True, False, False),
+                   ("the kernels + deterministic algorithms", False, True, False),
+                   ("the kernels + cuDNN deterministic", False, False, True),
+                   ("the kernels + both", False, True, True),
+                   ("the plain versions + deterministic algorithms", True, True, False),
+                   ("the plain versions + cuDNN deterministic", True, False, True),
+                   ("the plain versions + both", True, True, True))
+
+
+@contextlib.contextmanager
+def torch_settings(algos: bool, cudnn_det: bool):
+    """PyTorch's deterministic algorithms (a warning names any operation that
+    has none; uninitialized memory not filled) and cuDNN's deterministic
+    convolutions, each on or as it was, put back after."""
+    import torch
+    import torch.utils.deterministic as det
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+            det.fill_uninitialized_memory)
+    if algos:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        det.fill_uninitialized_memory = False
+    if cudnn_det:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev[2:4]
+        det.fill_uninitialized_memory = prev[4]
+
+
+def deterministic():
+    """Both of ``torch_settings``: under them the plain versions' steps repeat
+    bit for bit (their autograd gathers add with atomics otherwise)."""
+    return torch_settings(True, True)
+
+
+@contextlib.contextmanager
+def body_settings_off():
+    """The train step's body without its own cuDNN setting
+    (``train/engine.py:deterministic_convolutions``), so that the settings
+    around it hold, put back after: for ``phase_sources``."""
+    from richsem_tpu_torch.train import engine
+
+    saved = engine.deterministic_convolutions
+    engine.deterministic_convolutions = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        engine.deterministic_convolutions = saved
+
+
+def leaf_gaps(g, base):
+    """-> {leaf: max |g - base| / max |base|} over the leaves that differ."""
+    import torch
+
+    return {n: float((g[n] - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for n, b in base.items() if not torch.equal(g[n], b)}
+
+
+def phase_sources():
+    """The sources of the train step's run-to-run differences (ROADMAP F-P6):
+    two eager steps of the R50 flagship at bs2 from one state, batch and
+    draws, in both decoder routes, under each of ``SOURCE_SETTINGS``: the
+    metrics equal or not, ``grad_norm``'s relative gap, and every leaf's gap
+    (its largest difference over its largest magnitude; all of them written
+    to ``build/sources.log``, the largest printed), with the warnings
+    PyTorch's deterministic algorithms give for operations without a
+    deterministic version (the body's own cuDNN setting,
+    ``deterministic_convolutions``, taken out for these). Then two eager
+    steps of each other trained path (DINO, variants A and B, the ViT recipe,
+    Swin-L, ConvNeXt-XL, FocalNet-L, DETRsegm at bs1, CondInst) as shipped,
+    their metrics and every leaf's gap; and the flagship's train graph under
+    each setting of the kernels, 10 replays timed (ms/step, the host's clock
+    to a synchronise): the cost of each setting."""
+    import collections
+    import warnings
+
+    import torch
+
+    from richsem_tpu_torch.train.engine import step_draws
+
+    t0 = time.perf_counter()
+    print(f"  CUBLAS_WORKSPACE_CONFIG={os.environ.get('CUBLAS_WORKSPACE_CONFIG')!r}; "
+          f"cudnn.benchmark {torch.backends.cudnn.benchmark}, cudnn.deterministic "
+          f"{torch.backends.cudnn.deterministic}", flush=True)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    log = open(os.path.join(ROOT, "build", "sources.log"), "w")
+
+    def caught(ws):
+        return sorted({str(w.message).splitlines()[0][:200] for w in ws})
+
+    for route in (None, "sep_pallas"):
+        cfg = flagship_cfg(**({"dec_msda_impl": route} if route else {}))
+        teacher, text_embed, g = teacher_and_text(cfg)
+        batch = train_batch(g)
+        draws = step_draws(cfg, BATCH, torch.Generator(device=DEVICE).manual_seed(7),
+                           device=DEVICE)
+        for name, plain, algos, cudnn_det in SOURCE_SETTINGS:
+            runs, ms = [], []
+            with warnings.catch_warnings(record=True) as ws:
+                warnings.simplefilter("always")
+                with (plain_model_kernels() if plain else contextlib.nullcontext()), \
+                        body_settings_off(), torch_settings(algos, cudnn_det):
+                    for _ in range(2):
+                        t = time.perf_counter()
+                        m, _, _, _, grads = eager_step(cfg, teacher, text_embed, batch, draws,
+                                                       grads=True)
+                        ms.append((time.perf_counter() - t) * 1e3)
+                        runs.append((m, grads))
+            (m1, g1), (m2, g2) = runs
+            same = [k for k in m1 if torch.equal(m1[k], m2[k])]
+            gaps = leaf_gaps(g2, g1)
+            rel = abs(float(m2["grad_norm"]) - float(m1["grad_norm"])) / float(m1["grad_norm"])
+            by_mod = collections.Counter(n.split(".")[0] for n in gaps)
+            tag = f"{route or 'default decoder'}, {name}"
+            print(f"  {tag}: metrics equal {len(same)}/{len(m1)}, grad_norm "
+                  f"{float(m1['grad_norm']):.9g} vs {float(m2['grad_norm']):.9g} ({rel:.3e}); "
+                  f"{len(gaps)}/{len(g1)} leaves differ"
+                  + (f", by module {dict(by_mod.most_common(12))}" if gaps else "")
+                  + f"; eager steps (with the build) {ms[0]:.0f}, {ms[1]:.0f} ms", flush=True)
+            for n in sorted(gaps, key=gaps.get, reverse=True)[:6]:
+                print(f"    {n}: {gaps[n]:.3e}", flush=True)
+            for w in caught(ws):
+                print(f"    warning: {w}", flush=True)
+            log.write(f"# {tag}\n" + "".join(f"{n} {gaps.get(n, 0.0):.6e}\n" for n in g1))
+            del runs, g1, g2, grads
+        del teacher, text_embed
+        free_memory()
+
+    def one_step(what, cfg, teacher=None, text_embed=None, batch=None):
+        t = time.perf_counter()
+        runs = [eager_step(cfg, teacher, text_embed, batch, grads=True) for _ in range(2)]
+        (m1, *_, g1), (m2, *_, g2) = runs
+        same = [k for k in m1 if torch.equal(m1[k], m2[k])]
+        gaps = leaf_gaps(g2, g1)
+        by_mod = collections.Counter(n.split(".")[0] for n in gaps)
+        print(f"  {what}, two eager steps as shipped: loss {float(m1['loss']):.4f}, "
+              f"metrics equal {len(same)}/{len(m1)}, {len(gaps)}/{len(g1)} leaves differ"
+              + (f" {dict(by_mod.most_common(8))}, largest {max(gaps, key=gaps.get)} "
+                 f"{max(gaps.values()):.3e}" if gaps else "")
+              + f"; {time.perf_counter() - t:.1f} s", flush=True)
+        log.write(f"# {what}\n" + "".join(f"{n} {gaps.get(n, 0.0):.6e}\n" for n in g1))
+        del runs, g1, g2
+        free_memory()
+
+    from richsem_tpu_torch.config import Config
+
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    cfg = Config.fromfile(TRAIN_CONFIG)
+    cfg.compute_dtype = "bfloat16"
+    one_step("DINO", cfg, batch=train_batch(g))
+    for v in ("A", "B"):
+        cfg = flagship_cfg(**variant(v))
+        teacher, text_embed, tg = teacher_and_text(cfg)
+        batch = train_batch(tg)
+        if v == "B":
+            for k in ("labels", "boxes", "valid"):
+                batch[k] = batch[k][:, :VARIANT_B_GT].contiguous()
+        one_step(f"variant {v}", cfg, teacher, text_embed, batch)
+        del teacher, text_embed
+    cfg = flagship_cfg(clip_model=VIT, use_visual_distill=False)
+    teacher, text_embed = vit_teacher_and_text(cfg)
+    one_step("ViT-B/32 recipe", cfg, teacher, text_embed, train_batch(g))
+    del teacher, text_embed
+    cfg = flagship_cfg(backbone=SWIN)
+    teacher, text_embed, tg = teacher_and_text(cfg)
+    one_step("Swin-L", cfg, teacher, text_embed, train_batch(tg))
+    del teacher, text_embed
+    for name in ALT_BACKBONES:
+        cfg = flagship_cfg(backbone=name)
+        teacher, text_embed, tg = teacher_and_text(cfg)
+        one_step(name, cfg, teacher, text_embed, train_batch(tg))
+        del teacher, text_embed
+    for head in MASK_HEADS:
+        one_step(head, masks_cfg(head), batch=mask_train_batch(g, 1))
+    log.close()
+
+    # the cost of each setting in the flagship's train graph
+    import richsem_tpu_torch.models.build  # noqa: F401  (registers "richsem")
+    from richsem_tpu_torch.models import build_model
+    from richsem_tpu_torch.train.engine import create_train_state, make_train_step
+    from richsem_tpu_torch.train.optim import build_optimizer
+
+    cfg = flagship_cfg()
+    teacher, text_embed, tg = teacher_and_text(cfg)
+    batch = train_batch(tg)
+    for name, plain, algos, cudnn_det in SOURCE_SETTINGS:
+        if plain:
+            continue
+        with body_settings_off(), torch_settings(algos, cudnn_det):
+            gm = torch.Generator(device=DEVICE).manual_seed(0)
+            model, _, _ = build_model("richsem", cfg, device=DEVICE, generator=gm)
+            state = create_train_state(model, build_optimizer(model, cfg, steps_per_epoch=1000),
+                                       use_ema=cfg.use_ema)
+            step = make_train_step(model, cfg, seed=0, device=DEVICE, clip_model=teacher)
+            step(state, batch, text_embed)  # warm-up and capture
+            step(state, batch, text_embed)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(10):
+                t = time.perf_counter()
+                step(state, batch, text_embed)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+        print(f"  flagship train graph with {name}: ms/step median "
+              f"{statistics.median(times):.2f} (min {min(times):.2f}, max {max(times):.2f})",
+              flush=True)
+        step.reset()
+        del model, state, step
+        free_memory()
+    print(f"phase sources: the train step's sources of run-to-run differences "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 MXU_KERNELS = ("mxu_kernel", "mxu_reduce_kernel")
 CELL_KERNELS = ("cell_kernel", "cell_reduce_kernel")
 REPEAT_KERNELS = {"float32": "repeat_f32_kernel", "bfloat16": "repeat_bf16_kernel"}
 
 
-# the device operations of a backward wrapper around its kernel: the zeroed f32
-# d_value scratch and its cast to the value's dtype
+# the device operations of an earlier tree's backward wrapper around its
+# kernel (``ab``): the zeroed f32 d_value scratch and its cast to the value's
+# dtype
 SCRATCH_OPS = {"zero": "FillFunctor", "cast": "copy_kernel"}
 
 
@@ -3331,19 +3574,29 @@ def phase_ab(root: str) -> None:
     rec["k3_ms"] = cuda_ms(fn)
     rec["k3_device_ms"] = total_ms(device_ms(fn, ["msda_sep_fwd_kernel"]))
     rec["k3_sha"] = digest([fn()])
+    # K1-bwd and K3-bwd: the tap kernel alone, the wrapper's zeroed f32 d_value
+    # and its cast where a tree has them, and every device operation of a call
+    # ("all": since the deterministic d_value pass, its scan, place and gather
+    # kernels and its zeroed counts too)
+    bwd_ops = dict(ALL_OPS, **SCRATCH_OPS)
     fn = lambda: k3.ms_deform_attn_sep_backward(v, SHAPES, loc, aw, grad)  # noqa: E731
     rec["k3_bwd_ms"] = cuda_ms(fn, iters=10)
-    dev = device_ms(fn, ["msda_sep_bwd_kernel"], also=SCRATCH_OPS)
+    dev = device_ms(fn, ["msda_sep_bwd_kernel"], also=bwd_ops)
     for key, op in (("device", "msda_sep_bwd_kernel"), ("zero_device", "zero"),
-                    ("cast_device", "cast")):
+                    ("cast_device", "cast"), ("all_device", "all")):
         rec[f"k3_bwd_{key}_ms"] = dev[op]
-    loc, aw = cases["encoder"]
-    grad = torch.randn((v.shape[0], loc.shape[1], 256),
-                       generator=torch.Generator(device=DEVICE).manual_seed(3),
-                       device=DEVICE).to(torch.bfloat16)
-    fn = lambda: k1.ms_deform_attn_backward(v, SHAPES, loc, aw, grad)  # noqa: E731
-    rec["k1_bwd_encoder_ms"] = cuda_ms(fn, iters=10)
-    rec["k1_bwd_encoder_device_ms"] = total_ms(device_ms(fn, ["msda_bwd_kernel"]))
+    rec["k3_bwd_sha"] = digest(fn())
+    for case, seed in (("encoder", 3), ("decoder", 3)):
+        loc, aw = cases[case]
+        grad = torch.randn((v.shape[0], loc.shape[1], 256),
+                           generator=torch.Generator(device=DEVICE).manual_seed(seed),
+                           device=DEVICE).to(torch.bfloat16)
+        fn = lambda: k1.ms_deform_attn_backward(v, SHAPES, loc, aw, grad)  # noqa: E731
+        rec[f"k1_bwd_{case}_ms"] = cuda_ms(fn, iters=10)
+        dev = device_ms(fn, ["msda_bwd_kernel"], also=bwd_ops)
+        rec[f"k1_bwd_{case}_device_ms"] = dev["msda_bwd_kernel"]
+        rec[f"k1_bwd_{case}_all_device_ms"] = dev["all"]
+        rec[f"k1_bwd_{case}_sha"] = digest(fn())
     del value, cases, v, loc, aw, grad
     args, dy = k2_args()
     fn = lambda: k2.encoder_tail(*args)  # noqa: E731
@@ -3959,7 +4212,7 @@ def dropout_graph_check():
              "valid": (torch.arange(20, device=DEVICE) < 8)[None].expand(BATCH, -1)}
     step(state, batch)  # the warm-up step and the capture
     torch.cuda.synchronize()
-    graph_vs_one_eager(step, state, batch, what="dropout 0.1 train (cut width)")
+    graph_vs_eager(step, state, batch, what="dropout 0.1 train (cut width)")
     draws = step.draws(state, BATCH)
     losses = [float(step(state, batch, draws=draws)["loss"]) for _ in range(2)]
     print(f"  two replays a step apart, same draws: loss {losses[0]:.6f} and {losses[1]:.6f}",
@@ -4083,10 +4336,10 @@ def deterministic_replay_check(make_step, state, batch, text_embed, what):
     with the plain versions of the model's kernels and PyTorch's deterministic
     algorithms (``plain_model_kernels``, ``deterministic``), under which steps
     repeat (phase 20): a new step from ``make_step()`` captures its graph (its
-    warm-up step and capture run from the saved state), then one replay and one
-    eager step, each from that state with one batch and set of draws; every
-    metric and the parameters, moments and EMA after the update must be equal.
-    Leaves the state as it found it."""
+    warm-up step and capture run from the saved state), then one replay and
+    one eager step, each from that state with one batch and set of draws;
+    every metric and the parameters, moments and EMA after the update must be
+    equal. Leaves the state as it found it."""
     import torch
 
     saved = state_copy(state)
@@ -4112,7 +4365,7 @@ def deterministic_replay_check(make_step, state, batch, text_embed, what):
           f"parameters, moments and EMA after the update equal bit for bit: {same}",
           flush=True)
     if metrics or not same:
-        fail(f"the {what} replay differs from its eager step under deterministic algorithms: "
+        fail(f"the {what} replay differs from its eager step with the plain model kernels: "
              f"metrics {metrics}, state equal {same}")
     del runs, step
     free_memory()
@@ -4705,6 +4958,7 @@ def masks_train(head, recs_out):
 
     cfg = masks_cfg(head)
     tried = []
+    free_memory()  # the eval graphs' pools (masks_eval) back to the card first
     for bs in (BATCH, 1):
         t0 = time.perf_counter()
         g = torch.Generator(device=DEVICE).manual_seed(0)
@@ -4764,14 +5018,14 @@ def masks_train(head, recs_out):
     del metrics, m
     saved = state_copy(state)
     eager_bs = bs
-    try:
-        graph_vs_eager(step, state, batches[0], what=f"{head} train")
-    except (torch.cuda.OutOfMemoryError, RuntimeError) as e:
-        if not is_oom(e) or bs == 1:
-            raise
-        print(f"  {head}: the eager steps do not fit beside the bs{bs} graph's pool "
-              f"({str(e).splitlines()[0][:120]}); graph_vs_eager at bs1", flush=True)
+    free = torch.cuda.mem_get_info()[0]
+    if bs > 1 and step.pool_bytes > free:  # an eager step needs about the graph's pool
+        print(f"  {head}: an eager step does not fit beside the bs{bs} graph's pool "
+              f"({step.pool_bytes / 1e9:.2f} GB, {free / 1e9:.2f} GB free); graph_vs_eager "
+              f"at bs1", flush=True)
         eager_bs = 1
+    else:
+        graph_vs_eager(step, state, batches[0], what=f"{head} train")
     step.reset()
     del step
     free_memory()
@@ -4891,6 +5145,17 @@ def phase_masks():
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def masks_in_child() -> None:
+    """Phase 25 in a process of its own (``python3 chip_smoke.py masks``), on a
+    card this process has given back what it cached: DETRsegm's bs1 check
+    needs a 37 GB graph pool beside its eager step, and when the child exits
+    all its memory is the card's again for the phases after it."""
+    free_memory()
+    rc = subprocess.run([sys.executable, os.path.abspath(__file__), "masks"], cwd=ROOT).returncode
+    if rc:
+        fail(f"phase 25 (the masks path, in its own process) exited with {rc}")
+
+
 def main() -> None:
     try:
         import torch
@@ -4914,6 +5179,10 @@ def main() -> None:
         return
     if sys.argv[1:] == ["masks"]:
         phase_masks()
+        print(f"total {time.perf_counter() - t0:.1f} s")
+        return
+    if sys.argv[1:] == ["sources"]:
+        phase_sources()
         print(f"total {time.perf_counter() - t0:.1f} s")
         return
     value, cases = k1_cases()
@@ -4979,6 +5248,7 @@ def main() -> None:
         phase_adamw(k5_rec, k6_rec)
         phase_k7(k7_rec)
     else:
+        masks_in_child()
         phase_eval(k1_rec, k2_rec)
         torch.cuda.empty_cache()
         phase_train(recs)
@@ -5004,7 +5274,6 @@ def main() -> None:
         phase_vit(recs)
         phase_weak_labels(recs)
         torch.cuda.empty_cache()
-        phase_masks()
         phase_ddp(recs, smi)
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)

@@ -24,40 +24,42 @@
 //
 // Layouts: value [B, S, M, D] (bf16 or f32, D = 32), loc [B, Q, M, L, P, 2] f32,
 // aw [B, Q, M, L, P] f32, g [B, Q, M*D] in the value's dtype; outputs
-// d_value [B, S, M, D] f32 (zeroed by the caller, cast by it afterwards),
-// d_loc like loc, d_aw like aw.
+// d_value [B, S, M, D] in the value's dtype (every element written once),
+// d_loc like loc, d_aw like aw; an int32 workspace of msda_bwd_workspace()
+// words.
 //
 // What bounds it. At the encoder shapes (B2, Q = S = 24,990, M8, L4, P4, D32)
-// a call has 6.40 M taps, i.e. 25.6 M corner rows of 32 channels to gather and
-// to add into d_value (819 M f32 adds), nearly all in L2 (value and d_value
-// are 25.6 and 51 MB). Each tap is a dependent chain (location -> corner
-// addresses -> four row reads -> products -> adds), so the kernel is bound by
-// how many taps are in flight and by the L2 traffic of the reads and adds, far
-// from the bytes bound of the call's inputs and outputs.
+// a call has 6.40 M taps, i.e. 25.6 M corner rows of 32 channels to gather
+// for the tap's sums and to add into d_value (819 M f32 terms), nearly all in
+// L2 (value and g are 25.6 MB each in bf16). Each tap is a dependent chain
+// (location -> corner addresses -> four row reads -> products), so the kernel
+// is bound by how many taps are in flight and by L2 traffic, far from the
+// bytes bound of the call's inputs and outputs.
 //
-// Design. A block serves one (b, m) and kTile = 16 queries. Eight lanes serve
-// one tap, four channels a lane (8- or 16-byte loads), so a warp takes four
-// taps at once, reduces d_aw and d_loc over 8 lanes (3 shuffles each) and adds
-// each corner's four channels with one float4 atomic (sm_90): 4x fewer atomic
-// instructions than one channel a lane, and no shuffles over 32 lanes.
+// Design. msda_bwd_kernel: a block serves one (b, m) and kTile = 16 queries.
+// Eight lanes serve one tap, four channels a lane (8- or 16-byte loads), so a
+// warp takes four taps at once and reduces d_aw and d_loc over 8 lanes (3
+// shuffles each, a fixed tree); the tap's first lane writes them, its key and
+// its count (msda_dvalue.cuh, step 1).
 //
-// Every corner goes to d_value directly, not through the TPU kernel's per-tile
-// d_value windows (_bwd_kernel's dwin_refs): Hopper has no shared-memory f32
-// atomic add, so a window needs a counting sort of the block's corners by
-// pixel and a gather, and pays only with 64-query tiles (4x fewer blocks in
-// flight); made exact that way, it took twice as long on an H100 (PERF.md).
-//
-// The order of the f32 adds into d_value changes from run to run, which moves
-// d_value by a few f32 ulps of its magnitude.
+// d_value is summed in msda_dvalue.cuh's deterministic pass: the taps are
+// listed by the corner they start from, and msda_bwd_gather_kernel gives each
+// value row a warp that adds its terms, a * w_k * g[c] from the four lists
+// that reach it, in fixed point, so that two calls on the same inputs give
+// the same d_value bit for bit (the TPU kernel adds in a fixed order too,
+// into per-tile windows). An earlier design's float4 atomic adds into an f32
+// d_value changed their order from run to run; a windowed design (a counting
+// sort of a block's corners by pixel, 64-query tiles) took twice as long.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include "msda_common.cuh"
+#include "msda_dvalue.cuh"
 
 namespace {
 
-using namespace msda;  // Levels, load4, the tap geometry, group_sum; kD = 32
+using namespace msda;  // Levels, load4, the tap geometry, group_sum, the d_value pass; kD = 32
 
 constexpr int kLanes = 8;       // lanes a tap: 4 channels each
 constexpr int kThreads = 256;
@@ -68,8 +70,10 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
                 const float* __restrict__ aw, const T* __restrict__ grad,
-                float* __restrict__ d_value, float* __restrict__ d_loc,
-                float* __restrict__ d_aw, int S, int Q, int M, int P, Levels lv) {
+                float* __restrict__ d_loc, float* __restrict__ d_aw, float4* __restrict__ factors,
+                int* __restrict__ keys, int* __restrict__ counts, unsigned* __restrict__ maxima,
+                int S, int Q, int M, int P, Levels lv,
+                const __grid_constant__ ExtLevels ex) {
   const int tid = threadIdx.x;
   const int b = blockIdx.y / M;
   const int m = blockIdx.y % M;
@@ -81,6 +85,7 @@ msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
   // Eight lanes a tap, channels 4k .. 4k + 3 on lane k; the four taps of a warp
   // run the loop together (group_sum below).
   const int k = tid % kLanes;
+  unsigned g_bits = 0;  // this thread's largest |g|, for the d_value pass
   for (int t = tid / kLanes; t < n_taps; t += kGroups) {
     const int q = blockIdx.x * kTile + t / lp_n;
     const bool live = q < Q;
@@ -97,9 +102,13 @@ msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
       a = aw[tap];
     }
     float s_aw = 0.f, s_x = 0.f, s_y = 0.f;
+    int key = -1;
+    float4 fac = make_float4(0.f, 0.f, 0.f, 0.f);  // the corners' factors w_k * a
     if (live && inside(x, y, h, w)) {  // else every corner is out
       float g[4];
       load4(grad + ((static_cast<long long>(b) * Q + q) * M + m) * kD + 4 * k, g);
+      g_bits = max(max(g_bits, max(abs_bits(g[0]), abs_bits(g[1]))),
+                   max(abs_bits(g[2]), abs_bits(g[3])));
       const Corners cr = corners(x, y, h, w);
       const float dx = cr.dx, dy = cr.dy;
       const bool(&in)[4] = cr.in;
@@ -123,15 +132,9 @@ msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
         s_x += g[i] * ((1.f - dy) * (v[1][i] - v[0][i]) + dy * (v[3][i] - v[2][i]));
         s_y += g[i] * ((1.f - dx) * (v[2][i] - v[0][i]) + dx * (v[3][i] - v[1][i]));
       }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (!in[c]) continue;
-        atomicAdd(reinterpret_cast<float4*>(
-                      d_value + lbase + (static_cast<long long>(cy[c]) * w + cx[c]) * row_stride +
-                      4 * k),
-                  make_float4(a * g[0] * wk[c], a * g[1] * wk[c], a * g[2] * wk[c],
-                              a * g[3] * wk[c]));
-      }
+      key = dv_key(b, m, M, l, cr.x0, cr.y0, lv, ex);
+      fac = make_float4(__fmul_rn(wk[0], a), __fmul_rn(wk[1], a), __fmul_rn(wk[2], a),
+                        __fmul_rn(wk[3], a));
     }
     s_aw = group_sum(s_aw);
     s_x = group_sum(s_x);
@@ -140,38 +143,100 @@ msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
       d_aw[tap] = s_aw;
       d_loc[2 * tap] = a * s_x * w;
       d_loc[2 * tap + 1] = a * s_y * h;
+      keys[tap] = key;
+      if (key >= 0) {
+        factors[tap] = fac;
+        atomicAdd(counts + key, 1);  // a count: the same in every order
+      }
     }
   }
+  dv_block_max<kThreads>(g_bits, maxima);
+}
+
+// A d_value term of K1-bwd: (w_e * a) * g[c], as the plain version's autograd
+// forms it; the tap's factors are (w_0 a, w_1 a, w_2 a, w_3 a).
+struct GatherTerm {
+  __device__ __forceinline__ static void pick(float4 f, int e, float& w1, float& w2) {
+    w1 = e == 0 ? f.x : e == 1 ? f.y : e == 2 ? f.z : f.w;
+    w2 = 0.f;
+  }
+  // at least |w_e a| for every corner, so max|g| times it bounds the terms
+  __device__ __forceinline__ static float bound(float4 f) {
+    return fmaxf(fmaxf(fabsf(f.x), fabsf(f.y)), fmaxf(fabsf(f.z), fabsf(f.w)));
+  }
+  __device__ __forceinline__ static float term(float w1, float, float g) {
+    return __fmul_rn(g, w1);
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kGatherThreads, kGatherBlocks)
+msda_bwd_gather_kernel(const T* __restrict__ grad, T* __restrict__ d_value,
+                       const int* __restrict__ offsets, const int* __restrict__ list,
+                       const float4* __restrict__ factors, const unsigned* __restrict__ maxima,
+                       long long n_rows, int B, int S, int M, int lp_n,
+                       const __grid_constant__ Levels lv,
+                       const __grid_constant__ ExtLevels ex) {
+  const long long i0 =
+      ((static_cast<long long>(blockIdx.x) * kGatherThreads + threadIdx.x) >> 5) * kRowsPerWarp;
+  if (i0 >= n_rows) return;  // uniform across the warp
+  dv_gather_warp<T, GatherTerm>(i0, n_rows, B, offsets, list, factors, maxima, lp_n, grad,
+                            d_value, S, M, lv, ex);
 }
 
 template <typename T>
 int launch(const void* value, const void* loc, const void* aw, const void* grad,
-           void* d_value, void* d_loc, void* d_aw, int B, int S, int Q, int M,
-           int D, int L, int P, const int* shapes, cudaStream_t stream) {
+           void* d_value, void* d_loc, void* d_aw, void* ws, long long ws_words, int B,
+           int S, int Q, int M, int D, int L, int P, const int* shapes, cudaStream_t stream) {
   Levels lv;
   if (D != kD || B * M > 65535 || !make_levels(lv, L, shapes, S))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (static_cast<long long>(B) * Q * M == 0) return static_cast<int>(cudaSuccess);
-  msda_bwd_kernel<T><<<dim3((Q + kTile - 1) / kTile, B * M), kThreads, 0, stream>>>(
-      static_cast<const T*>(value), static_cast<const float*>(loc),
-      static_cast<const float*>(aw), static_cast<const T*>(grad),
-      static_cast<float*>(d_value), static_cast<float*>(d_loc), static_cast<float*>(d_aw), S,
-      Q, M, P, lv);
+  const ExtLevels ex = make_ext(lv);
+  const long long n_taps = static_cast<long long>(B) * Q * M * L * P;
+  const long long n_keys = B * ex.total * M;
+  DvPlan plan;
+  if (!make_plan(plan, ws, n_taps, n_keys) || ws_words < dv_words(n_taps, n_keys))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_rows = static_cast<long long>(B) * S * M;
+  if (n_rows == 0) return static_cast<int>(cudaSuccess);
+  cudaError_t err = dv_zero(plan, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_taps > 0)
+    msda_bwd_kernel<T><<<dim3((Q + kTile - 1) / kTile, B * M), kThreads, 0, stream>>>(
+        static_cast<const T*>(value), static_cast<const float*>(loc),
+        static_cast<const float*>(aw), static_cast<const T*>(grad),
+        static_cast<float*>(d_loc), static_cast<float*>(d_aw), plan.factors, plan.keys,
+        plan.offsets, plan.maxima, S, Q, M, P, lv, ex);
+  dv_scan_and_place<GatherTerm>(plan, stream);
+  const long long warps = (n_rows + kRowsPerWarp - 1) / kRowsPerWarp;
+  const unsigned gather_blocks =
+      static_cast<unsigned>((warps * 32 + kGatherThreads - 1) / kGatherThreads);
+  msda_bwd_gather_kernel<T><<<gather_blocks, kGatherThreads, 0, stream>>>(
+      static_cast<const T*>(grad), static_cast<T*>(d_value), plan.offsets, plan.list,
+      plan.factors, plan.maxima, n_rows, B, S, M, L * P, lv, ex);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// shapes: host array of L (h, w) pairs; d_value must be zeroed. D must be 32.
-// Returns cudaGetLastError() after the launch.
+// The int32 words of the workspace msda_bwd takes; -1 for a bad pyramid.
+extern "C" long long msda_bwd_workspace(int B, int S, int Q, int M, int L, int P,
+                                        const int* shapes) {
+  Levels lv;
+  if (!make_levels(lv, L, shapes, S)) return -1;
+  return dv_words(static_cast<long long>(B) * Q * M * L * P, B * make_ext(lv).total * M);
+}
+
+// shapes: host array of L (h, w) pairs; D must be 32; ws: msda_bwd_workspace()
+// int32 words. Returns cudaGetLastError() after the launches.
 extern "C" int msda_bwd(const void* value, const void* loc, const void* aw,
-                        const void* grad, void* d_value, void* d_loc, void* d_aw,
-                        int B, int S, int Q, int M, int D, int L, int P,
+                        const void* grad, void* d_value, void* d_loc, void* d_aw, void* ws,
+                        long long ws_words, int B, int S, int Q, int M, int D, int L, int P,
                         const int* shapes, int value_is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (value_is_bf16)
-    return launch<__nv_bfloat16>(value, loc, aw, grad, d_value, d_loc, d_aw, B, S, Q, M, D, L,
-                                 P, shapes, s);
-  return launch<float>(value, loc, aw, grad, d_value, d_loc, d_aw, B, S, Q, M, D, L, P, shapes,
-                       s);
+    return launch<__nv_bfloat16>(value, loc, aw, grad, d_value, d_loc, d_aw, ws, ws_words, B,
+                                 S, Q, M, D, L, P, shapes, s);
+  return launch<float>(value, loc, aw, grad, d_value, d_loc, d_aw, ws, ws_words, B, S, Q, M,
+                       D, L, P, shapes, s);
 }

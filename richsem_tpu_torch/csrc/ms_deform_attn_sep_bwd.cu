@@ -19,25 +19,25 @@
 //   d_hxw_i = sum_{j,d} d_r_j * V[j, i]                      f32
 //   d_aw    = sum_i d_hxw_i * hx_i
 //   d_loc_x = W * aw * sum_i d_hxw_i * dhat(x, i)
-//   d_V[j, i] += hxw_i * d_r_j                               f32 atomics
+//   d_V[j, i] = sum of hxw_i * d_r_j over the taps           fixed point
 //
 // Layouts: value [B, S, M, 32] (bf16 or f32), loc [B, Q, M, L, P, 2] f32,
 // aw [B, Q, M, L, P] f32, g [B, Q, M*32] in the value's dtype; outputs d_value
-// [B, S, M, 32] f32 (zeroed by the caller, cast by it to the value's dtype, as
-// JAX accumulates d_img in f32 and casts once), d_loc like loc, d_aw like aw.
+// [B, S, M, 32] in the value's dtype (each element summed exactly and rounded
+// once, as JAX accumulates d_img in f32 and casts once), d_loc like loc, d_aw
+// like aw; an int32 workspace of msda_sep_bwd_workspace() words.
 //
 // What bounds it on the card: at the decoder's shapes (B2, Q = 1,100, M8, L4,
 // P4) device memory moves value, loc, aw and g once and d_value, d_loc and d_aw
 // once, 59 MB (d_value counted in the value's dtype, as the call returns it),
-// against 281,600 taps of four gathered corner rows and up to four rows of
-// atomic adds, nearly all in L2; decoder queries rarely share a value row, so
-// the atomics contend little, but their order still changes from run to run.
+// against 281,600 taps of four gathered corner rows, nearly all in L2, and
+// the d_value pass over every value row, most of which no decoder tap reaches.
 //
 // Design (K1-bwd's lanes, ms_deform_attn_bwd.cu, with K3's geometry):
 // - A warp serves two (b, q, m) rows, one per half-warp, in row-major order.
 //   When the rows are odd in number, the last warp's spare half-warp reads
-//   the last row's addresses with every tap zeroed, so it adds nothing to
-//   d_value, and writes no d_aw or d_loc.
+//   the last row's addresses with every tap zeroed, so it adds nothing, and
+//   writes no d_aw, d_loc or key.
 // - The lane that loads a tap computes its geometry once (msda_common.cuh:
 //   sep_tap, as K3 does) and keeps hx_i, dhat(x, i) and aw for the tap's
 //   outputs. Every factor of an out-of-range corner or tap is 0: hy, dhat(y,
@@ -51,20 +51,22 @@
 // - The three sums are reduced over the 8 lanes (3 shuffle steps each), and
 //   the lane that loaded the tap takes them and writes d_aw and d_loc:
 //   coalesced, one row's taps by one half-warp.
-// - Each corner row's four channels go into d_value with one float4 atomic
-//   (sm_90), skipped where hxw_i or hy_j is 0 (the add would be 0).
-//
-// The order of the f32 adds into d_value changes from run to run, which moves
-// d_value by a few f32 ulps of its magnitude.
+// - The lane that loads a tap writes its key and its count
+//   (msda_dvalue.cuh, step 1), and d_value is summed in that header's
+//   deterministic pass: msda_sep_bwd_gather_kernel gives each value row a
+//   warp that adds the terms hxw_i * d_r_j of the taps that reach it, in
+//   fixed point, so that two calls on the same inputs give the same d_value
+//   bit for bit, as the TPU kernel, which adds over its grid in program order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include "msda_common.cuh"
+#include "msda_dvalue.cuh"
 
 namespace {
 
-using namespace msda;  // Levels, load4, group_sum, round_cdt, SepTap, sep_tap
+using namespace msda;  // Levels, load4, group_sum, round_cdt, SepTap, sep_tap, the d_value pass
 
 constexpr int kThreads = 256;          // 8 warps: 16 rows a block
 constexpr int kLanes = 8;              // lanes a tap: 4 channels each
@@ -76,9 +78,11 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 msda_sep_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
                     const float* __restrict__ aw, const T* __restrict__ grad,
-                    float* __restrict__ d_value, float* __restrict__ d_loc,
-                    float* __restrict__ d_aw, long long n_rows, int S, int Q, int M, int P,
-                    Levels lv) {
+                    float* __restrict__ d_loc, float* __restrict__ d_aw,
+                    float4* __restrict__ factors, int* __restrict__ keys,
+                    int* __restrict__ counts, unsigned* __restrict__ maxima, long long n_rows,
+                    int S, int Q, int M, int P, Levels lv,
+                    const __grid_constant__ ExtLevels ex) {
   static_assert(kRounds % kBatch == 0, "batches split the rounds");
   const int lane = threadIdx.x & 31;
   const long long warp = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
@@ -95,20 +99,30 @@ msda_sep_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
 
   float g[4];
   load4(grad + r * kD + 4 * k, g);
+  // the call's largest |g|, for the d_value pass
+  dv_warp_max(live ? max(max(abs_bits(g[0]), abs_bits(g[1])), max(abs_bits(g[2]), abs_bits(g[3])))
+                   : 0u,
+              maxima);
 
   for (int t0 = 0; t0 < lp_n; t0 += 16) {
     // Lane l loads tap t0 + (l & 15) of its row and computes its geometry
     // (msda_common.cuh:sep_tap), keeping hat(x, i), dhat(x, i) and aw for the
-    // tap's outputs. A tap past the row's taps, or of a spare half-warp, keeps
-    // token 0 and zero factors, so it adds nothing to d_value.
+    // tap's outputs, and its key. A tap past the row's taps, or of a spare
+    // half-warp, keeps token 0, zero factors and no key, so it adds nothing.
     const int tl = t0 + hl;
     const bool mine = live && tl < lp_n;
     SepTap tap;
     float a = 0.f;
+    int key = -1;
     if (mine) {
       a = aw[r * lp_n + tl];
-      tap = sep_tap<T>(*reinterpret_cast<const float2*>(loc + (r * lp_n + tl) * 2), a,
-                       tl / P, lv);
+      const float2 xy = *reinterpret_cast<const float2*>(loc + (r * lp_n + tl) * 2);
+      const int l = tl / P;
+      tap = sep_tap<T>(xy, a, l, lv);
+      const float x = pixel(xy.x, lv.w[l]), y = pixel(xy.y, lv.h[l]);
+      if (inside(x, y, lv.h[l], lv.w[l]))
+        key = dv_key(b, m, M, l, static_cast<int>(floorf(x)), static_cast<int>(floorf(y)), lv,
+                     ex);
     }
     float my_y = 0.f, my_h0 = 0.f, my_h1 = 0.f;  // this lane's tap's three sums
 #pragma unroll
@@ -139,7 +153,6 @@ msda_sep_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
 #pragma unroll
       for (int i = 0; i < kBatch; ++i) {
         float s_y = 0.f, s_h0 = 0.f, s_h1 = 0.f;
-        float dr[2][4];
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const float hy = j ? h1[i] : h0[i], dy = j ? d1[i] : d0[i];
@@ -148,22 +161,10 @@ msda_sep_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
             const float v0 = v[i][2 * j][c], v1 = v[i][2 * j + 1][c];
             const float rj = __fadd_rn(__fmul_rn(w0[i], v0), __fmul_rn(w1[i], v1));
             s_y += __fmul_rn(__fmul_rn(g[c], rj), dy);
-            dr[j][c] = round_cdt<T>(__fmul_rn(g[c], hy));
-            s_h0 += __fmul_rn(dr[j][c], v0);
-            s_h1 += __fmul_rn(dr[j][c], v1);
+            const float dr = round_cdt<T>(__fmul_rn(g[c], hy));  // d_r_j
+            s_h0 += __fmul_rn(dr, v0);
+            s_h1 += __fmul_rn(dr, v1);
           }
-        }
-        // corner e = (x0 + (e & 1), y0 + (e >> 1)); an add of 0 is skipped
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float we = (e & 1) ? w1[i] : w0[i];
-          const float he = (e >> 1) ? h1[i] : h0[i];
-          if (we == 0.f || he == 0.f) continue;
-          const float(&d)[4] = dr[e >> 1];
-          const long long at = c00[i] + ((e >> 1) * sy[i] + (e & 1) * sx[i]) * tok;
-          atomicAdd(reinterpret_cast<float4*>(d_value + at),
-                    make_float4(__fmul_rn(we, d[0]), __fmul_rn(we, d[1]),
-                                __fmul_rn(we, d[2]), __fmul_rn(we, d[3])));
         }
         s_y = group_sum(s_y);
         s_h0 = group_sum(s_h0);
@@ -183,39 +184,104 @@ msda_sep_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
       *reinterpret_cast<float2*>(d_loc + 2 * at) =
           make_float2((my_h0 * tap.dx[0] + my_h1 * tap.dx[1]) * a * static_cast<float>(lv.w[l]),
                       my_y * static_cast<float>(lv.h[l]));
+      keys[at] = key;
+      if (key >= 0) {
+        factors[at] = make_float4(tap.hxw[0], tap.hxw[1], tap.hy[0], tap.hy[1]);
+        atomicAdd(counts + key, 1);  // a count: the same in every order
+      }
     }
   }
 }
 
+// A d_value term of K3-bwd: hxw_i * cdt(g[c] * hy_j) for corner e = (i, j) =
+// (e & 1, e >> 1); the tap's factors are (hxw_0, hxw_1, hy_0, hy_1), those
+// of msda_common.cuh:sep_tap.
+template <typename T>
+struct GatherTerm {
+  __device__ __forceinline__ static void pick(float4 f, int e, float& w1, float& w2) {
+    w1 = (e & 1) ? f.y : f.x;
+    w2 = (e >> 1) ? f.w : f.z;
+  }
+  // at least |hxw_i| |hy_j| for every corner; max|g| times it bounds the terms
+  // but for the rounding of cdt(g * hy_j)
+  __device__ __forceinline__ static float bound(float4 f) {
+    return fmaxf(fabsf(f.x), fabsf(f.y)) * fmaxf(fabsf(f.z), fabsf(f.w));
+  }
+  __device__ __forceinline__ static float term(float w1, float w2, float g) {
+    return __fmul_rn(w1, round_cdt<T>(__fmul_rn(g, w2)));
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kGatherThreads, kGatherBlocks)
+msda_sep_bwd_gather_kernel(const T* __restrict__ grad, T* __restrict__ d_value,
+                           const int* __restrict__ offsets, const int* __restrict__ list,
+                           const float4* __restrict__ factors, const unsigned* __restrict__ maxima,
+                           long long n_rows, int B, int S, int M, int lp_n,
+                           const __grid_constant__ Levels lv,
+                           const __grid_constant__ ExtLevels ex) {
+  const long long i0 =
+      ((static_cast<long long>(blockIdx.x) * kGatherThreads + threadIdx.x) >> 5) * kRowsPerWarp;
+  if (i0 >= n_rows) return;  // uniform across the warp
+  dv_gather_warp<T, GatherTerm<T>>(i0, n_rows, B, offsets, list, factors, maxima, lp_n, grad,
+                               d_value, S, M, lv, ex);
+}
+
 template <typename T>
 int launch(const void* value, const void* loc, const void* aw, const void* grad,
-           void* d_value, void* d_loc, void* d_aw, int B, int S, int Q, int M,
-           int D, int L, int P, const int* shapes, cudaStream_t stream) {
+           void* d_value, void* d_loc, void* d_aw, void* ws, long long ws_words, int B,
+           int S, int Q, int M, int D, int L, int P, const int* shapes, cudaStream_t stream) {
   Levels lv;
   if (D != kD || !make_levels(lv, L, shapes, S)) return static_cast<int>(cudaErrorInvalidValue);
+  const ExtLevels ex = make_ext(lv);
   const long long n_rows = static_cast<long long>(B) * Q * M;
-  if (n_rows == 0) return static_cast<int>(cudaSuccess);
-  const long long blocks = (n_rows + 2 * (kThreads / 32) - 1) / (2 * (kThreads / 32));
-  msda_sep_bwd_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(value), static_cast<const float*>(loc),
-      static_cast<const float*>(aw), static_cast<const T*>(grad),
-      static_cast<float*>(d_value), static_cast<float*>(d_loc), static_cast<float*>(d_aw),
-      n_rows, S, Q, M, P, lv);
+  const long long n_keys = B * ex.total * M;
+  DvPlan plan;
+  const long long n_taps = n_rows * L * P;
+  if (!make_plan(plan, ws, n_taps, n_keys) || ws_words < dv_words(n_taps, n_keys))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long v_rows = static_cast<long long>(B) * S * M;
+  if (v_rows == 0) return static_cast<int>(cudaSuccess);
+  cudaError_t err = dv_zero(plan, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_rows > 0) {
+    const long long blocks = (n_rows + 2 * (kThreads / 32) - 1) / (2 * (kThreads / 32));
+    msda_sep_bwd_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        static_cast<const T*>(value), static_cast<const float*>(loc),
+        static_cast<const float*>(aw), static_cast<const T*>(grad),
+        static_cast<float*>(d_loc), static_cast<float*>(d_aw), plan.factors, plan.keys,
+        plan.offsets, plan.maxima, n_rows, S, Q, M, P, lv, ex);
+  }
+  dv_scan_and_place<GatherTerm<T>>(plan, stream);
+  const long long warps = (v_rows + kRowsPerWarp - 1) / kRowsPerWarp;
+  const unsigned gather_blocks =
+      static_cast<unsigned>((warps * 32 + kGatherThreads - 1) / kGatherThreads);
+  msda_sep_bwd_gather_kernel<T><<<gather_blocks, kGatherThreads, 0, stream>>>(
+      static_cast<const T*>(grad), static_cast<T*>(d_value), plan.offsets, plan.list,
+      plan.factors, plan.maxima, v_rows, B, S, M, L * P, lv, ex);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// shapes: host array of L (h, w) pairs; d_value must be zeroed. D must be 32.
-// Returns cudaGetLastError() after the launch.
+// The int32 words of the workspace msda_sep_bwd takes; -1 for a bad pyramid.
+extern "C" long long msda_sep_bwd_workspace(int B, int S, int Q, int M, int L, int P,
+                                            const int* shapes) {
+  Levels lv;
+  if (!make_levels(lv, L, shapes, S)) return -1;
+  return dv_words(static_cast<long long>(B) * Q * M * L * P, B * make_ext(lv).total * M);
+}
+
+// shapes: host array of L (h, w) pairs; D must be 32; ws: msda_sep_bwd_workspace()
+// int32 words. Returns cudaGetLastError() after the launches.
 extern "C" int msda_sep_bwd(const void* value, const void* loc, const void* aw,
-                            const void* grad, void* d_value, void* d_loc, void* d_aw,
-                            int B, int S, int Q, int M, int D, int L, int P,
+                            const void* grad, void* d_value, void* d_loc, void* d_aw, void* ws,
+                            long long ws_words, int B, int S, int Q, int M, int D, int L, int P,
                             const int* shapes, int value_is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (value_is_bf16)
-    return launch<__nv_bfloat16>(value, loc, aw, grad, d_value, d_loc, d_aw, B, S,
-                                 Q, M, D, L, P, shapes, s);
-  return launch<float>(value, loc, aw, grad, d_value, d_loc, d_aw, B, S, Q, M, D,
-                       L, P, shapes, s);
+    return launch<__nv_bfloat16>(value, loc, aw, grad, d_value, d_loc, d_aw, ws, ws_words, B,
+                                 S, Q, M, D, L, P, shapes, s);
+  return launch<float>(value, loc, aw, grad, d_value, d_loc, d_aw, ws, ws_words, B, S, Q, M,
+                       D, L, P, shapes, s);
 }

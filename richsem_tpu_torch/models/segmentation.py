@@ -88,19 +88,75 @@ def nearest_index(src: int, dst: int, device=None) -> Tensor:
     return ((2 * i + 1) * src) // (2 * dst)
 
 
+def _nearest_select(src: int, dst: int, device=None) -> Tensor:
+    """[dst, src] f32, one 1 a row: the rows ``nearest_index`` reads."""
+    idx = nearest_index(src, dst, device)
+    return (idx[:, None] == torch.arange(src, device=device)[None]).float()
+
+
+class _UpsampleNearest(torch.autograd.Function):
+    """The nearest resize by ``index_select``, and as its gradient the product
+    with the selections' transposes, ``d_x = S_h^T d_y S_w``, which adds in a
+    fixed order (``index_select``'s own backward, ``index_add_``, adds with
+    atomics on the card, in whatever order its threads run)."""
+
+    @staticmethod
+    def forward(ctx, x, hw):
+        ctx.src = tuple(x.shape[-2:])
+        ys = nearest_index(x.shape[2], hw[0], x.device)
+        xs = nearest_index(x.shape[3], hw[1], x.device)
+        return x.index_select(2, ys).index_select(3, xs)
+
+    @staticmethod
+    def backward(ctx, dy):
+        sh = _nearest_select(ctx.src[0], dy.shape[-2], dy.device)
+        sw = _nearest_select(ctx.src[1], dy.shape[-1], dy.device)
+        return (sh.t() @ dy.float() @ sw).to(dy.dtype), None
+
+
 def upsample_nearest(x: Tensor, hw: Tuple[int, int]) -> Tensor:
-    """[N, C, H, W] -> [N, C, h, w], ``jax.image.resize(..., "nearest")``."""
-    ys = nearest_index(x.shape[2], hw[0], x.device)
-    xs = nearest_index(x.shape[3], hw[1], x.device)
-    return x.index_select(2, ys).index_select(3, xs)
+    """[N, C, H, W] -> [N, C, h, w], ``jax.image.resize(..., "nearest")``; its
+    gradient adds in a fixed order (:class:`_UpsampleNearest`)."""
+    return _UpsampleNearest.apply(x, tuple(hw))
+
+
+def bilinear_weights(src: int, dst: int, device=None) -> Tensor:
+    """[dst, src] f32: the weights with which ``F.interpolate(mode="bilinear",
+    align_corners=False)`` reads one axis (half-pixel centres, the source
+    position clamped at 0, the upper neighbour at the edge)."""
+    i = torch.arange(dst, dtype=torch.float32, device=device)
+    pos = ((i + 0.5) * (src / dst) - 0.5).clamp_min(0.0)[:, None]
+    i0 = pos.floor()
+    i1 = (i0 + 1).clamp_max(src - 1)
+    l1 = pos - i0
+    j = torch.arange(src, dtype=torch.float32, device=device)[None]
+    return (j == i0) * (1 - l1) + (j == i1) * l1
+
+
+class _UpsampleBilinear(torch.autograd.Function):
+    """``F.interpolate``'s bilinear forward, and as its backward the product
+    with the weights' transposes, ``d_x = W_h^T d_y W_w``, which adds in a
+    fixed order (on the card ``upsample_bilinear2d``'s own backward adds with
+    atomics, in whatever order its threads run)."""
+
+    @staticmethod
+    def forward(ctx, x, hw):
+        ctx.src = tuple(x.shape[-2:])
+        return F.interpolate(x, size=hw, mode="bilinear", align_corners=False)
+
+    @staticmethod
+    def backward(ctx, dy):
+        wh = bilinear_weights(ctx.src[0], dy.shape[-2], dy.device)
+        ww = bilinear_weights(ctx.src[1], dy.shape[-1], dy.device)
+        return (wh.t() @ dy.float() @ ww).to(dy.dtype), None
 
 
 def upsample_bilinear(x: Tensor, hw: Tuple[int, int]) -> Tensor:
     """[..., H, W] -> [..., h, w], ``jax.image.resize(..., "bilinear")`` for a
-    size not below the input's: half-pixel centres, edges clamped."""
+    size not below the input's: half-pixel centres, edges clamped; its
+    gradient adds in a fixed order (:class:`_UpsampleBilinear`)."""
     lead = x.shape[:-2]
-    y = F.interpolate(x.reshape(-1, 1, *x.shape[-2:]), size=tuple(hw), mode="bilinear",
-                      align_corners=False)
+    y = _UpsampleBilinear.apply(x.reshape(-1, 1, *x.shape[-2:]), tuple(hw))
     return y.reshape(*lead, *hw)
 
 

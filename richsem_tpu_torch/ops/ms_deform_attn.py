@@ -171,6 +171,49 @@ def _lib(name: str, fn_name: str, n_ptr: int) -> ctypes.CDLL:
     return lib
 
 
+def _bwd_lib(name: str, fn_name: str) -> ctypes.CDLL:
+    """A backward kernel's library: ``fn_name(value, loc, aw, g, d_value, d_loc,
+    d_aw, workspace, its words, B, S, Q, M, D, L, P, shapes, bf16, stream)`` and
+    ``fn_name_workspace(B, S, Q, M, L, P, shapes)``, the workspace's int32 words."""
+    lib = _build.load(name)
+    fn, words = getattr(lib, fn_name), getattr(lib, f"{fn_name}_workspace")
+    if fn.argtypes is None:
+        ptr, i32, shapes = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+        fn.argtypes = [ptr] * 8 + [ctypes.c_longlong] + [i32] * 7 + [shapes, i32, ptr]
+        fn.restype = ctypes.c_int
+        words.argtypes = [i32] * 6 + [shapes]
+        words.restype = ctypes.c_longlong
+    return lib
+
+
+def backward_launch(name: str, fn_name: str, kernel: str, value, spatial_shapes, loc, aw,
+                    grad_out):
+    """Launch a deformable-attention backward kernel (K1-bwd or K3-bwd) on
+    checked CUDA tensors -> (d_value in the value's dtype, d_loc, d_aw). The
+    kernel writes every d_value element once; its d_value pass takes an int32
+    workspace of the words the library asks for."""
+    grad_out = grad_out.to(value.dtype).contiguous()
+    d_value = torch.empty_like(value)
+    d_loc = torch.empty_like(loc)
+    d_aw = torch.empty_like(aw)
+    b, s, q, m, d, n_lvl, p, shapes, bf16 = _shape_args(value, loc, spatial_shapes)
+    lib = _bwd_lib(name, fn_name)
+    words = getattr(lib, f"{fn_name}_workspace")(b, s, q, m, n_lvl, p, shapes)
+    if words < 0:
+        raise ValueError(f"{kernel}: spatial_shapes {spatial_shapes} do not hold {s} tokens")
+    ws = torch.empty(words, dtype=torch.int32, device=value.device)
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, fn_name)(
+            value.data_ptr(), loc.data_ptr(), aw.data_ptr(), grad_out.data_ptr(),
+            d_value.data_ptr(), d_loc.data_ptr(), d_aw.data_ptr(), ws.data_ptr(), words,
+            b, s, q, m, d, n_lvl, p, shapes, bf16, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{kernel} {name} launch failed: CUDA error {err}")
+    return d_value, d_loc, d_aw
+
+
 K1_HEAD_DIM = 32  # the forward kernels' lanes hold eight channels each, the backward's four
 
 
@@ -213,22 +256,12 @@ def _ms_deform_attn_cuda(value, spatial_shapes, loc, aw):
 
 
 def _ms_deform_attn_bwd_cuda(value, spatial_shapes, loc, aw, grad_out):
-    """K1-bwd: d_value (f32 scratch, cast to the value's dtype), d_loc, d_aw."""
-    grad_out = grad_out.to(value.dtype).contiguous()
-    d_value = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
-    d_loc = torch.empty_like(loc)
-    d_aw = torch.empty_like(aw)
-    with torch.cuda.device(value.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib(_K1_BWD, "msda_bwd", 7).msda_bwd(
-            value.data_ptr(), loc.data_ptr(), aw.data_ptr(), grad_out.data_ptr(),
-            d_value.data_ptr(), d_loc.data_ptr(), d_aw.data_ptr(),
-            *_shape_args(value, loc, spatial_shapes), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"K1-bwd ms_deform_attn_bwd launch failed: CUDA error {err}")
+    """K1-bwd: d_value (each element summed in a fixed-point pass, the same
+    in every run), d_loc, d_aw."""
+    out = backward_launch(_K1_BWD, "msda_bwd", "K1-bwd", value, spatial_shapes, loc, aw,
+                          grad_out)
     ms_deform_attn_backward.launches += 1
-    return d_value.to(value.dtype), d_loc, d_aw
+    return out
 
 
 @torch.library.custom_op("richsem_tpu_torch::msda_out", mutates_args=())

@@ -51,7 +51,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from richsem_tpu_torch.ops.ms_deform_attn import (_check, _check_cuda, _check_head_dim, _lib,
-                                                  _shape_args)
+                                                  _shape_args, backward_launch)
 
 _CK_TARGET = 512  # rows per chunk of the dense plain version, as the TPU grid
 
@@ -216,22 +216,12 @@ def _sep_cuda(value, spatial_shapes, loc, aw):
 
 
 def _sep_bwd_cuda(value, spatial_shapes, loc, aw, grad_out):
-    """K3-bwd: d_value (f32 scratch, cast to the value's dtype), d_loc, d_aw."""
-    grad_out = grad_out.to(value.dtype).contiguous()
-    d_value = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
-    d_loc = torch.empty_like(loc)
-    d_aw = torch.empty_like(aw)
-    with torch.cuda.device(value.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib(_K3_BWD, "msda_sep_bwd", 7).msda_sep_bwd(
-            value.data_ptr(), loc.data_ptr(), aw.data_ptr(), grad_out.data_ptr(),
-            d_value.data_ptr(), d_loc.data_ptr(), d_aw.data_ptr(),
-            *_shape_args(value, loc, spatial_shapes), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"K3-bwd ms_deform_attn_sep_bwd launch failed: CUDA error {err}")
+    """K3-bwd: d_value (each element summed in a fixed-point pass, the same
+    in every run, rounded once to the value's dtype), d_loc, d_aw."""
+    out = backward_launch(_K3_BWD, "msda_sep_bwd", "K3-bwd", value, spatial_shapes, loc, aw,
+                          grad_out)
     ms_deform_attn_sep_backward.launches += 1
-    return d_value.to(value.dtype), d_loc, d_aw
+    return out
 
 
 class _SepFn(torch.autograd.Function):

@@ -29,6 +29,7 @@ canvas, by which the normalized boxes are scaled for the RoI crops.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import time
@@ -251,6 +252,21 @@ def make_loss_fn(model, cfg, clip_model=None, world_size: int = 1, dist: Optiona
         return total, losses
 
     return loss_fn
+
+
+@contextlib.contextmanager
+def deterministic_convolutions():
+    """cuDNN's deterministic algorithms (and no benchmark) while the block
+    runs, the caller's settings put back after. cuDNN picks a convolution's
+    algorithms by its shapes, and for some (DETRsegm's at bs1) the weight
+    gradient adds in no fixed order; under this the train step repeats bit
+    for bit on every path."""
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
 
 
 @dataclasses.dataclass
@@ -590,7 +606,11 @@ class TrainStep(_Graphs):
     def body(self, state: TrainState, batch, draws, text_embed=None) -> Dict[str, torch.Tensor]:
         """The device part: the loss and its backward (the FrozenBN tensors'
         gradients too, for the global norm), the optimizer's update, EMA and
-        the metrics."""
+        the metrics, under :func:`deterministic_convolutions`."""
+        with deterministic_convolutions():
+            return self._body(state, batch, draws, text_embed)
+
+    def _body(self, state: TrainState, batch, draws, text_embed=None) -> Dict[str, torch.Tensor]:
         opt = state.optimizer
         opt.zero_grad()
         for b in self.buffers:  # gradients of the frozen tensors enter the global norm

@@ -6,9 +6,11 @@ extent is the whole canvas, ROADMAP F3), and the separable decoder path at
 decoder shapes (box references, unclamped offsets, taps out of bounds).
 
 A test-local emulation of how K1-bwd splits the work (16-query blocks, eight
-lanes a tap with four channels each, the lanes' shuffle tree, every corner
-added to d_value directly) is held against the same VJPs, on F3's canvas too,
-where it must match the exact gather that the TPU kernel's windows miss.
+lanes a tap with four channels each, the lanes' shuffle tree, and d_value
+from the deterministic pass of ``tests/msda_dvalue_pass.py``: the taps listed
+by their top-left corner, each element's terms summed in fixed point) is
+held against the same VJPs, on F3's canvas too, where it must match the
+exact gather that the TPU kernel's windows miss.
 
 Inputs and the upstream gradient are drawn with numpy from fixed seeds and
 handed to both sides. Offsets are skewed off exact integer pixels, where the
@@ -23,6 +25,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+import msda_dvalue_pass as dvalue_pass
 import richsem_tpu.ops.ms_deform_attn_pallas2 as mp2
 from richsem_tpu.models.transformer_utils import encoder_reference_points
 from richsem_tpu.ops.ms_deform_attn import ms_deform_attn as jax_msda
@@ -163,8 +166,12 @@ def _k1_bwd_direct(val, loc, aw, g, shapes, tile=16):
     one (b, m) and ``tile`` queries; eight lanes take a tap, lane k channels
     4k .. 4k + 3. Each lane sums its four channels' products in order, and the
     lanes' sums meet in K1-bwd's shuffle tree (xor 1, then 2, then 4) for d_aw
-    and d_loc; every in-bounds corner adds (aw * g) * w_k straight into
-    d_value, block by block. -> (d_value, d_loc, d_aw, blocks)."""
+    and d_loc; d_value comes from the deterministic pass (the taps listed by
+    key in a shuffled order, each element's terms (w_k * aw) * g summed in
+    fixed point). -> (d_value, d_loc, d_aw, blocks)."""
+    d_value = dvalue_pass.d_value(
+        loc, aw, g, shapes, np.shape(val),
+        order=np.random.default_rng(0).permutation(np.asarray(aw).size))
     val, loc, aw, g = (torch.from_numpy(np.asarray(x, np.float32)) for x in (val, loc, aw, g))
     b_, s_, m_, d_ = val.shape
     q_, p_ = loc.shape[1], loc.shape[4]
@@ -173,7 +180,6 @@ def _k1_bwd_direct(val, loc, aw, g, shapes, tile=16):
     starts = np.concatenate([[0], np.cumsum([h * w for h, w in shapes])])
     gq = g.view(b_, q_, m_, lanes, 4)
     flat = val.reshape(-1, 4)  # rows (b, token, m, lane)
-    d_value = torch.zeros(b_ * s_ * m_ * lanes, 4)
     d_loc, d_aw = torch.zeros_like(loc), torch.zeros_like(aw)
     bi = torch.arange(b_)[:, None, None, None, None]
     mi = torch.arange(m_)[None, None, :, None, None]
@@ -199,14 +205,12 @@ def _k1_bwd_direct(val, loc, aw, g, shapes, tile=16):
             cy = [y0, y0, y0 + 1, y0 + 1]
             wk = [(1 - dy) * (1 - dx), (1 - dy) * dx, dy * (1 - dx), dy * dx]
             gg = gq[:, qs, :, None]  # [B, T, M, 1, 8, 4]
-            v, rows, inb = [], [], []
+            v = []
             for c in range(4):
                 ok = inside & ((cx[c] >= 0) & (cx[c] < w) & (cy[c] >= 0) & (cy[c] < h))[..., None]
                 tok = starts[lvl] + (cy[c].clamp(0, h - 1) * w + cx[c].clamp(0, w - 1)).long()
                 row = ((bi * s_ + tok[..., None]) * m_ + mi) * lanes + ki  # [B, T, M, P, 8]
                 v.append(torch.where(ok[..., None], flat[row], 0.0))
-                rows.append(row)
-                inb.append(ok.expand_as(row))
             s_aw = torch.zeros(v[0].shape[:-1])
             s_x, s_y = torch.zeros_like(s_aw), torch.zeros_like(s_aw)
             for i in range(4):  # a lane's four channels, in order
@@ -220,10 +224,7 @@ def _k1_bwd_direct(val, loc, aw, g, shapes, tile=16):
             d_aw[:, qs, :, lvl] = tree(s_aw)
             d_loc[:, qs, :, lvl, :, 0] = a * tree(s_x) * w
             d_loc[:, qs, :, lvl, :, 1] = a * tree(s_y) * h
-            for c in range(4):
-                add = a[..., None, None] * gg * wk[c]  # (aw * g) * w_k, [B, T, M, P, 8, 4]
-                d_value.index_add_(0, rows[c][inb[c]], add[inb[c]])
-    return d_value.view(b_, s_, m_, d_).numpy(), d_loc.numpy(), d_aw.numpy(), blocks
+    return d_value, d_loc.numpy(), d_aw.numpy(), blocks
 
 
 def _f3_inputs(seed, bound=5.5, d=D):

@@ -23,8 +23,10 @@ read from its clamped address.
   taps 2 r + g in rounds r = 0 .. 7. Each lane sums ``g r_j dhat(y, j)``,
   ``d_r_j V[j, x0]`` and ``d_r_j V[j, x1]`` (``d_r_j = cdt(g hat(y, j))``) over
   its channels, rows first; the 8 lanes meet in three shuffle steps (xor 1, 2,
-  4), and d_value takes ``hxw_i d_r_j`` of every corner in f32 in an order
-  the emulation does not fix (the kernel's atomics fix none either).
+  4); d_value takes ``hxw_i d_r_j`` of every corner in the deterministic
+  pass of ``tests/msda_dvalue_pass.py`` (the taps listed by their top-left
+  corner in a shuffled order, each element's terms summed in fixed point and
+  rounded once).
 
 Tolerances: f32 to 5e-5 of the largest magnitude (``chip_smoke.py`` phase
 8's); bf16 within one bf16 step (2^-7 relative), where an f32 sum taken in
@@ -37,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+import msda_dvalue_pass as dvalue_pass
 from richsem_tpu.ops.ms_deform_attn_sep_pallas import ms_deform_attn_sep_pallas
 from richsem_tpu_torch.ops import ms_deform_attn_sep as port
 
@@ -166,30 +169,26 @@ def _k3_emulated(val, loc, aw, p, bf16):
 
 def _k3_bwd_emulated(val, loc, aw, g, p, bf16):
     """K3-bwd's split -> (d_value, d_loc, d_aw) in f32 (d_value rounded once)."""
-    locr, awr, live, gather, rows, lp, flat, bi, mi = _rows(val, loc, aw, p)
+    locr, awr, live, gather, rows, lp, _, _, _ = _rows(val, loc, aw, p)
     n = live.numel()
     # lane k: channels 4k .. 4k + 3; the spare half-warp loads the last row's g
     gr = _cdt(torch.from_numpy(g).reshape(rows, 8, 4)[torch.arange(n).clamp(max=rows - 1)], bf16)
-    d_flat = torch.zeros_like(flat)
     d_aw = torch.zeros(n, lp)
     d_loc = torch.zeros(n, lp, 2)
-    for t in range(lp):  # each tap's sums are its own; the rounds only order d_value's adds
+    for t in range(lp):  # each tap's sums are its own, whatever the rounds' order
         geo = _geometry(locr, awr, live, t, p, bf16)
         v = [gather(c).reshape(n, 8, 4) for c in geo["corners"]]
         w0, w1 = (f[:, None] for f in geo["hxw"])
         s_y, s_h0, s_h1 = (torch.zeros(n, 8) for _ in range(3))
-        d_r = []
         for j in range(2):
             hy, dy = geo["hy"][j][:, None], geo["dy"][j][:, None]
-            drj = torch.zeros(n, 8, 4)
             for c in range(4):  # a lane's channels in order
                 v0, v1 = v[2 * j][:, :, c], v[2 * j + 1][:, :, c]
                 rj = w0 * v0 + w1 * v1
                 s_y = s_y + (gr[:, :, c] * rj) * dy
-                drj[:, :, c] = _cdt(gr[:, :, c] * hy, bf16)
-                s_h0 = s_h0 + drj[:, :, c] * v0
-                s_h1 = s_h1 + drj[:, :, c] * v1
-            d_r.append(drj.reshape(n, D))
+                d_r = _cdt(gr[:, :, c] * hy, bf16)
+                s_h0 = s_h0 + d_r * v0
+                s_h1 = s_h1 + d_r * v1
 
         def lanes(s):  # group_sum: xor 1, 2, 4
             s = s[:, 0::2] + s[:, 1::2]
@@ -201,14 +200,12 @@ def _k3_bwd_emulated(val, loc, aw, g, p, bf16):
         d_aw[:, t] = s_h0 * hx[0] + s_h1 * hx[1]
         d_loc[:, t, 0] = (s_h0 * dx[0] + s_h1 * dx[1]) * geo["a"] * geo["w"]
         d_loc[:, t, 1] = s_y * geo["h"]
-        for e, tok in enumerate(geo["corners"]):
-            we, he = geo["hxw"][e & 1], geo["hy"][e >> 1]
-            add = (we != 0) & (he != 0)  # the kernel skips an add of 0
-            idx = ((bi * S + tok) * loc.shape[2] + mi)[add]
-            d_flat.index_add_(0, idx, (we[:, None] * d_r[e >> 1])[add])
-    d_value = _cdt(d_flat.reshape(val.shape), bf16)
+    g_cdt = _cdt(torch.from_numpy(np.asarray(g, np.float32)), bf16).numpy()
+    d_value = dvalue_pass.d_value(
+        loc, aw, g_cdt, SHAPES, np.shape(val), kernel="k3", bf16=bf16,
+        order=np.random.default_rng(0).permutation(np.asarray(aw).size))
     # the spare half-warp writes no d_loc or d_aw
-    return d_value, d_loc[:rows].reshape(loc.shape), d_aw[:rows].reshape(aw.shape)
+    return torch.from_numpy(d_value), d_loc[:rows].reshape(loc.shape), d_aw[:rows].reshape(aw.shape)
 
 
 def _bf16_input(val, dtype):

@@ -24,11 +24,15 @@ Phases, each printed as it completes:
    (800 x 1224 in 896 x 1344: valid ratios below 1 that differ by level),
    and ``msda_edge_cases``: F3's 256 x 384 canvas with a 200 x 300 valid
    extent and every offset on the clamp's edge, and 1,100 unclamped decoder
-   queries piled onto four value rows a level; twenty launches at the
-   encoder's and the decoder's shapes, bf16 and f32, with d_value, d_loc and
-   d_aw bit for bit (``repeat_check``); the device time of a call (its tap
-   kernel, the d_value pass's scan, place and gather kernels and the memset
-   of its counts; five profiled calls) at the encoder and the decoder.
+   queries piled onto four value rows a level; in every case and dtype
+   d_value bit for bit equal to the plain fixed-point sum
+   (``ms_deform_attn_dvalue_plain``, on the card), and at the decoder also
+   with an infinity in g (NaN rows, the kernel's bits); twenty launches at
+   the encoder's and the decoder's shapes, bf16 and f32, with d_value, d_loc
+   and d_aw bit for bit (``repeat_check``); the device time of a call and of
+   each of its parts (the tap kernel, the d_value pass's count, shift,
+   scatter and convert kernels and the memset of its counts; five profiled
+   calls) at the encoder, the decoder and the piled case.
 4. K2 (fused encoder tail) against its plain version at N = 49,980 in bf16:
    the output, and the elements of bf16(x) and of the relu masks that differ
    from the plain version's (at most 1e-5 of the masks may flip); the same
@@ -87,9 +91,12 @@ Phases, each printed as it completes:
    3), bf16 and f32; run right after phase 3, on its inputs; five profiled
    calls (the mean device time, ``device_ms``).
 9. K3-bwd against the plain version's explicit backward, same shapes and
-   phase 3's ``msda_edge_cases``; twenty launches at the decoder's shapes,
-   bf16 and f32, bit for bit; the device time of a call (its tap kernel, the
-   d_value pass's kernels and the memset of its counts; five profiled calls).
+   phase 3's ``msda_edge_cases``, with d_value bit for bit equal to the plain
+   fixed-point sum (``ms_deform_attn_sep_dvalue_plain``) in every case and
+   dtype, and with an infinity in g at the decoder; twenty launches at the
+   decoder's shapes, bf16 and f32, bit for bit; the device time of a call
+   and of each of its parts (five profiled calls) at the decoder and the
+   piled case.
 10. The flagship train step (``richsem_4scale_lvis.py``: the CLIP-text
     classifier, a random-weight bf16 CLIP-RN50 teacher and a random
     1204 x 1024 text bank as ``bench.py:114-126`` builds them, distillation
@@ -311,6 +318,7 @@ Phases, each printed as it completes:
 
 ``python3 chip_smoke.py kernels`` stops after the kernel phases (1-5, 8, 9, 12,
 15 on its random cases, 16 and K7 on its constructed cases).
+``python3 chip_smoke.py bwd`` runs phase 1, then phases 3 and 9 only.
 ``python3 chip_smoke.py k7`` runs phase 1, then phase 21's eval part only (the
 eval graph and ``phase_k7`` on the eval's own boxes; ~30 s).
 ``python3 chip_smoke.py masks`` runs phase 1, then phase 25 only.
@@ -334,9 +342,12 @@ and decoder, bf16), K3 and K3-bwd (the decoder, bf16), K1-bwd (encoder and
 decoder), K2 and K2-bwd (N = 49,980), the CUDA-event time of a call and the
 kernels' device time from ``profile_once`` (mean over 5 calls); for K1-bwd
 and K3-bwd the tap kernel's device time, the wrapper's zeroed f32 d_value
-and its cast where a tree has them, and the device time of every operation
-of a call (``all``); and a SHA-256 prefix of the outputs of K1 (both
-cases), K3, K3-bwd, K1-bwd (both), K2 and K2-bwd. It
+and its cast where a tree has them, the device time of every operation of a
+call (``all``) and of each part of the d_value pass the tree has
+(``PASS_OPS``); and a SHA-256 prefix of the outputs of K1 (both cases), K3,
+K3-bwd, K1-bwd (both), K2 and K2-bwd, and of each of K1-bwd's and K3-bwd's
+three outputs apart. ``python3 chip_smoke.py ab DIR msda`` stops after
+K1-bwd. It
 then does the same for the probe kernels redesigned for Hopper,
 ``mxu_kernel`` at run_mxu's four shapes, ``fma_kernel`` at fma-1, 2, 4,
 4-2acc and 4-chunk (event and device time, the bound, an output hash),
@@ -629,13 +640,12 @@ MEMSET_OPS = {"memset": "Memset"}  # the d_value pass's zeroed counts
 
 
 def bwd_kernels(sep: bool):
-    """The __global__ functions of K1-bwd or K3-bwd: the tap kernel, the d_value
-    pass's scan and place kernels, the gather."""
+    """The __global__ functions of K1-bwd or K3-bwd: the d_value pass's count
+    and shift kernels, the tap kernel (which adds the d_value terms), the
+    convert kernel."""
     from richsem_tpu_torch.utils.profiling import DVALUE_PASS
 
-    if sep:
-        return ("msda_sep_bwd_kernel", *DVALUE_PASS, "msda_sep_bwd_gather_kernel")
-    return ("msda_bwd_kernel", *DVALUE_PASS, "msda_bwd_gather_kernel")
+    return ("msda_sep_bwd_kernel" if sep else "msda_bwd_kernel", *DVALUE_PASS)
 
 
 def bwd_device_ms(fn, sep: bool):
@@ -643,6 +653,46 @@ def bwd_device_ms(fn, sep: bool):
     of its counts; {operation: ms}), from five profiled calls."""
     dev = device_ms(fn, bwd_kernels(sep), also=MEMSET_OPS)
     return total_ms(dev), dev
+
+
+def same_bits(a, b) -> bool:
+    """Whether two tensors of one dtype hold the same bits (NaNs included)."""
+    import torch
+
+    ints = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(ints), b.view(ints))
+
+
+def dvalue_check(tag, d_value, oracle):
+    """A backward kernel's d_value against the fixed-point oracle of its wrapper
+    module (``ms_deform_attn_dvalue_plain``, ``ms_deform_attn_sep_dvalue_plain``)
+    on the same inputs: bit for bit."""
+    import torch
+
+    same = same_bits(d_value, oracle)
+    if not same:
+        ints = {4: torch.int32, 2: torch.int16}[d_value.element_size()]
+        n = int((d_value.view(ints) != oracle.view(ints)).sum())
+    print(f"  {tag} d_value bit for bit equal to the fixed-point oracle: {same}"
+          + ("" if same else f" ({n} elements differ)"), flush=True)
+    if not same:
+        fail(f"{tag}: d_value differs from the fixed-point oracle")
+
+
+def nonfinite_check(tag, bwd, oracle, args):
+    """A g with one infinity: every d_value row that a term reaches is NaN, with
+    the oracle's bits."""
+    import torch
+
+    v, shapes, loc, aw, grad = args
+    grad = grad.clone()
+    grad.view(-1)[0] = float("inf")
+    want = oracle(v, shapes, loc, aw, grad)
+    n_nan = int(torch.isnan(want.float()).sum())
+    if not n_nan:
+        fail(f"{tag}: the oracle gives no NaN for a g with an infinity")
+    dvalue_check(f"{tag} (g with an infinity: {n_nan} NaNs)", bwd(v, shapes, loc, aw, grad)[0],
+                 want)
 
 
 def repeat_check(tag, fn, n=N_REPEAT):
@@ -736,6 +786,10 @@ def phase_k1_bwd(value, cases):
             out = kernel()
             torch.cuda.synchronize()
             tag = f"K1-bwd {case} Q={q} {str(dtype)[6:]}"
+            dvalue_check(tag, out[0], k1.ms_deform_attn_dvalue_plain(v, shapes, loc, aw, grad))
+            if case == "decoder":
+                nonfinite_check(tag, k1.ms_deform_attn_backward, k1.ms_deform_attn_dvalue_plain,
+                                (v, shapes, loc, aw, grad))
             # f32: each d_value element is the fixed-point sum of its terms, near
             # exact, where autograd adds them in f32 in its order, and the lane
             # sums of d_loc and d_aw run in another order: a few ulps of each
@@ -747,6 +801,12 @@ def phase_k1_bwd(value, cases):
                 errs.append(compare_rel(f"{tag} {name}", o, r, rel))
             if case in ("encoder", "decoder"):
                 repeat_check(tag, kernel)
+            if dtype == torch.bfloat16 and case == "piled decoder":
+                # every red of a level on four rows' integers: timed, no target
+                dev_ms, split = bwd_device_ms(kernel, sep=False)
+                rec["piled_device_ms"] = dev_ms
+                print(f"  {tag}: device {dev_ms} ms a call: "
+                      + ", ".join(f"{k} {v_}" for k, v_ in split.items()), flush=True)
             if dtype == torch.bfloat16 and case in ("encoder", "decoder", "encoder_valid"):
                 ms = cuda_ms(kernel)
                 plain_ms = cuda_ms(plain, iters=3, warmup=1)
@@ -866,7 +926,16 @@ def phase_k3_bwd(value, loc, aw):
             torch.cuda.synchronize()
             for name, o, r in zip(("d_value", "d_loc", "d_aw"), out, ref):
                 errs.append(compare_rel(f"K3-bwd {tag} {name}", o, r, rel))
+            dvalue_check(f"K3-bwd {tag}", out[0], k3.ms_deform_attn_sep_dvalue_plain(*args))
+            if tag.startswith("piled") and dtype == torch.bfloat16:
+                dev_ms, split = bwd_device_ms(lambda: k3.ms_deform_attn_sep_backward(*args),
+                                              sep=True)
+                rec["piled_device_ms"] = dev_ms
+                print(f"  K3-bwd {tag}: device {dev_ms} ms a call: "
+                      + ", ".join(f"{k} {v_}" for k, v_ in split.items()), flush=True)
         tag = f"K3-bwd decoder Q={q} {str(dtype)[6:]}"
+        nonfinite_check(tag, k3.ms_deform_attn_sep_backward, k3.ms_deform_attn_sep_dvalue_plain,
+                        (v, SHAPES, loc, aw, grad))
 
         def kernel():
             return k3.ms_deform_attn_sep_backward(v, SHAPES, loc, aw, grad)
@@ -3528,10 +3597,17 @@ def measured_sum(dev: dict):
 
 
 ALL_OPS = {"all": ""}  # device_ms's ``also``: every device operation of the call
+# the parts of the d_value pass of K1-bwd and K3-bwd, in this tree (count,
+# shift, scatter, convert) or in an earlier one (scans, place, gather), and
+# the memset of the counts
+PASS_OPS = {"count": "dvalue_count", "shift": "dvalue_shift", "scatter": "dvalue_scatter",
+            "convert": "dvalue_convert", "scan": "dvalue_scan", "place": "dvalue_place",
+            "gather": "_gather_kernel", "memset": "Memset"}
 
 
-def phase_ab(root: str) -> None:
-    """The ``ab`` subcommand: the model's kernels of the port in ``root``."""
+def phase_ab(root: str, msda_only: bool = False) -> None:
+    """The ``ab`` subcommand: the model's kernels of the port in ``root`` (only
+    K1, K3, K3-bwd and K1-bwd where ``msda_only``)."""
     import hashlib
 
     import torch
@@ -3575,17 +3651,19 @@ def phase_ab(root: str) -> None:
     rec["k3_device_ms"] = total_ms(device_ms(fn, ["msda_sep_fwd_kernel"]))
     rec["k3_sha"] = digest([fn()])
     # K1-bwd and K3-bwd: the tap kernel alone, the wrapper's zeroed f32 d_value
-    # and its cast where a tree has them, and every device operation of a call
-    # ("all": since the deterministic d_value pass, its scan, place and gather
-    # kernels and its zeroed counts too)
-    bwd_ops = dict(ALL_OPS, **SCRATCH_OPS)
+    # and its cast where a tree has them, every device operation of a call
+    # ("all"), and each part of the d_value pass a tree has (PASS_OPS)
+    bwd_ops = dict(ALL_OPS, **SCRATCH_OPS, **PASS_OPS)
     fn = lambda: k3.ms_deform_attn_sep_backward(v, SHAPES, loc, aw, grad)  # noqa: E731
     rec["k3_bwd_ms"] = cuda_ms(fn, iters=10)
     dev = device_ms(fn, ["msda_sep_bwd_kernel"], also=bwd_ops)
     for key, op in (("device", "msda_sep_bwd_kernel"), ("zero_device", "zero"),
-                    ("cast_device", "cast"), ("all_device", "all")):
+                    ("cast_device", "cast"), ("all_device", "all"),
+                    *((f"{p}_device", p) for p in PASS_OPS)):
         rec[f"k3_bwd_{key}_ms"] = dev[op]
     rec["k3_bwd_sha"] = digest(fn())
+    for name, t in zip(("d_value", "d_loc", "d_aw"), fn()):
+        rec[f"k3_bwd_{name}_sha"] = digest([t])
     for case, seed in (("encoder", 3), ("decoder", 3)):
         loc, aw = cases[case]
         grad = torch.randn((v.shape[0], loc.shape[1], 256),
@@ -3596,7 +3674,14 @@ def phase_ab(root: str) -> None:
         dev = device_ms(fn, ["msda_bwd_kernel"], also=bwd_ops)
         rec[f"k1_bwd_{case}_device_ms"] = dev["msda_bwd_kernel"]
         rec[f"k1_bwd_{case}_all_device_ms"] = dev["all"]
+        for p in PASS_OPS:
+            rec[f"k1_bwd_{case}_{p}_device_ms"] = dev[p]
         rec[f"k1_bwd_{case}_sha"] = digest(fn())
+        for name, t in zip(("d_value", "d_loc", "d_aw"), fn()):
+            rec[f"k1_bwd_{case}_{name}_sha"] = digest([t])
+    if msda_only:
+        print(json.dumps(rec), flush=True)
+        return
     del value, cases, v, loc, aw, grad
     args, dy = k2_args()
     fn = lambda: k2.encoder_tail(*args)  # noqa: E731
@@ -5168,7 +5253,7 @@ def main() -> None:
     if sys.argv[1:2] == ["ab"]:
         root = os.path.abspath(sys.argv[2] if len(sys.argv) > 2 else ROOT)
         sys.path.insert(0, root)
-        phase_ab(root)
+        phase_ab(root, msda_only=sys.argv[3:4] == ["msda"])
         return
     sys.path.insert(0, ROOT)
     t0 = time.perf_counter()
@@ -5186,6 +5271,11 @@ def main() -> None:
         print(f"total {time.perf_counter() - t0:.1f} s")
         return
     value, cases = k1_cases()
+    if sys.argv[1:] == ["bwd"]:
+        phase_k1_bwd(value, cases)
+        phase_k3_bwd(value, *cases["decoder"])
+        print(f"total {time.perf_counter() - t0:.1f} s")
+        return
     k1_rec = phase_k1(value, cases)
     k1b_rec = phase_k1_bwd(value, cases)
     k3_rec = phase_k3(value, *cases["decoder"])

@@ -30,25 +30,31 @@
 //
 // What bounds it. At the encoder shapes (B2, Q = S = 24,990, M8, L4, P4, D32)
 // a call has 6.40 M taps, i.e. 25.6 M corner rows of 32 channels to gather
-// for the tap's sums and to add into d_value (819 M f32 terms), nearly all in
-// L2 (value and g are 25.6 MB each in bf16). Each tap is a dependent chain
-// (location -> corner addresses -> four row reads -> products), so the kernel
-// is bound by how many taps are in flight and by L2 traffic, far from the
-// bytes bound of the call's inputs and outputs.
+// for the tap's sums and to add into d_value (819 M terms), nearly all in L2
+// (value and g are 25.6 MB each in bf16). Each tap is a dependent chain
+// (location -> corner addresses -> four row reads -> products), so the tap
+// kernel is bound by how many taps are in flight and by L2 traffic, far from
+// the bytes bound of the call's inputs and outputs; the d_value pass
+// (msda_dvalue.cuh) by its 64-bit fixed-point terms, one conversion each, and
+// by the reds of the rows' sums.
 //
 // Design. msda_bwd_kernel: a block serves one (b, m) and kTile = 16 queries.
 // Eight lanes serve one tap, four channels a lane (8- or 16-byte loads), so a
 // warp takes four taps at once and reduces d_aw and d_loc over 8 lanes (3
-// shuffles each, a fixed tree); the tap's first lane writes them, its key and
-// its count (msda_dvalue.cuh, step 1).
+// shuffles each, a fixed tree); the tap's first lane writes them. It writes
+// nothing for d_value.
 //
-// d_value is summed in msda_dvalue.cuh's deterministic pass: the taps are
-// listed by the corner they start from, and msda_bwd_gather_kernel gives each
-// value row a warp that adds its terms, a * w_k * g[c] from the four lists
-// that reach it, in fixed point, so that two calls on the same inputs give
-// the same d_value bit for bit (the TPU kernel adds in a fixed order too,
-// into per-tile windows). An earlier design's float4 atomic adds into an f32
-// d_value changed their order from run to run; a windowed design (a counting
+// d_value is summed in msda_dvalue.cuh's deterministic pass, with this file's
+// Term: a count kernel gives each value row its fixed-point shift, and a
+// scatter kernel sums each row's terms, (w_k * a) * g[c] times 2^k rounded to
+// an integer, by tiles of 8 x 8 encoder queries in shared memory and adds the
+// sums into the row's 64-bit integers with red.global.add.u64. Integer sums
+// are the same in every order, so two calls on the same inputs give the same
+// d_value bit for bit (the TPU kernel adds in a fixed order too, into
+// per-tile windows), and the same bits as a pass that lists the taps by
+// corner and gathers each row's terms. Float4 atomic adds into an f32 d_value
+// changed their order from run to run; a red a term from this kernel (819 M
+// at the encoder) cost more than the kernel; a windowed design (a counting
 // sort of a block's corners by pixel, 64-query tiles) took twice as long.
 
 #include <cuda_runtime.h>
@@ -66,14 +72,54 @@ constexpr int kThreads = 256;
 constexpr int kGroups = kThreads / kLanes;
 constexpr int kTile = 16;       // queries a block
 
+// A d_value term of K1-bwd: (w_e * a) * g[c], as the plain version's autograd
+// forms it; the tap's factors are (w_0 a, w_1 a, w_2 a, w_3 a).
+struct Term {
+  static constexpr bool kAllRows = false;  // max|g| over the rows with a keyed tap
+  static constexpr int kScatterBlocks = 4;  // scatter blocks an SM (msda_dvalue.cuh)
+  __device__ __forceinline__ static float factor(float w, float a) { return __fmul_rn(w, a); }
+  __device__ __forceinline__ static float term(float f, float, float g) { return __fmul_rn(g, f); }
+  // A keyed tap's top-left corner and bound, at least |w_e a| for every
+  // corner, so that max|g| times it bounds the terms; false for a tap with no
+  // corner in its level.
+  __device__ __forceinline__ static bool tap(float2 xy, float a, int l, const Levels& lv,
+                                             int& x0, int& y0, float& bound) {
+    const int h = lv.h[l], w = lv.w[l];
+    const float x = pixel(xy.x, w), y = pixel(xy.y, h);
+    if (!inside(x, y, h, w)) return false;
+    const Corners cr = corners(x, y, h, w);
+    x0 = cr.x0;
+    y0 = cr.y0;
+    bound = fmaxf(fmaxf(fabsf(factor(cr.wk[0], a)), fabsf(factor(cr.wk[1], a))),
+                  fmaxf(fabsf(factor(cr.wk[2], a)), fabsf(factor(cr.wk[3], a))));
+    return true;
+  }
+  // A tap's entries: each in-level corner e whose factor is not 0 (a term of
+  // 0 adds nothing), its token s[e] and factor f1[e]. -> their mask.
+  __device__ __forceinline__ static int entries(float2 xy, float a, int l, const Levels& lv,
+                                                int (&s)[4], float (&f1)[4], float (&f2)[4]) {
+    const int h = lv.h[l], w = lv.w[l];
+    const float x = pixel(xy.x, w), y = pixel(xy.y, h);
+    if (!inside(x, y, h, w)) return 0;
+    const Corners cr = corners(x, y, h, w);
+    int mask = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      f1[e] = factor(cr.wk[e], a);
+      f2[e] = 0.f;
+      s[e] = static_cast<int>(lv.start[l]) + (cr.y0 + (e >> 1)) * w + cr.x0 + (e & 1);
+      if (cr.in[e] && f1[e] != 0.f) mask |= 1 << e;
+    }
+    return mask;
+  }
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
                 const float* __restrict__ aw, const T* __restrict__ grad,
-                float* __restrict__ d_loc, float* __restrict__ d_aw, float4* __restrict__ factors,
-                int* __restrict__ keys, int* __restrict__ counts, unsigned* __restrict__ maxima,
-                int S, int Q, int M, int P, Levels lv,
-                const __grid_constant__ ExtLevels ex) {
+                float* __restrict__ d_loc, float* __restrict__ d_aw, int S, int Q, int M, int P,
+                Levels lv) {
   const int tid = threadIdx.x;
   const int b = blockIdx.y / M;
   const int m = blockIdx.y % M;
@@ -85,7 +131,6 @@ msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
   // Eight lanes a tap, channels 4k .. 4k + 3 on lane k; the four taps of a warp
   // run the loop together (group_sum below).
   const int k = tid % kLanes;
-  unsigned g_bits = 0;  // this thread's largest |g|, for the d_value pass
   for (int t = tid / kLanes; t < n_taps; t += kGroups) {
     const int q = blockIdx.x * kTile + t / lp_n;
     const bool live = q < Q;
@@ -102,13 +147,9 @@ msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
       a = aw[tap];
     }
     float s_aw = 0.f, s_x = 0.f, s_y = 0.f;
-    int key = -1;
-    float4 fac = make_float4(0.f, 0.f, 0.f, 0.f);  // the corners' factors w_k * a
     if (live && inside(x, y, h, w)) {  // else every corner is out
       float g[4];
       load4(grad + ((static_cast<long long>(b) * Q + q) * M + m) * kD + 4 * k, g);
-      g_bits = max(max(g_bits, max(abs_bits(g[0]), abs_bits(g[1]))),
-                   max(abs_bits(g[2]), abs_bits(g[3])));
       const Corners cr = corners(x, y, h, w);
       const float dx = cr.dx, dy = cr.dy;
       const bool(&in)[4] = cr.in;
@@ -132,9 +173,6 @@ msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
         s_x += g[i] * ((1.f - dy) * (v[1][i] - v[0][i]) + dy * (v[3][i] - v[2][i]));
         s_y += g[i] * ((1.f - dx) * (v[2][i] - v[0][i]) + dx * (v[3][i] - v[1][i]));
       }
-      key = dv_key(b, m, M, l, cr.x0, cr.y0, lv, ex);
-      fac = make_float4(__fmul_rn(wk[0], a), __fmul_rn(wk[1], a), __fmul_rn(wk[2], a),
-                        __fmul_rn(wk[3], a));
     }
     s_aw = group_sum(s_aw);
     s_x = group_sum(s_x);
@@ -143,45 +181,8 @@ msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
       d_aw[tap] = s_aw;
       d_loc[2 * tap] = a * s_x * w;
       d_loc[2 * tap + 1] = a * s_y * h;
-      keys[tap] = key;
-      if (key >= 0) {
-        factors[tap] = fac;
-        atomicAdd(counts + key, 1);  // a count: the same in every order
-      }
     }
   }
-  dv_block_max<kThreads>(g_bits, maxima);
-}
-
-// A d_value term of K1-bwd: (w_e * a) * g[c], as the plain version's autograd
-// forms it; the tap's factors are (w_0 a, w_1 a, w_2 a, w_3 a).
-struct GatherTerm {
-  __device__ __forceinline__ static void pick(float4 f, int e, float& w1, float& w2) {
-    w1 = e == 0 ? f.x : e == 1 ? f.y : e == 2 ? f.z : f.w;
-    w2 = 0.f;
-  }
-  // at least |w_e a| for every corner, so max|g| times it bounds the terms
-  __device__ __forceinline__ static float bound(float4 f) {
-    return fmaxf(fmaxf(fabsf(f.x), fabsf(f.y)), fmaxf(fabsf(f.z), fabsf(f.w)));
-  }
-  __device__ __forceinline__ static float term(float w1, float, float g) {
-    return __fmul_rn(g, w1);
-  }
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kGatherThreads, kGatherBlocks)
-msda_bwd_gather_kernel(const T* __restrict__ grad, T* __restrict__ d_value,
-                       const int* __restrict__ offsets, const int* __restrict__ list,
-                       const float4* __restrict__ factors, const unsigned* __restrict__ maxima,
-                       long long n_rows, int B, int S, int M, int lp_n,
-                       const __grid_constant__ Levels lv,
-                       const __grid_constant__ ExtLevels ex) {
-  const long long i0 =
-      ((static_cast<long long>(blockIdx.x) * kGatherThreads + threadIdx.x) >> 5) * kRowsPerWarp;
-  if (i0 >= n_rows) return;  // uniform across the warp
-  dv_gather_warp<T, GatherTerm>(i0, n_rows, B, offsets, list, factors, maxima, lp_n, grad,
-                            d_value, S, M, lv, ex);
 }
 
 template <typename T>
@@ -192,28 +193,26 @@ int launch(const void* value, const void* loc, const void* aw, const void* grad,
   if (D != kD || B * M > 65535 || !make_levels(lv, L, shapes, S))
     return static_cast<int>(cudaErrorInvalidValue);
   const ExtLevels ex = make_ext(lv);
-  const long long n_taps = static_cast<long long>(B) * Q * M * L * P;
+  const long long n_rows = static_cast<long long>(B) * S * M;
   const long long n_keys = B * ex.total * M;
   DvPlan plan;
-  if (!make_plan(plan, ws, n_taps, n_keys) || ws_words < dv_words(n_taps, n_keys))
+  if (!make_plan(plan, ws, n_rows, n_keys) || ws_words < dv_words(n_rows, n_keys))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long n_rows = static_cast<long long>(B) * S * M;
   if (n_rows == 0) return static_cast<int>(cudaSuccess);
-  cudaError_t err = dv_zero(plan, stream);
+  cudaError_t err = dv_prepare<T, Term>(plan, static_cast<const float*>(loc),
+                                        static_cast<const float*>(aw), static_cast<const T*>(grad),
+                                        B, S, Q, M, P, lv, ex, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_taps > 0)
+  if (Q > 0) {
     msda_bwd_kernel<T><<<dim3((Q + kTile - 1) / kTile, B * M), kThreads, 0, stream>>>(
         static_cast<const T*>(value), static_cast<const float*>(loc),
         static_cast<const float*>(aw), static_cast<const T*>(grad),
-        static_cast<float*>(d_loc), static_cast<float*>(d_aw), plan.factors, plan.keys,
-        plan.offsets, plan.maxima, S, Q, M, P, lv, ex);
-  dv_scan_and_place<GatherTerm>(plan, stream);
-  const long long warps = (n_rows + kRowsPerWarp - 1) / kRowsPerWarp;
-  const unsigned gather_blocks =
-      static_cast<unsigned>((warps * 32 + kGatherThreads - 1) / kGatherThreads);
-  msda_bwd_gather_kernel<T><<<gather_blocks, kGatherThreads, 0, stream>>>(
-      static_cast<const T*>(grad), static_cast<T*>(d_value), plan.offsets, plan.list,
-      plan.factors, plan.maxima, n_rows, B, S, M, L * P, lv, ex);
+        static_cast<float*>(d_loc), static_cast<float*>(d_aw), S, Q, M, P, lv);
+    err = dv_scatter<T, Term>(plan, static_cast<const float*>(loc), static_cast<const float*>(aw),
+                              static_cast<const T*>(grad), B, S, Q, M, P, lv, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  dv_convert<T>(plan, static_cast<T*>(d_value), stream);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -224,7 +223,7 @@ extern "C" long long msda_bwd_workspace(int B, int S, int Q, int M, int L, int P
                                         const int* shapes) {
   Levels lv;
   if (!make_levels(lv, L, shapes, S)) return -1;
-  return dv_words(static_cast<long long>(B) * Q * M * L * P, B * make_ext(lv).total * M);
+  return dv_words(static_cast<long long>(B) * S * M, B * make_ext(lv).total * M);
 }
 
 // shapes: host array of L (h, w) pairs; D must be 32; ws: msda_bwd_workspace()

@@ -30,14 +30,17 @@
 // What bounds it on the card: at the decoder's shapes (B2, Q = 1,100, M8, L4,
 // P4) device memory moves value, loc, aw and g once and d_value, d_loc and d_aw
 // once, 59 MB (d_value counted in the value's dtype, as the call returns it),
-// against 281,600 taps of four gathered corner rows, nearly all in L2, and
-// the d_value pass over every value row, most of which no decoder tap reaches.
+// against 281,600 taps of four gathered corner rows, nearly all in L2, and the
+// d_value pass over every value row: the rows' 64-bit integers zeroed, added
+// into and read, 102 MB each way, and 36 M fixed-point terms, whose rows the
+// decoder's queries share little, so that nearly every term's row takes its
+// own 64-bit reds.
 //
 // Design (K1-bwd's lanes, ms_deform_attn_bwd.cu, with K3's geometry):
 // - A warp serves two (b, q, m) rows, one per half-warp, in row-major order.
 //   When the rows are odd in number, the last warp's spare half-warp reads
 //   the last row's addresses with every tap zeroed, so it adds nothing, and
-//   writes no d_aw, d_loc or key.
+//   writes no d_aw or d_loc.
 // - The lane that loads a tap computes its geometry once (msda_common.cuh:
 //   sep_tap, as K3 does) and keeps hx_i, dhat(x, i) and aw for the tap's
 //   outputs. Every factor of an out-of-range corner or tap is 0: hy, dhat(y,
@@ -51,12 +54,11 @@
 // - The three sums are reduced over the 8 lanes (3 shuffle steps each), and
 //   the lane that loaded the tap takes them and writes d_aw and d_loc:
 //   coalesced, one row's taps by one half-warp.
-// - The lane that loads a tap writes its key and its count
-//   (msda_dvalue.cuh, step 1), and d_value is summed in that header's
-//   deterministic pass: msda_sep_bwd_gather_kernel gives each value row a
-//   warp that adds the terms hxw_i * d_r_j of the taps that reach it, in
-//   fixed point, so that two calls on the same inputs give the same d_value
-//   bit for bit, as the TPU kernel, which adds over its grid in program order.
+// - d_value is summed in msda_dvalue.cuh's deterministic pass with this
+//   file's Term: the terms hxw_i * d_r_j of each in-range corner, in fixed
+//   point, summed by row and added into the rows' 64-bit integers, so that
+//   two calls on the same inputs give the same d_value bit for bit, as the
+//   TPU kernel, which adds over its grid in program order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -74,15 +76,57 @@ constexpr int kGroups = 16 / kLanes;   // lane groups a row (a half-warp): 2
 constexpr int kRounds = 16 / kGroups;  // taps a group takes from a 16-tap chunk: 8
 constexpr int kBatch = 2;              // taps whose loads are issued together
 
+// A d_value term of K3-bwd: hxw_i * cdt(g[c] * hy_j) for corner e = (i, j) =
+// (e & 1, e >> 1), with the factors of msda_common.cuh:sep_tap.
+template <typename T>
+struct Term {
+  static constexpr bool kAllRows = true;  // max|g| over every row
+  static constexpr int kScatterBlocks = 3;  // scatter blocks an SM (msda_dvalue.cuh)
+  __device__ __forceinline__ static float term(float hxw, float hy, float g) {
+    return __fmul_rn(hxw, round_cdt<T>(__fmul_rn(g, hy)));
+  }
+  // A keyed tap's top-left corner and bound, at least |hxw_i| |hy_j| for
+  // every corner, so that max|g| times it bounds the terms but for the
+  // rounding of cdt(g * hy_j); false for a tap with no corner in its level.
+  __device__ __forceinline__ static bool tap(float2 xy, float a, int l, const Levels& lv,
+                                             int& x0, int& y0, float& bound) {
+    const float x = pixel(xy.x, lv.w[l]), y = pixel(xy.y, lv.h[l]);
+    if (!inside(x, y, lv.h[l], lv.w[l])) return false;
+    const SepTap t = sep_tap<T>(xy, a, l, lv);
+    x0 = static_cast<int>(floorf(x));
+    y0 = static_cast<int>(floorf(y));
+    bound = fmaxf(fabsf(t.hxw[0]), fabsf(t.hxw[1])) * fmaxf(fabsf(t.hy[0]), fabsf(t.hy[1]));
+    return true;
+  }
+  // A tap's entries: each in-range corner e = (i, j) whose factors hxw_i and
+  // hy_j are not 0 (a term of 0 adds nothing), its token s[e] and factors.
+  // -> their mask.
+  __device__ __forceinline__ static int entries(float2 xy, float a, int l, const Levels& lv,
+                                                int (&s)[4], float (&f1)[4], float (&f2)[4]) {
+    const int h = lv.h[l], w = lv.w[l];
+    const float x = pixel(xy.x, w), y = pixel(xy.y, h);
+    if (!inside(x, y, h, w)) return 0;
+    const SepTap t = sep_tap<T>(xy, a, l, lv);
+    const int x0 = static_cast<int>(floorf(x)), y0 = static_cast<int>(floorf(y));
+    int mask = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int cx = x0 + (e & 1), cy = y0 + (e >> 1);
+      f1[e] = t.hxw[e & 1];
+      f2[e] = t.hy[e >> 1];
+      s[e] = static_cast<int>(lv.start[l]) + cy * w + cx;
+      if (cx >= 0 && cx < w && cy >= 0 && cy < h && f1[e] != 0.f && f2[e] != 0.f) mask |= 1 << e;
+    }
+    return mask;
+  }
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 msda_sep_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
                     const float* __restrict__ aw, const T* __restrict__ grad,
-                    float* __restrict__ d_loc, float* __restrict__ d_aw,
-                    float4* __restrict__ factors, int* __restrict__ keys,
-                    int* __restrict__ counts, unsigned* __restrict__ maxima, long long n_rows,
-                    int S, int Q, int M, int P, Levels lv,
-                    const __grid_constant__ ExtLevels ex) {
+                    float* __restrict__ d_loc, float* __restrict__ d_aw, long long n_rows,
+                    int S, int Q, int M, int P, Levels lv) {
   static_assert(kRounds % kBatch == 0, "batches split the rounds");
   const int lane = threadIdx.x & 31;
   const long long warp = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
@@ -99,30 +143,21 @@ msda_sep_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
 
   float g[4];
   load4(grad + r * kD + 4 * k, g);
-  // the call's largest |g|, for the d_value pass
-  dv_warp_max(live ? max(max(abs_bits(g[0]), abs_bits(g[1])), max(abs_bits(g[2]), abs_bits(g[3])))
-                   : 0u,
-              maxima);
 
   for (int t0 = 0; t0 < lp_n; t0 += 16) {
     // Lane l loads tap t0 + (l & 15) of its row and computes its geometry
     // (msda_common.cuh:sep_tap), keeping hat(x, i), dhat(x, i) and aw for the
-    // tap's outputs, and its key. A tap past the row's taps, or of a spare
-    // half-warp, keeps token 0, zero factors and no key, so it adds nothing.
+    // tap's outputs. A tap past the row's taps, or of a spare half-warp, keeps
+    // token 0 and zero factors, so it adds nothing.
     const int tl = t0 + hl;
     const bool mine = live && tl < lp_n;
     SepTap tap;
     float a = 0.f;
-    int key = -1;
     if (mine) {
       a = aw[r * lp_n + tl];
       const float2 xy = *reinterpret_cast<const float2*>(loc + (r * lp_n + tl) * 2);
       const int l = tl / P;
       tap = sep_tap<T>(xy, a, l, lv);
-      const float x = pixel(xy.x, lv.w[l]), y = pixel(xy.y, lv.h[l]);
-      if (inside(x, y, lv.h[l], lv.w[l]))
-        key = dv_key(b, m, M, l, static_cast<int>(floorf(x)), static_cast<int>(floorf(y)), lv,
-                     ex);
     }
     float my_y = 0.f, my_h0 = 0.f, my_h1 = 0.f;  // this lane's tap's three sums
 #pragma unroll
@@ -184,47 +219,8 @@ msda_sep_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
       *reinterpret_cast<float2*>(d_loc + 2 * at) =
           make_float2((my_h0 * tap.dx[0] + my_h1 * tap.dx[1]) * a * static_cast<float>(lv.w[l]),
                       my_y * static_cast<float>(lv.h[l]));
-      keys[at] = key;
-      if (key >= 0) {
-        factors[at] = make_float4(tap.hxw[0], tap.hxw[1], tap.hy[0], tap.hy[1]);
-        atomicAdd(counts + key, 1);  // a count: the same in every order
-      }
     }
   }
-}
-
-// A d_value term of K3-bwd: hxw_i * cdt(g[c] * hy_j) for corner e = (i, j) =
-// (e & 1, e >> 1); the tap's factors are (hxw_0, hxw_1, hy_0, hy_1), those
-// of msda_common.cuh:sep_tap.
-template <typename T>
-struct GatherTerm {
-  __device__ __forceinline__ static void pick(float4 f, int e, float& w1, float& w2) {
-    w1 = (e & 1) ? f.y : f.x;
-    w2 = (e >> 1) ? f.w : f.z;
-  }
-  // at least |hxw_i| |hy_j| for every corner; max|g| times it bounds the terms
-  // but for the rounding of cdt(g * hy_j)
-  __device__ __forceinline__ static float bound(float4 f) {
-    return fmaxf(fabsf(f.x), fabsf(f.y)) * fmaxf(fabsf(f.z), fabsf(f.w));
-  }
-  __device__ __forceinline__ static float term(float w1, float w2, float g) {
-    return __fmul_rn(w1, round_cdt<T>(__fmul_rn(g, w2)));
-  }
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kGatherThreads, kGatherBlocks)
-msda_sep_bwd_gather_kernel(const T* __restrict__ grad, T* __restrict__ d_value,
-                           const int* __restrict__ offsets, const int* __restrict__ list,
-                           const float4* __restrict__ factors, const unsigned* __restrict__ maxima,
-                           long long n_rows, int B, int S, int M, int lp_n,
-                           const __grid_constant__ Levels lv,
-                           const __grid_constant__ ExtLevels ex) {
-  const long long i0 =
-      ((static_cast<long long>(blockIdx.x) * kGatherThreads + threadIdx.x) >> 5) * kRowsPerWarp;
-  if (i0 >= n_rows) return;  // uniform across the warp
-  dv_gather_warp<T, GatherTerm<T>>(i0, n_rows, B, offsets, list, factors, maxima, lp_n, grad,
-                               d_value, S, M, lv, ex);
 }
 
 template <typename T>
@@ -232,33 +228,33 @@ int launch(const void* value, const void* loc, const void* aw, const void* grad,
            void* d_value, void* d_loc, void* d_aw, void* ws, long long ws_words, int B,
            int S, int Q, int M, int D, int L, int P, const int* shapes, cudaStream_t stream) {
   Levels lv;
-  if (D != kD || !make_levels(lv, L, shapes, S)) return static_cast<int>(cudaErrorInvalidValue);
+  if (D != kD || B * M > 65535 || !make_levels(lv, L, shapes, S))
+    return static_cast<int>(cudaErrorInvalidValue);
   const ExtLevels ex = make_ext(lv);
   const long long n_rows = static_cast<long long>(B) * Q * M;
+  const long long v_rows = static_cast<long long>(B) * S * M;
   const long long n_keys = B * ex.total * M;
   DvPlan plan;
-  const long long n_taps = n_rows * L * P;
-  if (!make_plan(plan, ws, n_taps, n_keys) || ws_words < dv_words(n_taps, n_keys))
+  if (!make_plan(plan, ws, v_rows, n_keys) || ws_words < dv_words(v_rows, n_keys))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long v_rows = static_cast<long long>(B) * S * M;
   if (v_rows == 0) return static_cast<int>(cudaSuccess);
-  cudaError_t err = dv_zero(plan, stream);
+  cudaError_t err = dv_prepare<T, Term<T>>(plan, static_cast<const float*>(loc),
+                                           static_cast<const float*>(aw),
+                                           static_cast<const T*>(grad), B, S, Q, M, P, lv, ex,
+                                           stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_rows > 0) {
     const long long blocks = (n_rows + 2 * (kThreads / 32) - 1) / (2 * (kThreads / 32));
     msda_sep_bwd_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
         static_cast<const T*>(value), static_cast<const float*>(loc),
         static_cast<const float*>(aw), static_cast<const T*>(grad),
-        static_cast<float*>(d_loc), static_cast<float*>(d_aw), plan.factors, plan.keys,
-        plan.offsets, plan.maxima, n_rows, S, Q, M, P, lv, ex);
+        static_cast<float*>(d_loc), static_cast<float*>(d_aw), n_rows, S, Q, M, P, lv);
+    err = dv_scatter<T, Term<T>>(plan, static_cast<const float*>(loc),
+                                 static_cast<const float*>(aw), static_cast<const T*>(grad), B, S,
+                                 Q, M, P, lv, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  dv_scan_and_place<GatherTerm<T>>(plan, stream);
-  const long long warps = (v_rows + kRowsPerWarp - 1) / kRowsPerWarp;
-  const unsigned gather_blocks =
-      static_cast<unsigned>((warps * 32 + kGatherThreads - 1) / kGatherThreads);
-  msda_sep_bwd_gather_kernel<T><<<gather_blocks, kGatherThreads, 0, stream>>>(
-      static_cast<const T*>(grad), static_cast<T*>(d_value), plan.offsets, plan.list,
-      plan.factors, plan.maxima, v_rows, B, S, M, L * P, lv, ex);
+  dv_convert<T>(plan, static_cast<T*>(d_value), stream);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -269,7 +265,7 @@ extern "C" long long msda_sep_bwd_workspace(int B, int S, int Q, int M, int L, i
                                             const int* shapes) {
   Levels lv;
   if (!make_levels(lv, L, shapes, S)) return -1;
-  return dv_words(static_cast<long long>(B) * Q * M * L * P, B * make_ext(lv).total * M);
+  return dv_words(static_cast<long long>(B) * S * M, B * make_ext(lv).total * M);
 }
 
 // shapes: host array of L (h, w) pairs; D must be 32; ws: msda_sep_bwd_workspace()

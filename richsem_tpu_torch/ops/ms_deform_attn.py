@@ -14,6 +14,11 @@
   and zero-padded taps, accumulated in float32. The value is gathered in
   float32 too, so autograd folds d_value in float32 and casts it once, as
   K1-bwd does.
+* :func:`ms_deform_attn_dvalue_plain` -- K1-bwd's d_value as its deterministic
+  pass computes it (``csrc/msda_dvalue.cuh``), in plain PyTorch: the same
+  terms, rounded as the kernel rounds them, summed in 64-bit fixed point
+  (:func:`fixed_point_dvalue`), so bit for bit the kernel's on any device.
+  The tests and ``chip_smoke.py`` hold the kernel to it; no path runs it.
 * :func:`compute_sampling_locations` -- reference points + offsets -> locations.
 * :func:`tiled_supported` -- the windowing plan test of
   ``richsem_tpu/ops/ms_deform_attn_tiled.py``; the port only needs it for the
@@ -155,6 +160,112 @@ def ms_deform_attn_plain(
     return out.reshape(b, q, m * d).to(value.dtype)
 
 
+F32_MAX = 3.4028234663852886e38
+
+
+def _abs_bits_max(x: torch.Tensor) -> torch.Tensor:
+    """The largest |x| of a float32 tensor as its bits (int32, 0 when empty):
+    as integers every finite |x| lies below +inf, below NaN, as the kernels'
+    ``abs_bits`` maxima order them."""
+    bits = x.float().reshape(-1).view(torch.int32) & 0x7FFFFFFF
+    return bits.max() if bits.numel() else bits.new_zeros(())
+
+
+def _pow2(p: torch.Tensor) -> torch.Tensor:
+    """2^p for int p in [-126, 127], from the bits (``msda_dvalue.cuh:pow2``)."""
+    return ((p.int() + 127) << 23).view(torch.float32)
+
+
+def dv_shift(bound: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """``msda_dvalue.cuh:dv_shift``: the shift k of a row's fixed-point sums
+    for n >= 1 terms under a finite bound > 0 (float32, 0-d): 61 - c - e, with
+    n <= 2^c and bound < 2^e (frexp's exponent). -> int64 like ``n``."""
+    _, e = torch.frexp(bound.float())
+    _, c = torch.frexp((n - 1).clamp(min=0).double())  # (n - 1).bit_length()
+    return 61 - c.long() - e.long()
+
+
+def fixed_point_dvalue(value: torch.Tensor, rows: List[torch.Tensor], terms_of,
+                       g_bits: torch.Tensor, f_bits: torch.Tensor) -> torch.Tensor:
+    """The deterministic d_value pass of K1-bwd and K3-bwd (``csrc/msda_dvalue.cuh``)
+    in plain PyTorch, on the device of its inputs.
+
+    ``rows[i]`` holds the value row ((b * S + s) * M + m) of each entry of
+    chunk i and ``terms_of(i)`` its float32 terms [entries, D]; ``g_bits`` and
+    ``f_bits`` are the call's largest |g| and largest factor bound as bits
+    (:func:`_abs_bits_max`). Each row's shift comes from its count of entries n
+    and the bound max|g| * the largest factor bound (:func:`dv_shift`, 0 for a
+    bound of 0); each term, times 2^k (two exact float32 products), is rounded
+    to the nearest integer (ties to even), the int64 rows summed with
+    ``index_add_`` (exact, so in any order), each sum rounded once to float32,
+    times 2^-k, and once to the value's dtype. A row with no entry is 0; where
+    the bound is not finite, every element of a row with an entry is a quiet
+    NaN with the kernel's bits. -> d_value like ``value``."""
+    b, s, m, d = value.shape
+    n_rows, dev = b * s * m, value.device
+    n = torch.zeros(n_rows, dtype=torch.int64, device=dev)
+    for r in rows:
+        n += torch.bincount(r, minlength=n_rows)
+    bound = g_bits.view(torch.float32) * f_bits.view(torch.float32)
+    finite = bool(bound <= F32_MAX)
+    k = torch.where(n > 0, dv_shift(bound, n), 0) if bool(bound != 0) else torch.zeros_like(n)
+    acc = torch.zeros(n_rows, d, dtype=torch.int64, device=dev)
+    if finite:
+        for i, r in enumerate(rows):
+            kr = k[r]
+            hi = kr.clamp(max=127)
+            scaled = terms_of(i) * _pow2(hi)[:, None] * _pow2(kr - hi)[:, None]
+            acc.index_add_(0, r, torch.round(scaled).long())
+    a = (-k).clamp(min=-126)
+    out = acc.float() * _pow2(a)[:, None] * _pow2(-k - a)[:, None]
+    out = out.to(value.dtype)
+    if not finite:
+        ints = out.view(torch.int32 if value.dtype == torch.float32 else torch.int16)
+        ints[n > 0] = 0x7FFFFFFF if value.dtype == torch.float32 else 0x7FFF
+    return out.reshape(b, s, m, d)
+
+
+def ms_deform_attn_dvalue_plain(value, spatial_shapes, sampling_locations, attention_weights,
+                                grad_out):
+    """K1-bwd's d_value, bit for bit (``csrc/ms_deform_attn_bwd.cu``), in plain
+    PyTorch: a tap whose corners touch its level (``inside``) gives each
+    in-level corner e the terms ``g * (w_e * a)``, every product rounded to
+    float32 as the kernel rounds it; the factor bound is max_e |w_e a| over
+    those taps, max|g| over the rows (b, q, m) with such a tap; summed by
+    :func:`fixed_point_dvalue`. Any device."""
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    b, s, m, d = value.shape
+    loc, aw = sampling_locations.float(), attention_weights.float()
+    q = loc.shape[1]
+    g = grad_out.to(value.dtype).float().reshape(b * q * m, d)
+    keyed_rows = torch.zeros(b, q, m, dtype=torch.bool, device=value.device)
+    f_bits = torch.zeros((), dtype=torch.int32, device=value.device)
+    rows, chunks = [], []
+    start = 0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        x = loc[:, :, :, lvl, :, 0] * w - 0.5  # [B, Q, M, P]
+        y = loc[:, :, :, lvl, :, 1] * h - 0.5
+        inside = (x > -1) & (x < w) & (y > -1) & (y < h)
+        keyed_rows |= inside.any(-1)
+        x0, y0 = torch.floor(x), torch.floor(y)
+        dx, dy = x - x0, y - y0
+        a = aw[:, :, :, lvl]
+        fac = [(1 - dy) * (1 - dx) * a, (1 - dy) * dx * a, dy * (1 - dx) * a, dy * dx * a]
+        bound = torch.fmax(torch.fmax(fac[0].abs(), fac[1].abs()),
+                           torch.fmax(fac[2].abs(), fac[3].abs()))
+        f_bits = torch.maximum(f_bits, _abs_bits_max(bound[inside]))
+        for e in range(4):
+            cx, cy = x0.long() + (e & 1), y0.long() + (e >> 1)
+            bi, qi, mi, pi = torch.nonzero(
+                inside & (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h), as_tuple=True)
+            rows.append((bi * s + start + cy[bi, qi, mi, pi] * w + cx[bi, qi, mi, pi]) * m + mi)
+            chunks.append(((bi * q + qi) * m + mi, fac[e][bi, qi, mi, pi]))
+        start += h * w
+    g_bits = _abs_bits_max(g[keyed_rows.reshape(-1)])
+    return fixed_point_dvalue(value, rows, lambda i: g[chunks[i][0]] * chunks[i][1][:, None],
+                              g_bits, f_bits)
+
+
 _K1 = "ms_deform_attn_fwd"
 _K1_BWD = "ms_deform_attn_bwd"
 
@@ -191,7 +302,8 @@ def backward_launch(name: str, fn_name: str, kernel: str, value, spatial_shapes,
     """Launch a deformable-attention backward kernel (K1-bwd or K3-bwd) on
     checked CUDA tensors -> (d_value in the value's dtype, d_loc, d_aw). The
     kernel writes every d_value element once; its d_value pass takes an int32
-    workspace of the words the library asks for."""
+    workspace of the words the library asks for (the value rows' 64-bit
+    integers first: the allocation's start is aligned)."""
     grad_out = grad_out.to(value.dtype).contiguous()
     d_value = torch.empty_like(value)
     d_loc = torch.empty_like(loc)

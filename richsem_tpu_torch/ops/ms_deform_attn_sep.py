@@ -32,6 +32,10 @@ and the backward of ``_bwd_kernel`` (:109-170), with ``g`` first rounded to
   take a head dim of 32 only, as K1 and K1-bwd do. On a CPU tensor it runs
   :func:`ms_deform_attn_sep_plain`, at any head dim. Nothing else: a CUDA
   call that cannot launch raises.
+* :func:`ms_deform_attn_sep_dvalue_plain` -- K3-bwd's d_value as its
+  deterministic pass computes it (``csrc/msda_dvalue.cuh``), bit for bit, in
+  plain PyTorch (``ms_deform_attn.fixed_point_dvalue``); the tests and
+  ``chip_smoke.py`` hold the kernel to it, no path runs it.
 * :func:`ms_deform_attn_sep_plain` -- the plain PyTorch version: the dense
   separable products above, chunked over rows as the TPU grid chunks them
   (``_num_chunks``), with the explicit backward
@@ -50,8 +54,9 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from richsem_tpu_torch.ops.ms_deform_attn import (_check, _check_cuda, _check_head_dim, _lib,
-                                                  _shape_args, backward_launch)
+from richsem_tpu_torch.ops.ms_deform_attn import (_abs_bits_max, _check, _check_cuda,
+                                                  _check_head_dim, _lib, _shape_args,
+                                                  backward_launch, fixed_point_dvalue)
 
 _CK_TARGET = 512  # rows per chunk of the dense plain version, as the TPU grid
 
@@ -165,6 +170,50 @@ def ms_deform_attn_sep_backward_plain(value, spatial_shapes, sampling_locations,
     d_value = torch.cat(d_imgs, 1).to(value.dtype)
     d_loc = torch.stack([unpack(d_x), unpack(d_y)], -1).to(loc.dtype)
     return d_value, d_loc, unpack(d_a).to(aw.dtype)
+
+
+def ms_deform_attn_sep_dvalue_plain(value, spatial_shapes, sampling_locations,
+                                    attention_weights, grad_out):
+    """K3-bwd's d_value, bit for bit (``csrc/ms_deform_attn_sep_bwd.cu``), in plain
+    PyTorch: a tap whose corners touch its level gives each in-range corner
+    (i, j) the terms ``hxw_i * cdt(g * hy_j)``, with ``hxw_i = cdt(hat(x, x0 + i)
+    * aw)`` and ``hy_j = hat(y, y0 + j)`` (``msda_common.cuh:sep_tap``: 0 out of
+    range); the factor bound is max_i |hxw_i| * max_j |hy_j| over those taps,
+    max|g| over every row; summed by ``fixed_point_dvalue``. Any device."""
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    b, s, m, d = value.shape
+    loc, aw = sampling_locations.float(), attention_weights.float()
+    q = loc.shape[1]
+    cdt = _cdt(value)
+    g = grad_out.to(value.dtype).float().reshape(b * q * m, d)
+    f_bits = torch.zeros((), dtype=torch.int32, device=value.device)
+    rows, chunks = [], []
+    start = 0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        x = loc[:, :, :, lvl, :, 0] * w - 0.5  # [B, Q, M, P]
+        y = loc[:, :, :, lvl, :, 1] * h - 0.5
+        inside = (x > -1) & (x < w) & (y > -1) & (y < h)
+        x0, y0 = torch.floor(x), torch.floor(y)
+        a = aw[:, :, :, lvl]
+        xin, yin = (x0 >= 0, x0 + 1 < w), (y0 >= 0, y0 + 1 < h)
+        zero = x.new_zeros(())
+        hxw = [torch.where(xin[i], (_hat(x, x0 + i) * a).to(cdt).float(), zero) for i in (0, 1)]
+        hy = [torch.where(yin[j], _hat(y, y0 + j), zero) for j in (0, 1)]
+        bound = torch.fmax(hxw[0].abs(), hxw[1].abs()) * torch.fmax(hy[0].abs(), hy[1].abs())
+        f_bits = torch.maximum(f_bits, _abs_bits_max(bound[inside]))
+        for e in range(4):
+            i, j = e & 1, e >> 1
+            bi, qi, mi, pi = torch.nonzero(inside & xin[i] & yin[j], as_tuple=True)
+            cx, cy = x0[bi, qi, mi, pi].long() + i, y0[bi, qi, mi, pi].long() + j
+            rows.append((bi * s + start + cy * w + cx) * m + mi)
+            chunks.append(((bi * q + qi) * m + mi, hxw[i][bi, qi, mi, pi], hy[j][bi, qi, mi, pi]))
+        start += h * w
+
+    def terms_of(i):
+        gi, wx, hyv = chunks[i]
+        return wx[:, None] * (g[gi] * hyv[:, None]).to(cdt).float()
+
+    return fixed_point_dvalue(value, rows, terms_of, _abs_bits_max(g), f_bits)
 
 
 class _SepPlainFn(torch.autograd.Function):

@@ -94,15 +94,14 @@ def annotate(name: str) -> Iterator[None]:
 
 
 # The __global__ functions of richsem_tpu_torch/csrc, as a profile names them
-# (K2-bwd is three of them, K5 two; K1-bwd and K3-bwd each their tap kernel,
-# the d_value pass's scan and place kernels, shared, and a gather kernel; the
+# (K2-bwd is three of them, K5 two; K1-bwd and K3-bwd each their tap kernel and
+# the d_value pass's count, shift, scatter and convert kernels, shared; the
 # probes' after the model's).
-DVALUE_PASS = ("dvalue_scan_reduce_kernel", "dvalue_scan_sums_kernel",
-               "dvalue_scan_write_kernel", "dvalue_place_kernel")
-HAND_WRITTEN = ("msda_fwd_kernel", "msda_bwd_kernel", "msda_bwd_gather_kernel",
+DVALUE_PASS = ("dvalue_count_kernel", "dvalue_shift_kernel", "dvalue_scatter_kernel",
+               "dvalue_convert_kernel")
+HAND_WRITTEN = ("msda_fwd_kernel", "msda_bwd_kernel",
                 "encoder_tail_fwd_kernel", "row_pass_kernel", "dw_gemm_kernel", "colsum_kernel",
-                "msda_sep_fwd_kernel", "msda_sep_bwd_kernel", "msda_sep_bwd_gather_kernel",
-                *DVALUE_PASS, "auction_kernel", "sumsq_kernel", "sumsq_finish_kernel",
+                "msda_sep_fwd_kernel", "msda_sep_bwd_kernel", *DVALUE_PASS, "auction_kernel", "sumsq_kernel", "sumsq_finish_kernel",
                 "adamw_kernel", "nms_kernel", "vpu_f32_kernel", "vpu_bf16_kernel",
                 "mxu_kernel", "mxu_reduce_kernel", "grid_kernel", "repeat_f32_kernel",
                 "repeat_bf16_kernel", "cell_kernel", "cell_reduce_kernel", "tile_kernel",

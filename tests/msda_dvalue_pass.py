@@ -12,7 +12,10 @@ the largest factor bound (``factor_bound``) and the count of the row's terms
 give the shift ``dv_shift``; every
 term times 2^k is rounded to an integer, the int64 sum is exact, and it is
 rounded once to float32. Where the bound is not finite (a g or a factor is
-not), every element of a row with an entry is NaN.
+not), every element of a row with an entry is NaN. (The kernels keep no
+list of the taps: each term's integer goes into its row by a 64-bit atomic
+add, in whatever order the card runs them, for which the placement order
+here stands; the integers, and so the sums, are the same.)
 
 JAX-free: the tests hold it against the JAX package's VJPs themselves.
 """
@@ -237,7 +240,11 @@ def d_value(loc, aw, g, shapes, value_shape, kernel="k1", bf16=False, order=None
     offsets, lst = place(keys, n_keys, np.arange(len(keys)) if order is None else order)
     terms = (k1_terms(loc, aw, g, shapes) if kernel == "k1"
              else k3_terms(loc, aw, g, shapes, bf16))
-    bound = (np.abs(np.asarray(g, F32)).max(initial=F32(0))
+    g = np.asarray(g, F32)
+    if kernel == "k1":  # K1-bwd takes max|g| over the rows (b, q, m) with a keyed tap
+        lp = loc.shape[3] * loc.shape[4]
+        g = g.reshape(b * loc.shape[1] * m, -1)[(keys.reshape(-1, lp) >= 0).any(1)]
+    bound = (np.abs(g).max(initial=F32(0))
              * factor_bound(loc, aw, shapes, keys, kernel, bf16))  # the call's, f32
     out = gather(offsets, lst, shapes, b, m, terms, bound)
     if out.shape[-1] == 0:

@@ -1,0 +1,7 @@
+"""``encoder_tail_fwd_roofline.eval``: K2's calls' bounds over the device time of their public entry, %."""
+
+from benchmark.metrics import _common
+
+
+def read(run):
+    return _common.share(run, "eval", _common.SHARES["encoder_tail_fwd"])

@@ -1,0 +1,7 @@
+"""``msda_bwd_roofline.train``: K1-bwd's calls' bounds over the device time of their public entry, %."""
+
+from benchmark.metrics import _common
+
+
+def read(run):
+    return _common.share(run, "train", _common.SHARES["msda_bwd"])

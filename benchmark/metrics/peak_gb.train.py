@@ -1,0 +1,7 @@
+"""``peak_gb.train``: the card's peak allocated GB over set-up and the window."""
+
+from benchmark.metrics import _common
+
+
+def read(run):
+    return _common.peak_gb(run, "train")
